@@ -1,0 +1,60 @@
+"""lobpcg_tpu_torch — the PyTorch / CUDA port of lobpcg_tpu.
+
+The same solvers, operators and config knobs as the JAX package
+``lobpcg_tpu``, written for one NVIDIA H100: plain tensor code in
+PyTorch, and every TPU kernel on the ported path a kernel written by
+hand for Hopper (``csrc/``, built with nvcc at first use).  This package
+imports torch, numpy and scipy, never jax.
+"""
+
+from lobpcg_tpu_torch.config import SolverConfig
+from lobpcg_tpu_torch.operators.linop import (
+    BlockAntiDiagOperator,
+    BlockDiagOperator,
+    CallableOperator,
+    ComposedOperator,
+    DenseOperator,
+    DiagonalOperator,
+    JacobiPreconditioner,
+    Laplacian1D,
+    LinearOperator,
+    ScaledOperator,
+    ShiftedOperator,
+    SumOperator,
+)
+from lobpcg_tpu_torch.operators.chebyshev import ChebyshevFilter
+from lobpcg_tpu_torch.solvers.ilobpcg import ilobpcg
+from lobpcg_tpu_torch.solvers.lobpcg import lobpcg
+from lobpcg_tpu_torch.solvers.state import (
+    ILOBPCGResult,
+    LOBPCGResult,
+    SolveHistory,
+)
+
+# `klobpcg` is a pure alias of the standard solver, as in the JAX package.
+klobpcg = lobpcg
+
+__all__ = [
+    "SolverConfig",
+    "LinearOperator",
+    "DenseOperator",
+    "DiagonalOperator",
+    "JacobiPreconditioner",
+    "ChebyshevFilter",
+    "CallableOperator",
+    "Laplacian1D",
+    "BlockDiagOperator",
+    "BlockAntiDiagOperator",
+    "ShiftedOperator",
+    "ScaledOperator",
+    "SumOperator",
+    "ComposedOperator",
+    "lobpcg",
+    "ilobpcg",
+    "klobpcg",
+    "LOBPCGResult",
+    "ILOBPCGResult",
+    "SolveHistory",
+]
+
+__version__ = "0.1.0"

@@ -1,0 +1,86 @@
+"""Carry operators and configs across from the JAX package.
+
+``operator_from_reference`` turns a ``lobpcg_tpu`` operator tree into
+the port's equivalent; ``config_from_reference`` converts a
+``lobpcg_tpu.SolverConfig``.  Neither imports jax: dataclass fields are
+read with ``np.asarray`` and dispatch is on the class name, so the same
+numpy bytes reach both packages.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+from lobpcg_tpu_torch.config import SolverConfig
+from lobpcg_tpu_torch.operators import linop
+from lobpcg_tpu_torch.operators.chebyshev import ChebyshevFilter
+
+
+def _tensor(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
+    t = torch.from_numpy(np.array(np.asarray(x)))
+    return t.to(device=device, dtype=dtype if dtype is not None else t.dtype)
+
+
+def _scalar(x) -> float:
+    return float(np.asarray(x).real)
+
+
+def _scalar_like(x, dtype):
+    """A scalar operator coefficient: a Python number (complex kept)."""
+    a = np.asarray(x)
+    if np.iscomplexobj(a) or (dtype is not None and dtype.is_complex):
+        return complex(a)
+    return float(a)
+
+
+def operator_from_reference(op, *, device, dtype: Optional[torch.dtype] = None):
+    """The port's counterpart of a JAX-package operator tree.
+
+    Handles Laplacian1D, DiagonalOperator, JacobiPreconditioner,
+    BlockAntiDiagOperator, BlockDiagOperator, SumOperator,
+    ScaledOperator, ShiftedOperator, ComposedOperator, DenseOperator and
+    ChebyshevFilter.  ``dtype`` (optional) casts every tensor field.
+    """
+    name = type(op).__name__
+
+    def sub(o):
+        return operator_from_reference(o, device=device, dtype=dtype)
+
+    if name == "Laplacian1D":
+        scale = np.asarray(op.scale)
+        return linop.Laplacian1D(
+            scale=_scalar(scale), n=int(op.n), segments=int(op.segments),
+            pad_lanes=bool(op.pad_lanes),
+            dtype=dtype if dtype is not None
+            else torch.from_numpy(np.zeros((), scale.dtype)).dtype,
+        )
+    if name in ("DiagonalOperator", "JacobiPreconditioner",
+                "BlockAntiDiagOperator"):
+        return getattr(linop, name)(_tensor(op.d, device, dtype))
+    if name == "DenseOperator":
+        return linop.DenseOperator(_tensor(op.A, device, dtype))
+    if name == "BlockDiagOperator":
+        return linop.BlockDiagOperator(sub(op.inner), int(op.copies))
+    if name == "SumOperator":
+        return linop.SumOperator(sub(op.left), sub(op.right))
+    if name == "ComposedOperator":
+        return linop.ComposedOperator(sub(op.outer), sub(op.inner))
+    if name == "ScaledOperator":
+        return linop.ScaledOperator(sub(op.op), _scalar_like(op.alpha, dtype))
+    if name == "ShiftedOperator":
+        return linop.ShiftedOperator(sub(op.op), _scalar_like(op.sigma, dtype))
+    if name == "ChebyshevFilter":
+        return ChebyshevFilter(
+            sub(op.op), lo=_scalar(op.lo), hi=_scalar(op.hi),
+            degree=int(op.degree), chunk=int(op.chunk),
+        )
+    raise TypeError(f"operator_from_reference: no counterpart for {name}")
+
+
+def config_from_reference(cfg) -> SolverConfig:
+    """A port SolverConfig with the same field values."""
+    return SolverConfig(**dataclasses.asdict(cfg))

@@ -1,0 +1,71 @@
+"""Chebyshev approximate-inverse preconditioner (port of
+``lobpcg_tpu/operators/chebyshev.py``).
+
+T = p(A) ~ A^{-1} via the Chebyshev semi-iteration for A y = x over
+[lo, hi] (Saad, Iterative Methods, Alg. 12.1): `degree - 1` operator
+applications per T-apply, and p stays positive on [lo, hi], so T is an
+SPD preconditioner.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from lobpcg_tpu_torch.operators.linop import LinearOperator
+
+
+@dataclasses.dataclass
+class ChebyshevFilter(LinearOperator):
+    """T ~ A^{-1} on [lo, hi] by `degree` Chebyshev-iteration steps.
+
+    ``lo`` / ``hi`` are Python floats.  ``chunk``: apply the (linear)
+    recurrence to one contiguous column chunk of that width at a time,
+    which bounds the recurrence's ~4 live blocks to [n, chunk] each.
+    """
+
+    op: LinearOperator
+    lo: float
+    hi: float
+    degree: int = 8
+    chunk: int = 0  # 0 = whole block at once
+
+    def apply_width_ok(self, k):
+        return self.op.apply_width_ok(k)
+
+    def matmat(self, X):
+        n, k = X.shape
+        if self.chunk and self.chunk < k and k % self.chunk == 0:
+            Y = torch.empty_like(X)
+            for j in range(0, k, self.chunk):
+                Y[:, j : j + self.chunk] = self._apply(
+                    X[:, j : j + self.chunk].contiguous()
+                )
+            return Y
+        return self._apply(X)
+
+    def _apply(self, X):
+        theta = (self.hi + self.lo) / 2.0
+        delta = (self.hi - self.lo) / 2.0
+        sigma1 = theta / delta
+
+        rho = 1.0 / sigma1
+        d = X / theta
+        y = d
+        for _ in range(self.degree - 1):
+            rho_next = 1.0 / (2.0 * sigma1 - rho)
+            d = rho_next * rho * d + (2.0 * rho_next / delta) * (
+                X - self.op.matmat(y)
+            )
+            y = y + d
+            rho = rho_next
+        return y
+
+    @property
+    def shape(self):
+        return self.op.shape
+
+    @property
+    def dtype(self):
+        return self.op.dtype

@@ -1,0 +1,309 @@
+"""Matrix-free linear operators on [n, k] blocks (port of
+``lobpcg_tpu/operators/linop.py``).
+
+Operators are plain classes with ``matmat``, ``shape`` and ``dtype``;
+their tensor fields live on the device the solve runs on.  The JAX
+package's pytree registration has no role in torch and is dropped.
+"""
+
+from __future__ import annotations
+
+import abc
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from lobpcg_tpu_torch.ops.cuda.stencil import (
+    KERNEL_DTYPES,
+    stencil_matmat,
+    stencil_matmat_reference,
+)
+
+
+class LinearOperator(abc.ABC):
+    """Protocol: a Hermitian (or general) linear operator on [n, k] blocks."""
+
+    @abc.abstractmethod
+    def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        """Apply the operator to a block of column vectors: Y = Op @ X."""
+
+    @property
+    @abc.abstractmethod
+    def shape(self) -> tuple[int, int]:
+        ...
+
+    @property
+    @abc.abstractmethod
+    def dtype(self) -> torch.dtype:
+        ...
+
+    def __call__(self, X: torch.Tensor) -> torch.Tensor:
+        return self.matmat(X)
+
+    def apply_width_ok(self, k: int) -> bool:
+        """Does applying at block width k run this operator's fast path?
+
+        The JAX package asks this for TPU lane economics (its kernels
+        need 128-lane multiples, so two width-64 applies are packed into
+        one).  The Hopper kernels take any width, so every operator
+        answers True and ``ops.gram`` never packs.
+        """
+        del k
+        return True
+
+    # --- composition sugar -------------------------------------------------
+    def __add__(self, other: "LinearOperator") -> "LinearOperator":
+        return SumOperator(self, other)
+
+    def __mul__(self, scalar) -> "LinearOperator":
+        return ScaledOperator(self, scalar)
+
+    __rmul__ = __mul__
+
+    def __matmul__(self, other: "LinearOperator") -> "LinearOperator":
+        return ComposedOperator(self, other)
+
+
+@dataclasses.dataclass
+class DenseOperator(LinearOperator):
+    """Dense matrix operator."""
+
+    A: torch.Tensor  # [n, n]
+
+    def matmat(self, X):
+        return torch.matmul(self.A, X)
+
+    @property
+    def shape(self):
+        return tuple(self.A.shape)
+
+    @property
+    def dtype(self):
+        return self.A.dtype
+
+
+@dataclasses.dataclass
+class DiagonalOperator(LinearOperator):
+    """Diagonal operator."""
+
+    d: torch.Tensor  # [n]
+
+    def matmat(self, X):
+        return self.d[:, None] * X
+
+    @property
+    def shape(self):
+        n = self.d.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.d.dtype
+
+
+@dataclasses.dataclass
+class JacobiPreconditioner(LinearOperator):
+    """T = diag(d)^{-1}; the standard preconditioner shape for LOBPCG."""
+
+    d: torch.Tensor  # [n] diagonal of A (or an approximation)
+
+    def matmat(self, X):
+        return X / self.d[:, None]
+
+    @property
+    def shape(self):
+        n = self.d.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.d.dtype
+
+
+@dataclasses.dataclass
+class CallableOperator(LinearOperator):
+    """Matrix-free operator from a user-supplied block function
+    ``fn(X, *args) -> Y`` with X, Y of shape [n, k]."""
+
+    args: Any
+    fn: Callable = None
+    n: int = 0
+    _dtype: Any = torch.float32
+
+    def matmat(self, X):
+        return self.fn(X, *self.args)
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    @property
+    def dtype(self):
+        return self._dtype
+
+
+@dataclasses.dataclass
+class Laplacian1D(LinearOperator):
+    """Segmented 1-D Dirichlet Laplacian: block-diag of `segments`
+    independent tridiag[-1, 2, -1] * scale stencils (scale = 1/h^2).
+
+    ``scale`` is a Python float (read once, never per apply) and
+    ``dtype`` the operator's dtype.  Dispatch is on the block's device
+    and dtype only: f32/bf16 go through ``stencil_matmat`` (the CUDA
+    kernel for a CUDA tensor, its plain version for a CPU tensor);
+    other dtypes (f64, complex) take the plain pad/slice formula, as the
+    JAX package does for dtypes its kernel does not take.
+    ``pad_lanes`` is accepted for API parity and ignored: it padded
+    widths to 128 TPU lanes, and the Hopper kernel takes any width.
+    """
+
+    scale: float
+    n: int = 0
+    segments: int = 1
+    pad_lanes: bool = False
+    dtype: torch.dtype = torch.float32
+
+    def matmat(self, X):
+        if X.dtype in KERNEL_DTYPES:
+            return stencil_matmat(
+                X.contiguous(), self.scale, num_segments=self.segments
+            )
+        return stencil_matmat_reference(
+            X, self.scale, num_segments=self.segments
+        )
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+
+@dataclasses.dataclass
+class BlockDiagOperator(LinearOperator):
+    """A = diag(K, K, ..., K): `copies` stacked copies of `inner`."""
+
+    inner: LinearOperator
+    copies: int = 2
+
+    def apply_width_ok(self, k):
+        return self.inner.apply_width_ok(k)
+
+    def matmat(self, X):
+        m = self.inner.shape[0]
+        parts = [
+            self.inner.matmat(X[i * m : (i + 1) * m]) for i in range(self.copies)
+        ]
+        return torch.cat(parts, dim=0)
+
+    @property
+    def shape(self):
+        n = self.inner.shape[0] * self.copies
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.inner.dtype
+
+
+@dataclasses.dataclass
+class BlockAntiDiagOperator(LinearOperator):
+    """B = {{0, D}, {D, 0}} with D = diag(d): swaps halves and scales."""
+
+    d: torch.Tensor  # [m], n = 2m
+
+    def matmat(self, X):
+        m = self.d.shape[0]
+        top = self.d[:, None] * X[m:]
+        bot = self.d[:, None] * X[:m]
+        return torch.cat([top, bot], dim=0)
+
+    @property
+    def shape(self):
+        n = 2 * self.d.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.d.dtype
+
+
+@dataclasses.dataclass
+class ShiftedOperator(LinearOperator):
+    """op + sigma * I."""
+
+    op: LinearOperator
+    sigma: Any
+
+    def apply_width_ok(self, k):
+        return self.op.apply_width_ok(k)
+
+    def matmat(self, X):
+        return self.op.matmat(X) + self.sigma * X
+
+    @property
+    def shape(self):
+        return self.op.shape
+
+    @property
+    def dtype(self):
+        return self.op.dtype
+
+
+@dataclasses.dataclass
+class ScaledOperator(LinearOperator):
+    op: LinearOperator
+    alpha: Any
+
+    def apply_width_ok(self, k):
+        return self.op.apply_width_ok(k)
+
+    def matmat(self, X):
+        return self.alpha * self.op.matmat(X)
+
+    @property
+    def shape(self):
+        return self.op.shape
+
+    @property
+    def dtype(self):
+        return self.op.dtype
+
+
+@dataclasses.dataclass
+class SumOperator(LinearOperator):
+    left: LinearOperator
+    right: LinearOperator
+
+    def apply_width_ok(self, k):
+        return self.left.apply_width_ok(k) and self.right.apply_width_ok(k)
+
+    def matmat(self, X):
+        return self.left.matmat(X) + self.right.matmat(X)
+
+    @property
+    def shape(self):
+        return self.left.shape
+
+    @property
+    def dtype(self):
+        return self.left.dtype
+
+
+@dataclasses.dataclass
+class ComposedOperator(LinearOperator):
+    outer: LinearOperator
+    inner: LinearOperator
+
+    def apply_width_ok(self, k):
+        return self.outer.apply_width_ok(k) and self.inner.apply_width_ok(k)
+
+    def matmat(self, X):
+        return self.outer.matmat(self.inner.matmat(X))
+
+    @property
+    def shape(self):
+        return (self.outer.shape[0], self.inner.shape[1])
+
+    @property
+    def dtype(self):
+        return self.outer.dtype

@@ -1,0 +1,142 @@
+"""Segmented 1-D tridiagonal stencil SpMM: the hand-written CUDA kernel
+``csrc/stencil1d.cu`` and its plain PyTorch version.
+
+Port of the TPU kernel ``lobpcg_tpu/ops/pallas/stencil.py:
+stencil_matmat_pallas``: Y = scale * (2 X - X[i-1] - X[i+1]) on each of
+``num_segments`` equal row segments of an [n, k] block, with no coupling
+across segment edges (Dirichlet).  ``edge_rows`` ([2, k], optional)
+replaces the zeros above row 0 and below row n-1.
+
+``stencil_matmat`` launches the kernel for a CUDA tensor and runs the
+plain version ``stencil_matmat_reference`` only for a CPU tensor.  The
+kernel takes any k >= 1 (the TPU gate ``k % 128 == 0`` is a fact about
+TPU lanes), f32, and bf16 with f32 arithmetic.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional
+
+import torch
+
+from lobpcg_tpu_torch.ops.cuda.build import build_record, check, load_library
+
+KERNEL_DTYPES = (torch.float32, torch.bfloat16)
+
+_SYMBOLS = {
+    torch.float32: "lobpcg_stencil1d_f32",
+    torch.bfloat16: "lobpcg_stencil1d_bf16",
+}
+
+
+@functools.cache
+def _lib():
+    """The built library with its entry points' ctypes signatures."""
+    lib = load_library("stencil1d")
+    for sym in _SYMBOLS.values():
+        fn = getattr(lib, sym)
+        fn.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+            ctypes.c_float, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+            ctypes.c_void_p,
+        ]
+        fn.restype = ctypes.c_int
+    return lib
+
+
+def build() -> dict:
+    """Build and load the kernel library now; returns the build record
+    (path, whether nvcc ran, its seconds and output)."""
+    _lib()
+    return build_record("stencil1d")
+
+
+def _check_args(X, edge_rows, num_segments):
+    if X.dim() != 2:
+        raise ValueError(f"stencil_matmat: X must be [n, k], got {tuple(X.shape)}")
+    n, k = X.shape
+    if n < 1 or k < 1:
+        raise ValueError(f"stencil_matmat: empty block {tuple(X.shape)}")
+    if num_segments < 1 or n % num_segments:
+        raise ValueError(
+            f"stencil_matmat: n={n} not divisible by num_segments={num_segments}"
+        )
+    if edge_rows is not None:
+        if tuple(edge_rows.shape) != (2, k):
+            raise ValueError(
+                f"stencil_matmat: edge_rows must be [2, {k}], got "
+                f"{tuple(edge_rows.shape)}"
+            )
+        if edge_rows.device != X.device:
+            raise ValueError("stencil_matmat: edge_rows on another device than X")
+
+
+def stencil_matmat_reference(
+    X: torch.Tensor,
+    scale: float,
+    edge_rows: Optional[torch.Tensor] = None,
+    *,
+    num_segments: int = 1,
+) -> torch.Tensor:
+    """Plain version: the pad/slice formula of ``lobpcg_tpu/operators/
+    linop.py`` (Laplacian1D fallback) plus ``edge_rows``.  Any dtype;
+    bf16 computes in f32 and rounds once, as the kernel does."""
+    _check_args(X, edge_rows, num_segments)
+    n, k = X.shape
+    out_dtype = X.dtype
+    if X.dtype == torch.bfloat16:
+        X = X.float()
+    Xs = X.reshape(num_segments, n // num_segments, k)
+    Xp = torch.nn.functional.pad(Xs, (0, 0, 1, 1))
+    if edge_rows is not None:
+        Xp[0, 0] = edge_rows[0].to(X.dtype)
+        Xp[-1, -1] = edge_rows[1].to(X.dtype)
+    Y = scale * (2.0 * Xs - Xp[:, 2:] - Xp[:, :-2])
+    return Y.reshape(n, k).to(out_dtype)
+
+
+def stencil_matmat(
+    X: torch.Tensor,
+    scale: float,
+    edge_rows: Optional[torch.Tensor] = None,
+    *,
+    num_segments: int = 1,
+) -> torch.Tensor:
+    """Y = scale * tridiag[-1, 2, -1] X per row segment.
+
+    CUDA tensor: launches ``csrc/stencil1d.cu`` on the current stream
+    (f32 or bf16, contiguous, any k), without synchronising, and counts
+    the launch in ``stencil_matmat.launches``; anything the kernel does
+    not take raises.  CPU tensor: the plain version.
+    """
+    _check_args(X, edge_rows, num_segments)
+    if X.device.type == "cpu":
+        return stencil_matmat_reference(
+            X, scale, edge_rows, num_segments=num_segments
+        )
+    if X.device.type != "cuda":
+        raise ValueError(f"stencil_matmat: unsupported device {X.device}")
+    if X.dtype not in KERNEL_DTYPES:
+        raise TypeError(f"stencil_matmat: kernel takes f32/bf16, got {X.dtype}")
+    if not X.is_contiguous():
+        raise ValueError("stencil_matmat: X must be contiguous")
+    if edge_rows is not None:
+        edge_rows = edge_rows.to(X.dtype).contiguous()
+    lib = _lib()
+    n, k = X.shape
+    Y = torch.empty_like(X)
+    with torch.cuda.device(X.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        code = getattr(lib, _SYMBOLS[X.dtype])(
+            X.data_ptr(), Y.data_ptr(),
+            None if edge_rows is None else edge_rows.data_ptr(),
+            float(scale), n, k, n // num_segments, stream,
+        )
+    stencil_matmat.launches += 1
+    check(lib, code, "stencil1d launch")
+    return Y
+
+
+stencil_matmat.launches = 0

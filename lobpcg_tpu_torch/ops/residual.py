@@ -1,0 +1,71 @@
+"""Residuals, residual norms, and operator-norm estimation (port of
+``lobpcg_tpu/ops/residual.py``)."""
+
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from lobpcg_tpu_torch.ops.gram import apply_block_op
+from lobpcg_tpu_torch.operators.linop import LinearOperator
+
+
+def get_residual(
+    X: torch.Tensor,
+    AX: Optional[torch.Tensor],
+    lam: torch.Tensor,
+    A: LinearOperator,
+    B: Optional[LinearOperator] = None,
+    BX: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """W = A X - B X diag(lam).  AX may be a cached A@X; BX likewise a
+    pre-applied B@X."""
+    W = A.matmat(X) if AX is None else AX
+    if BX is None:
+        BX = apply_block_op(B, X)
+    return W - BX * lam[None, :].to(BX.dtype)
+
+
+def get_residual_norm(
+    W: torch.Tensor,
+    lam: torch.Tensor,
+    a_norm: torch.Tensor,
+    b_norm: torch.Tensor,
+    nev: int,
+    BW: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """Backward-error style relative norms for the first nev columns:
+    resNorm[i] = ||W[:, i]|| / (||A|| + |lam_i| * ||B||).  ``BW``
+    (pre-applied B @ W[:, :nev]) switches the numerator to the
+    B-seminorm sqrt(|w_i^H B w_i|)."""
+    if BW is not None:
+        nom = torch.sqrt(torch.abs(
+            torch.sum(W[:, :nev].conj() * BW[:, :nev], dim=0).real
+        ))
+    else:
+        nom = torch.sqrt(torch.sum(torch.abs(W[:, :nev]) ** 2, dim=0))
+    b_norm = torch.where(b_norm > 0, b_norm, 1.0)
+    denom = a_norm + torch.abs(lam[:nev]).to(nom.dtype) * b_norm
+    return (nom / denom).to(nom.dtype)
+
+
+def estimate_norm(
+    A: LinearOperator,
+    v: torch.Tensor,
+    iters: int = 10,
+) -> torch.Tensor:
+    """||A|| estimate via power iteration from the random start block
+    ``v`` ([n, block]; each column normalized independently, the
+    estimate is the max per-column growth).  The caller draws ``v``
+    (``utils.prng``), where the JAX package passes a key."""
+    nrm0 = torch.sqrt(torch.sum(torch.abs(v) ** 2, dim=0))
+    v = v / torch.where(nrm0 > 0, nrm0, 1.0).to(v.dtype)
+    nrm = nrm0
+    for _ in range(iters):
+        w = A.matmat(v)
+        nrm = torch.sqrt(torch.sum(torch.abs(w) ** 2, dim=0))
+        v = torch.where(
+            nrm > 0, w / torch.where(nrm > 0, nrm, 1.0).to(w.dtype), w
+        )
+    return torch.max(nrm)

@@ -1,0 +1,253 @@
+"""Indefinite LOBPCG solver, Kressner-Pandur-Shao (port of
+``lobpcg_tpu/solvers/ilobpcg.py``).
+
+The same host-loop skeleton as solvers.lobpcg plus: initial SVQB
+B-orthonormalization, the pencil RR with signature tracking
+(ops.indefinite), signature-weighted W orthogonalization every
+iteration, the quality=5 dual-basis projection, the B-application cache,
+rr-fail recovery and the optional stall reset.  Beyond the reads the
+ortho loops' early exits and the SVQB kept counts need, each iteration
+reads the RR's two branch flags together and the residual norms once.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import torch
+
+from lobpcg_tpu_torch.config import STALL_NOISE, SolverConfig, quality_tol, tiny
+from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.ops import masking
+from lobpcg_tpu_torch.ops.gram import (
+    apply_block_op,
+    apply_block_op_pair,
+    b_mm,
+    mixed_chunk_ctx,
+    mm,
+    precision_ctx,
+)
+from lobpcg_tpu_torch.ops.indefinite import (
+    indefinite_rayleigh_ritz,
+    indefinite_rayleigh_ritz_modified,
+)
+from lobpcg_tpu_torch.ops.ortho import ortho_indefinite
+from lobpcg_tpu_torch.ops.residual import get_residual, get_residual_norm
+from lobpcg_tpu_torch.ops.svqb import robust_basis_init
+from lobpcg_tpu_torch.solvers import observe
+from lobpcg_tpu_torch.solvers.lobpcg import (
+    _check_inputs,
+    _config_of,
+    _norms,
+    _prepare_p0,
+    _start_block,
+)
+from lobpcg_tpu_torch.solvers.state import ILOBPCGResult
+from lobpcg_tpu_torch.utils.prng import Draws
+
+
+def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
+                  P0=None, p0_cnt=0, it_cap=None) -> ILOBPCGResult:
+    n = A.shape[0]
+    m = config.size_sub
+    nev = config.nev
+    dtype = A.dtype
+    eps_ortho, eps_drop = config.resolved_eps(dtype)
+    rrdt = config.resolved_rr_dtype(dtype)
+    tn = tiny(dtype if rrdt is None else rrdt)
+    qt = quality_tol(dtype)
+
+    a_norm, b_norm = _norms(A, B, rng, config, n, dtype, device)
+
+    def res_norm(W, lam):
+        BW = (
+            apply_block_op(B, W[:, :nev])
+            if config.residual_norm == "b" else None
+        )
+        return get_residual_norm(W, lam, a_norm, b_norm, nev, BW)
+
+    observe.log_start(config, "ilobpcg", a_norm, b_norm)
+
+    X = _start_block(X0, rng, n, m, dtype, device)
+    X = robust_basis_init(
+        X, B, lambda: rng.fill("refill", (n, m), dtype, device),
+        tau=eps_drop, rr_dtype=rrdt,
+    )
+
+    Cx0, lam, sig, rr_ok0 = indefinite_rayleigh_ritz(
+        X, A, B, method=config.rr_method, tiny=tn, rr_dtype=rrdt
+    )
+    X = mm(X, Cx0)
+    AX = A.matmat(X)
+    W = get_residual(X, AX, lam, A, B)
+    res = res_norm(W, lam)
+
+    P = (
+        torch.zeros((n, m), dtype=dtype, device=device) if P0 is None
+        else P0.to(device=device, dtype=dtype)
+    )
+    p_cnt = p0_cnt if P0 is not None else 0
+    conv, it, q5, stall = 0, 0, 0, 0
+    rr_fail = int(not bool(rr_ok0))
+    res_best = float(torch.max(res))
+    hist = observe.history_init(config, m, lam.dtype, res.dtype, device)
+    if not config.use_ax_cache:
+        AX = None
+
+    limit = config.max_iter if it_cap is None else min(it_cap, config.max_iter)
+    while it < limit and conv < nev:
+        np_act = min(p_cnt, m - conv)
+        nw = m if it == 0 else m - conv
+
+        # Stagnation stabilizer (SolverConfig.stall_reset): perturb W
+        # with column-norm-scaled noise; dead (zero) columns stay zero.
+        tripped = bool(config.stall_reset) and stall >= config.stall_reset
+        if tripped:
+            z = rng.fill(f"stall{it}", (n, m), dtype, device)
+            nrm = torch.sqrt(
+                torch.sum(torch.abs(W) ** 2, dim=0, keepdim=True)
+            ).to(dtype)
+            W = W + z * (STALL_NOISE * nrm)
+            del z
+
+        if T is not None:
+            W = masking.mask_cols(T.matmat(W), nw)
+
+        # Indefinite orthogonalization against [X, P_active] every
+        # iteration.  With use_b_cache, B@X and B@P are applied once and
+        # feed the ortho projector and the RR B-Gram; the ortho pass
+        # returns B@W.
+        if config.use_b_cache:
+            if config.pack_applies:
+                BX, BP = apply_block_op_pair(B, X, P)
+            else:
+                BX, BP = apply_block_op(B, X), apply_block_op(B, P)
+            W, nw, BW = ortho_indefinite(
+                W, nw, (X, P), m + np_act, B,
+                eps_ortho=eps_ortho, eps_drop=eps_drop,
+                max_outer=config.max_outer, max_inner=config.max_inner,
+                rr_dtype=rrdt, Bvb=(BX, BP), return_bu=True,
+                entry_check=config.ortho_skip,
+            )
+            Bblocks = (BX, BP, BW)
+            del BX, BP, BW
+        else:
+            W, nw = ortho_indefinite(
+                W, nw, (X, P), m + np_act, B,
+                eps_ortho=eps_ortho, eps_drop=eps_drop,
+                max_outer=config.max_outer, max_inner=config.max_inner,
+                rr_dtype=rrdt, entry_check=config.ortho_skip,
+            )
+            Bblocks = None
+        blocks = (X, P, W)
+
+        rr = indefinite_rayleigh_ritz_modified(
+            blocks, AX, np_act, nw, A, B,
+            nx=m, method=config.rr_method, tiny=tn, quality_tol=qt,
+            eps_ortho=eps_ortho, eps_drop=eps_drop,
+            max_outer=config.max_outer, max_inner=config.max_inner,
+            rr_dtype=rrdt, Bblocks=Bblocks, pack=config.pack_applies,
+        )
+        del Bblocks
+
+        if rr.rr_ok:
+            if rr.quality == 1 or not config.dual_basis:
+                Xn = b_mm(blocks, rr.Cx)
+                Pn = b_mm(blocks, rr.Cp)
+                AXn = A.matmat(Xn)
+                Wres = get_residual(Xn, AXn, rr.lam, A, B)
+            else:
+                # Dual basis: residual from the accurate basis, iterate
+                # the stable one.
+                X_acc = b_mm(blocks, rr.Cx)
+                Xn = b_mm(blocks, rr.Cx_ortho)
+                Pn = b_mm(blocks, rr.Cp)
+                AXn = A.matmat(Xn) if config.use_ax_cache else None
+                Wres = get_residual(X_acc, None, rr.lam, A, B)
+                del X_acc
+            lam_n, sig_n = rr.lam, rr.sig[:m]
+        else:
+            # The projected pencil solve failed: discard the update, keep
+            # X and its eigenvalues, reset the momentum, rebuild W from X.
+            Wres = get_residual(X, AX, lam, A, B)
+            Xn, Pn, AXn, lam_n, sig_n = X, torch.zeros_like(P), AX, lam, sig
+        del blocks, W
+        if not config.use_ax_cache:
+            AXn = None
+
+        res = res_norm(Wres, lam_n)
+        res_h = res.tolist()
+        convn = masking.prefix_count(res <= config.tol)
+
+        act = m - convn
+        p_next = act if rr.rr_ok else 0
+        P = masking.shift_cols(Pn, convn, p_next)
+        W = masking.shift_cols(Wres, convn, act)
+        del Pn, Wres
+
+        observe.log_iteration(config, "ilobpcg", it, lam_n, res, convn)
+        flag = rr.quality + 8 * int(not rr.rr_ok) + 16 * int(tripped)
+        hist = observe.history_update(hist, it, lam_n, res, convn, flag)
+
+        # Stall accounting: progress = the converged prefix grew or the
+        # worst residual improved 10% on the best seen; an rr-failed
+        # iteration jumps straight to the threshold.
+        res_max = max(res_h)
+        improved = convn > conv or res_max < 0.9 * res_best
+        K = max(config.stall_reset, 1)
+        if improved or tripped:
+            stall = 0
+        else:
+            stall = min(stall + 1 + K * int(not rr.rr_ok), 2 * K)
+        q5 += int(rr.quality == 5 and rr.rr_ok)
+        rr_fail += int(not rr.rr_ok)
+        res_best = min(res_best, res_max)
+        X, AX, lam, sig, conv, p_cnt = Xn, AXn, lam_n, sig_n, convn, p_next
+        it += 1
+
+    return ILOBPCGResult(
+        eigenvalues=lam[:nev],
+        eigenvectors=X[:, :nev],
+        residual_norms=res,
+        signature=sig[:nev],
+        converged=conv,
+        iterations=it,
+        basis=X,
+        momentum=P,
+        history=hist,
+        quality5_count=q5,
+        rr_fail_count=rr_fail,
+    )
+
+
+def ilobpcg(
+    A: LinearOperator,
+    X0: Optional[torch.Tensor] = None,
+    B: Optional[LinearOperator] = None,
+    T: Optional[LinearOperator] = None,
+    *,
+    P0: Optional[torch.Tensor] = None,
+    nev: Optional[int] = None,
+    size_sub: Optional[int] = None,
+    tol: float = 1e-5,
+    max_iter: int = 100,
+    generator: Optional[torch.Generator] = None,
+    config: Optional[SolverConfig] = None,
+    device=None,
+    draws: Optional[Mapping] = None,
+    it_cap: Optional[int] = None,
+) -> ILOBPCGResult:
+    """Solve A x = lambda B x with **indefinite** B for the eigenvalues
+    closest to the positive spectrum edge (KPS ordering: positive
+    ascending first).  B is required.  Device, ``generator`` and
+    ``draws`` as in ``lobpcg``.
+    """
+    if B is None:
+        raise ValueError("ilobpcg: B operator must not be None")
+    config = _config_of(config, nev, size_sub, tol, max_iter)
+    device = _check_inputs(A, X0, config, it_cap, device)
+    P0, p0_cnt = _prepare_p0(P0, A, config)
+    with precision_ctx(config.gram_precision), \
+            mixed_chunk_ctx(config.rr_chunk_rows):
+        return _ilobpcg_impl(A, B, T, X0, Draws(generator, draws), config,
+                             device, P0, p0_cnt, it_cap)

@@ -1,0 +1,294 @@
+"""Standard / generalized LOBPCG solver (port of
+``lobpcg_tpu/solvers/lobpcg.py``).
+
+The JAX package's one jitted ``lax.while_loop`` is a host loop here and
+its ``lax.cond``s are Python ``if``s on values read from the device;
+blocks keep the JAX package's fixed [n, m] shapes with dead columns
+exactly zero, and the live-column counts are Python ints.  Beyond the
+reads the ortho loops' early exits and the SVQB kept counts need, each
+iteration reads the RR's retry flag and the residual norms once.
+"""
+
+from __future__ import annotations
+
+from typing import Mapping, Optional
+
+import numpy as np
+import torch
+
+from lobpcg_tpu_torch.config import SolverConfig, validate_problem
+from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.ops import masking
+from lobpcg_tpu_torch.ops.gram import (
+    apply_block_op,
+    apply_block_op_pair,
+    b_mm,
+    mixed_chunk_ctx,
+    mm,
+    precision_ctx,
+)
+from lobpcg_tpu_torch.ops.ortho import ortho_drop
+from lobpcg_tpu_torch.ops.rayleigh import rayleigh_ritz, rayleigh_ritz_modified
+from lobpcg_tpu_torch.ops.residual import (
+    estimate_norm,
+    get_residual,
+    get_residual_norm,
+)
+from lobpcg_tpu_torch.ops.svqb import robust_basis_init
+from lobpcg_tpu_torch.solvers import observe
+from lobpcg_tpu_torch.solvers.state import LOBPCGResult
+from lobpcg_tpu_torch.utils.prng import Draws
+
+
+def _prepare_p0(P0, A, config):
+    """Validate and prefix-compact a warm-restart momentum block: the
+    live P columns must form a zero-padded prefix, so nonzero columns
+    move to the front (stable) and are counted.  Returns (P0, count)."""
+    if P0 is None:
+        return None, 0
+    if tuple(P0.shape) != (A.shape[0], config.size_sub):
+        raise ValueError(
+            f"P0 has shape {tuple(P0.shape)}, expected "
+            f"({A.shape[0]}, {config.size_sub})"
+        )
+    nonzero = (torch.amax(torch.abs(P0), dim=0) > 0).cpu().numpy()
+    order = np.argsort(~nonzero, kind="stable")
+    p0_cnt = int(nonzero.sum())
+    if not (order == np.arange(order.size)).all():
+        P0 = P0[:, torch.as_tensor(order, device=P0.device)]
+    return P0, p0_cnt
+
+
+def _norms(A, B, rng, config, n, dtype, device):
+    """(||A||, ||B||) estimates from the draws "norm_a" / "norm_b";
+    ||B|| = 1 when B is None."""
+    shape = (n, config.norm_block)
+    a_norm = estimate_norm(
+        A, rng.fill("norm_a", shape, dtype, device), config.norm_iters
+    )
+    if B is None:
+        return a_norm, torch.ones((), dtype=a_norm.dtype, device=device)
+    b_norm = estimate_norm(
+        B, rng.fill("norm_b", shape, dtype, device), config.norm_iters
+    )
+    return a_norm, b_norm
+
+
+def _start_block(X0, rng, n, m, dtype, device):
+    if X0 is None:
+        return rng.fill("x0", (n, m), dtype, device)
+    return X0.to(device=device, dtype=dtype)
+
+
+def _check_inputs(A, X0, config, it_cap, device):
+    """Entry validation shared by lobpcg and ilobpcg; returns the device
+    of the solve (X0's, or ``device`` when X0 is None)."""
+    validate_problem(A.shape[0], config)
+    if X0 is not None:
+        if X0.shape[1] != config.size_sub:
+            raise ValueError(
+                f"X0 has {X0.shape[1]} columns, expected "
+                f"size_sub={config.size_sub}"
+            )
+        if X0.shape[0] != A.shape[0]:
+            raise ValueError(
+                f"X0 has {X0.shape[0]} rows, expected A.shape[0]={A.shape[0]}"
+            )
+        if device is not None and torch.device(device) != X0.device:
+            raise ValueError(
+                f"device={device} but X0 lies on {X0.device}"
+            )
+        device = X0.device
+    if it_cap is not None and it_cap > config.max_iter:
+        raise ValueError(
+            f"it_cap ({it_cap}) > config.max_iter ({config.max_iter})"
+        )
+    return torch.device(device if device is not None else "cpu")
+
+
+def _config_of(config, nev, size_sub, tol, max_iter):
+    if config is not None:
+        return config
+    if nev is None:
+        raise ValueError("either nev or config must be given")
+    return SolverConfig(
+        nev=nev,
+        size_sub=size_sub if size_sub is not None else nev,
+        tol=tol,
+        max_iter=max_iter,
+    )
+
+
+def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
+                 P0=None, p0_cnt=0, it_cap=None) -> LOBPCGResult:
+    n = A.shape[0]
+    m = config.size_sub
+    nev = config.nev
+    dtype = A.dtype
+    eps_ortho, eps_drop = config.resolved_eps(dtype)
+    rrdt = config.resolved_rr_dtype(dtype)
+
+    a_norm, b_norm = _norms(A, B, rng, config, n, dtype, device)
+
+    def res_norm(W, lam):
+        BW = (
+            apply_block_op(B, W[:, :nev])
+            if config.residual_norm == "b" and B is not None else None
+        )
+        return get_residual_norm(W, lam, a_norm, b_norm, nev, BW)
+
+    observe.log_start(config, "lobpcg", a_norm, b_norm)
+
+    X = _start_block(X0, rng, n, m, dtype, device)
+    X = robust_basis_init(
+        X, B, lambda: rng.fill("refill", (n, m), dtype, device),
+        tau=eps_drop, rr_dtype=rrdt,
+    )
+
+    Cx0, lam = rayleigh_ritz(X, A, B, rr_dtype=rrdt)
+    X = mm(X, Cx0)
+    AX = A.matmat(X)
+    W = get_residual(X, AX, lam, A, B)
+    res = res_norm(W, lam)
+    if not config.use_ax_cache:
+        AX = None
+
+    P = (
+        torch.zeros((n, m), dtype=dtype, device=device) if P0 is None
+        else P0.to(device=device, dtype=dtype)
+    )
+    p_cnt = p0_cnt if P0 is not None else 0
+    conv, use_ortho, it, retries = 0, 0, 0, 0
+    hist = observe.history_init(config, m, lam.dtype, res.dtype, device)
+    cache_b = config.use_b_cache and B is not None
+
+    def do_ortho(W, nw, X, P, np_act, Bvb=None):
+        return ortho_drop(
+            W, nw, (X, P), m + np_act, B,
+            eps_ortho=eps_ortho, eps_drop=eps_drop,
+            max_outer=config.max_outer, max_inner=config.max_inner,
+            rr_dtype=rrdt, Bvb=Bvb, return_bu=cache_b,
+            entry_check=config.ortho_skip,
+        )
+
+    def rr_modified(W, nw, use_ortho, Bblocks):
+        return rayleigh_ritz_modified(
+            (X, P, W), AX, np_act, nw, use_ortho, A, B,
+            nx=m, tol_skip=config.tol_skip, rr_dtype=rrdt,
+            Bblocks=Bblocks, pack=config.pack_applies,
+        )
+
+    limit = config.max_iter if it_cap is None else min(it_cap, config.max_iter)
+    while it < limit and conv < nev:
+        np_act = min(p_cnt, m - conv)
+        nw = m if it == 0 else m - conv
+
+        if T is not None:
+            W = masking.mask_cols(T.matmat(W), nw)
+
+        # With cache_b, B@X and B@P are applied once and threaded
+        # through the ortho projector and the RR B-Gram.
+        Bvb = None
+        if cache_b:
+            if config.pack_applies:
+                BX, BP = apply_block_op_pair(B, X, P)
+            else:
+                BX, BP = apply_block_op(B, X), apply_block_op(B, P)
+            Bvb = (BX, BP)
+            if use_ortho >= 1:
+                W, nw, BW = do_ortho(W, nw, X, P, np_act, Bvb=Bvb)
+            else:
+                BW = apply_block_op(B, W)
+            Bblocks = (BX, BP, BW)
+        else:
+            if use_ortho >= 1:
+                W, nw = do_ortho(W, nw, X, P, np_act)
+            Bblocks = None
+
+        rr = rr_modified(W, nw, use_ortho, Bblocks)
+        flag0 = rr.flag
+        if rr.flag == 2:
+            # Cholesky/cond failure: orthogonalize W and retry with the
+            # ortho branch.
+            if cache_b:
+                W, nw, BW2 = do_ortho(W, nw, X, P, np_act, Bvb=Bvb)
+                Bblocks = (BX, BP, BW2)
+            else:
+                W, nw = do_ortho(W, nw, X, P, np_act)
+                Bblocks = None
+            rr = rr_modified(W, nw, 1, Bblocks)
+            use_ortho = 1
+        else:
+            use_ortho = max(use_ortho, rr.flag)
+        retries += int(flag0 == 2)
+        Bvb = Bblocks = None
+
+        blocks = (X, P, W)
+        Xn = b_mm(blocks, rr.Cx)
+        Pn = b_mm(blocks, rr.Cp)
+        del blocks
+        AXn = A.matmat(Xn)
+        Wres = get_residual(Xn, AXn, rr.lam, A, B)
+        if not config.use_ax_cache:
+            AXn = None
+        res = res_norm(Wres, rr.lam)
+        convn = masking.prefix_count(res <= config.tol)
+
+        # Soft-locking compaction for the next iteration.
+        act = m - convn
+        p_next = min(max(rr.p_count - convn, 0), act)
+        P = masking.shift_cols(Pn, convn, p_next)
+        W = masking.shift_cols(Wres, convn, act)
+        del Pn, Wres
+
+        observe.log_iteration(config, "lobpcg", it, rr.lam, res, convn)
+        hist = observe.history_update(hist, it, rr.lam, res, convn, flag0)
+        X, AX, lam, conv, p_cnt = Xn, AXn, rr.lam, convn, p_next
+        it += 1
+
+    return LOBPCGResult(
+        eigenvalues=lam[:nev],
+        eigenvectors=X[:, :nev],
+        residual_norms=res,
+        converged=conv,
+        iterations=it,
+        basis=X,
+        momentum=P,
+        history=hist,
+        ortho_retries=retries,
+    )
+
+
+def lobpcg(
+    A: LinearOperator,
+    X0: Optional[torch.Tensor] = None,
+    B: Optional[LinearOperator] = None,
+    T: Optional[LinearOperator] = None,
+    *,
+    P0: Optional[torch.Tensor] = None,
+    nev: Optional[int] = None,
+    size_sub: Optional[int] = None,
+    tol: float = 1e-5,
+    max_iter: int = 100,
+    generator: Optional[torch.Generator] = None,
+    config: Optional[SolverConfig] = None,
+    device=None,
+    draws: Optional[Mapping] = None,
+    it_cap: Optional[int] = None,
+) -> LOBPCGResult:
+    """Solve A x = lambda B x for the nev smallest eigenpairs.
+
+    B=None gives the standard problem, T is an optional preconditioner,
+    X0 an optional initial guess ([n, size_sub]).  The solve runs on
+    X0's device, or on ``device`` when X0 is None.  Random fills come
+    from ``generator`` (a ``torch.Generator`` on that device; None = the
+    global one), except the named blocks given in ``draws`` (see
+    ``utils.prng.Draws``).  ``it_cap``: an iteration cap <= max_iter.
+    """
+    config = _config_of(config, nev, size_sub, tol, max_iter)
+    device = _check_inputs(A, X0, config, it_cap, device)
+    P0, p0_cnt = _prepare_p0(P0, A, config)
+    with precision_ctx(config.gram_precision), \
+            mixed_chunk_ctx(config.rr_chunk_rows):
+        return _lobpcg_impl(A, B, T, X0, Draws(generator, draws), config,
+                            device, P0, p0_cnt, it_cap)

@@ -1,0 +1,98 @@
+"""The port imports no JAX, and its carry-across functions
+(lobpcg_tpu_torch/interop.py) round-trip the JAX package's operators and
+config."""
+
+import dataclasses
+import pathlib
+import subprocess
+import sys
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+import lobpcg_tpu as jl
+import lobpcg_tpu_torch as tl
+from lobpcg_tpu_torch.interop import config_from_reference, operator_from_reference
+
+torch.set_num_threads(2)
+
+REPO = pathlib.Path(__file__).resolve().parents[1]
+
+
+def test_import_pulls_in_no_jax():
+    code = (
+        "import sys\n"
+        "import lobpcg_tpu_torch, lobpcg_tpu_torch.interop\n"
+        "import lobpcg_tpu_torch.ops.cuda.stencil\n"
+        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
+        " or m.startswith('jaxlib') or m == 'lobpcg_tpu'"
+        " or m.startswith('lobpcg_tpu.')]\n"
+        "assert not bad, bad\n"
+        "print('ok')\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=REPO,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert out.stdout.strip() == "ok"
+
+
+def _tree(dtype):
+    n, m = 16, 8
+    d = np.linspace(1.0, 2.0, n).astype(dtype)
+    lap = jl.Laplacian1D(scale=jnp.asarray(dtype(2.0)), n=n, segments=2)
+    A = lap + jl.DiagonalOperator(jnp.asarray(d))
+    return {
+        "sum": A,
+        "jacobi": jl.JacobiPreconditioner(jnp.asarray(d)),
+        "antidiag": jl.BlockAntiDiagOperator(d=jnp.asarray(d[:m])),
+        "blockdiag": jl.BlockDiagOperator(
+            inner=jl.Laplacian1D(scale=jnp.asarray(dtype(1.0)), n=m)),
+        "scaled": 3.0 * lap,
+        "shifted": jl.ShiftedOperator(lap, jnp.asarray(dtype(0.5))),
+        "composed": jl.ComposedOperator(lap, lap),
+        "dense": jl.DenseOperator(jnp.asarray(np.eye(n, dtype=dtype))),
+        "cheb": jl.ChebyshevFilter(op=A, lo=jnp.asarray(dtype(1.0)),
+                                   hi=jnp.asarray(dtype(10.0)), degree=3,
+                                   chunk=2),
+    }
+
+
+@pytest.mark.parametrize("dtype", [np.float64, np.float32])
+@pytest.mark.parametrize("name", list(_tree(np.float64)))
+def test_operator_from_reference_round_trip(name, dtype):
+    jop = _tree(dtype)[name]
+    top = operator_from_reference(jop, device="cpu")
+    assert type(top).__name__ == type(jop).__name__
+    assert tuple(top.shape) == tuple(jop.shape)
+    assert top.dtype == getattr(torch, np.dtype(dtype).name)
+    X = np.random.default_rng(0).uniform(-1, 1, (16, 4)).astype(dtype)
+    np.testing.assert_allclose(
+        top.matmat(torch.from_numpy(X)).numpy(),
+        np.asarray(jop.matmat(jnp.asarray(X))),
+        rtol=1e-5 if dtype == np.float32 else 1e-12, atol=1e-5,
+    )
+
+
+def test_operator_from_reference_casts_dtype():
+    top = operator_from_reference(_tree(np.float64)["sum"], device="cpu",
+                                  dtype=torch.float32)
+    assert top.dtype == torch.float32
+    assert top.left.dtype == torch.float32
+    assert top.right.d.dtype == torch.float32
+
+
+def test_operator_from_reference_rejects_unknown():
+    with pytest.raises(TypeError):
+        operator_from_reference(object(), device="cpu")
+
+
+def test_config_from_reference_round_trip():
+    cfg = jl.SolverConfig(nev=3, size_sub=7, tol=1e-7, max_iter=42,
+                          rr_method="auto", stall_reset=3, rr_dtype="float64",
+                          record_history=True)
+    t = config_from_reference(cfg)
+    assert isinstance(t, tl.SolverConfig)
+    assert dataclasses.asdict(t) == dataclasses.asdict(cfg)
+    assert t.resolved_rr_dtype(torch.float32) == torch.float64
