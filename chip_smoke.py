@@ -1,37 +1,61 @@
-"""GPU smoke run of lobpcg_tpu_torch: its main path, once, on one card.
+"""GPU smoke run of lobpcg_tpu_torch: its main paths, once, on one card.
 
     python3 chip_smoke.py
 
 Phases (one JSON line each; any failure raises and the exit code is
-non-zero):
+non-zero; there is no CPU fallback):
 
-1. device   — requires CUDA; prints the card's name and power limit.
-2. build    — builds the stencil kernel (csrc/stencil1d.cu) with nvcc.
-3. kernel   — the kernel against its plain PyTorch version on the card
-              at the main path's shapes; error, ms and GB/s of both.
+1. device     — requires CUDA; the card's name and power limit.
+2. build      — builds the kernels (csrc/stencil1d.cu, stencil3d.cu,
+                bsr.cu) with nvcc, one process per source, all at once.
+3. kernel K1  — the 1-D stencil against its plain version at the BdG
+                solve's shapes; error, ms and GB/s of both.
 4. quickstart — README: lobpcg on Laplacian1D, n 256, f32.
-5. main     — ilobpcg on the BdG quantum-well pencil at n 4,000,000,
-              nev 56, size_sub 64, Chebyshev degree 3, f32, checked
-              against the dense well oracle; the stencil launch counter
-              must show the solve went through the kernel.
+5. main       — ilobpcg on the BdG quantum-well pencil at n 4,000,000,
+                nev 56, size_sub 64, Chebyshev degree 3, f32, against the
+                dense well oracle; must go through K1.  Run twice, under
+                gram_precision "highest" and "high" (both TF32-free).
+6. kernel K2  — the fused 3-D stencil against its plain version at the
+                160^3 grid (k 16, 48, 128 f32; 16 bf16) and an odd grid.
+7. host / kernel K3 — the 160^3 Laplacian's CSR and BSROperator (host
+                seconds on their own lines); K3 on its block-ELL at k 16
+                and 48.
+8. laplacian3d — standard lobpcg at the 160^3 grid (n 4,096,000), nev 10,
+                size_sub 16, tol 1e-5, max_iter 2000, f32, twice from one
+                X0: through
+                LaplacianND (K2) and through BSROperator.from_csr (K3),
+                against laplacian_nd_eigs.
+9. band       — benchmarks/bsr_spmm.py's banded matrix (n 1,048,576,
+                bs 8, band 24, k 128) in its three formats: K3, K4, K5
+                against their plain versions, and the SpMM path (one
+                apply per format).  Then a symmetric SPD variant
+                (M + M^T + shift I) through BSROperator.from_csr, whose
+                matmat must pick K5.
 
-The second-to-last lines are the kernels summary and the card's
-`nvidia-smi` name and power limit; the last line is the ok record.
-Imports nothing of JAX.
+Every kernel wrapper counts its launches; each path runs with every
+count set to 0 just before it and read just after.  The second-to-last
+lines are the kernels summary and the card's `nvidia-smi` name and
+power limit; the last line is the ok record.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
 import json
+import math
 import statistics
 import subprocess
 import time
 
 import numpy as np
+import scipy.sparse as sp
 import torch
 
 import lobpcg_tpu_torch as lt
+from lobpcg_tpu_torch.ops.cuda import bsr as kb
+from lobpcg_tpu_torch.ops.cuda import build as cuda_build
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
+from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
+from lobpcg_tpu_torch.utils import native
 
 N_MAIN = 4_000_000
 NEV, SIZE_SUB = 56, 64
@@ -39,6 +63,32 @@ WELL, BARRIER, SHIFT = 1024, 1.0, 1.0  # benchmarks/solve_bdg.py's well
 CHEB_DEGREE = 3
 TOL, MAX_ITER = 1e-5, 300
 ORACLE_RTOL = 1e-5
+
+GRID3 = (160, 160, 160)  # benchmarks/README.md's 3-D operator shape
+# max_iter 2000: the tenth pair's residual crosses 1e-5 after ~1,460-1,490
+# iterations on the H100 (PERF.md); the other nine by ~410.
+NEV3, SS3, TOL3, MAX_ITER3 = 10, 16, 1e-5, 2000
+BAND_N, BAND_BS, BAND, BAND_K = 1_048_576, 8, 24, 128  # benchmarks/bsr_spmm.py
+STRIP = 256  # BSROperator's strip for bs 8
+
+# Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32
+# operations/s outside the tensor cores.
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOPS = 67e12
+
+# (wrapper, source, TPU kernel it replaces) of every kernel of the port.
+KERNELS = {
+    "stencil1d": (k1.stencil_matmat, "lobpcg_tpu_torch/csrc/stencil1d.cu",
+                  "lobpcg_tpu/ops/pallas/stencil.py:75"),
+    "stencil3d": (k2.stencil3d_matmat, "lobpcg_tpu_torch/csrc/stencil3d.cu",
+                  "lobpcg_tpu/ops/pallas/stencil3d.py:236"),
+    "bsr_ell": (kb.bsr_matmat, "lobpcg_tpu_torch/csrc/bsr.cu",
+                "lobpcg_tpu/ops/pallas/bsr.py:47"),
+    "bsr_strip": (kb.bsr_strip_matmat, "lobpcg_tpu_torch/csrc/bsr.cu",
+                  "lobpcg_tpu/ops/pallas/bsr.py:186"),
+    "bsr_window": (kb.bsr_window_matmat, "lobpcg_tpu_torch/csrc/bsr.cu",
+                   "lobpcg_tpu/ops/pallas/bsr.py:381"),
+}
 
 
 def emit(obj) -> None:
@@ -51,6 +101,15 @@ def card_line() -> str:
          "--format=csv,noheader"],
         capture_output=True, text=True, check=True, timeout=60,
     ).stdout.strip().splitlines()[0]
+
+
+def zero_counts() -> None:
+    for fn, _, _ in KERNELS.values():
+        fn.launches = 0
+
+
+def read_counts() -> dict:
+    return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
 
 
 def time_ms(fn, reps: int = 10) -> float:
@@ -67,6 +126,47 @@ def time_ms(fn, reps: int = 10) -> float:
         t1.synchronize()
         times.append(t0.elapsed_time(t1))
     return statistics.median(times)
+
+
+def timed_untracked(fn, reps: int = 10) -> float:
+    """time_ms of a kernel wrapper whose launches must not count."""
+    counts = read_counts()
+    try:
+        return time_ms(fn, reps)
+    finally:
+        for name, (wrapper, _, _) in KERNELS.items():
+            wrapper.launches = counts[name]
+
+
+def bound(nbytes: float, flops: float) -> dict:
+    """The least time the card could take: the larger of the bytes over
+    the HBM rate and the operations over the f32 (non-tensor) peak."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / F32_FLOPS * 1e3
+    return {"bound_ms": max(t_bytes, t_ops),
+            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def max_abs(a, b) -> float:
+    return float(torch.max(torch.abs(a.float() - b.float())))
+
+
+def free() -> None:
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+# --- build, K1, quick start and the BdG main path ----------------------------
+
+
+def build_phase() -> None:
+    t0 = time.perf_counter()
+    recs = cuda_build.build_all(["stencil1d", "stencil3d", "bsr"])
+    for rec in recs:
+        emit({"phase": "build", "kernel": rec["name"], "nvcc_ran": rec["built"],
+              "nvcc_s": rec["seconds"],
+              "ptxas": [ln for ln in rec["log"].splitlines() if "ptxas" in ln][:16]})
+    emit({"phase": "build", "total_s": time.perf_counter() - t0})
 
 
 def kernel_phase(dev) -> list[dict]:
@@ -92,7 +192,7 @@ def kernel_phase(dev) -> list[dict]:
         Y = k1.stencil_matmat(X, scale, E, num_segments=seg)
         Yp = k1.stencil_matmat_reference(X, scale, E, num_segments=seg)
         torch.cuda.synchronize()
-        err = float(torch.max(torch.abs(Y.float() - Yp.float())))
+        err = max_abs(Y, Yp)
         # 2 ulp of the storage dtype x |scale| x max|X|.
         tol = 2 * torch.finfo(dt).eps * abs(scale) * float(
             torch.max(torch.abs(X.float()))
@@ -103,7 +203,8 @@ def kernel_phase(dev) -> list[dict]:
                 f"max_abs_err {err} > {tol}"
             )
         del Y, Yp
-        ms = time_ms(lambda: k1.stencil_matmat(X, scale, E, num_segments=seg))
+        ms = timed_untracked(
+            lambda: k1.stencil_matmat(X, scale, E, num_segments=seg))
         plain_ms = time_ms(
             lambda: k1.stencil_matmat_reference(X, scale, E, num_segments=seg)
         )
@@ -114,11 +215,13 @@ def kernel_phase(dev) -> list[dict]:
             "edge_rows": with_edges, "max_abs_err": err, "tol": tol,
             "ms": ms, "gbps": nbytes / ms / 1e6,
             "plain_ms": plain_ms, "plain_gbps": nbytes / plain_ms / 1e6,
+            # 2x, two subtractions, one scale: 4 operations per element.
+            **bound(nbytes, 4 * n * k),
         }
         emit(rec)
         out.append(rec)
         del X, E
-        torch.cuda.empty_cache()
+        free()
     return out
 
 
@@ -154,7 +257,7 @@ def well_eigs_oracle(w: int, nev: int, barrier: float, margin: int = 2048):
     return np.linalg.eigvalsh(H)[:nev]
 
 
-def main_phase(dev) -> dict:
+def main_phase(dev, precision: str) -> dict:
     """ilobpcg on the BdG well pencil at the flagship shape."""
     n, m, ss, dt = N_MAIN, N_MAIN // 2, SIZE_SUB, torch.float32
     lo = (m - WELL) // 2
@@ -171,27 +274,28 @@ def main_phase(dev) -> dict:
     u[lo : lo + WELL] = rng.uniform(-0.5, 0.5, size=(WELL, ss))
     X0 = torch.as_tensor(np.concatenate([u, u], axis=0), device=dev)
     cfg = lt.SolverConfig(nev=NEV, size_sub=ss, tol=TOL, max_iter=MAX_ITER,
-                          gram_precision="highest", use_ax_cache=True,
+                          gram_precision=precision, use_ax_cache=True,
                           use_b_cache=True, dual_basis=True)
     gen = torch.Generator(device=dev).manual_seed(0)
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    k1.stencil_matmat.launches = 0
+    zero_counts()
     t0 = time.perf_counter()
     r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen)
     lam = r.eigenvalues.double().cpu().numpy()
     wall = time.perf_counter() - t0
-    launches = k1.stencil_matmat.launches
+    counts = read_counts()
 
     exact = well_eigs_oracle(WELL, NEV, BARRIER)
     rel = np.abs(lam - exact) / np.abs(exact)
     rec = {
         "phase": "main", "n": n, "nev": NEV, "size_sub": ss,
         "dtype": "float32", "cheb_degree": CHEB_DEGREE, "tol": TOL,
+        "gram_precision": precision,
         "converged": r.converged, "iterations": r.iterations,
         "quality5": r.quality5_count, "rr_failed": r.rr_fail_count,
-        "wall_s": wall, "stencil_launches": launches,
+        "wall_s": wall, "launches": counts,
         "max_rel_err": float(rel.max()),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -202,45 +306,428 @@ def main_phase(dev) -> dict:
         raise AssertionError(f"converged {r.converged}/{NEV}")
     if not rel.max() <= ORACLE_RTOL:
         raise AssertionError(f"max rel err {rel.max()} > {ORACLE_RTOL}")
-    if launches < 2 * r.iterations:
+    if counts["stencil1d"] < 2 * r.iterations:
         raise AssertionError(
-            f"stencil kernel launched {launches} times in "
+            f"stencil kernel launched {counts['stencil1d']} times in "
             f"{r.iterations} iterations"
         )
     return rec
+
+
+# --- K2: the fused 3-D stencil -----------------------------------------------
+
+
+def conv3d_stencil(X, scale, grid):
+    """The yardstick: one depthwise cuDNN conv3d over the same bytes, X
+    viewed as a channels-last [1, k, nx, ny, nz] volume (TF32 off)."""
+    nx, ny, nz = grid
+    k = X.shape[1]
+    w = torch.zeros((k, 1, 3, 3, 3), dtype=X.dtype, device=X.device)
+    w[:, 0, 1, 1, 1] = 6.0 * scale
+    for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        w[(slice(None), 0) + idx] = -scale
+    Xc = X.view(1, nx, ny, nz, k).permute(0, 4, 1, 2, 3)
+    return lambda: torch.nn.functional.conv3d(Xc, w, padding=1, groups=k)
+
+
+def k2_phase(dev) -> list[dict]:
+    h = 1.0 / (GRID3[0] + 1)
+    scale = 1.0 / (h * h)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    cases = [(GRID3, 16, torch.float32), (GRID3, 48, torch.float32),
+             (GRID3, 128, torch.float32), (GRID3, 16, torch.bfloat16),
+             ((5, 7, 9), 3, torch.float32)]
+    out = []
+    for grid, k, dt in cases:
+        n = math.prod(grid)
+        X = (torch.rand((n, k), generator=gen, device=dev) - 0.5).to(dt)
+        Y = k2.stencil3d_matmat(X, scale, grid)
+        Yp = k2.stencil3d_matmat_reference(X, scale, grid)
+        torch.cuda.synchronize()
+        err = max_abs(Y, Yp)
+        # 4 ulp of the storage dtype x the largest output, 12 |scale| max|X|.
+        tol = 4 * torch.finfo(dt).eps * 12 * scale * float(X.float().abs().max())
+        if not err <= tol:
+            raise AssertionError(f"stencil3d kernel disagrees at {grid} k={k} "
+                                 f"{dt}: {err} > {tol}")
+        del Y, Yp
+        free()
+        ms = timed_untracked(lambda: k2.stencil3d_matmat(X, scale, grid))
+        plain_ms = time_ms(lambda: k2.stencil3d_matmat_reference(X, scale, grid))
+        nbytes = 2 * n * k * X.element_size()
+        rec = {"phase": "kernel", "name": "stencil3d", "grid": list(grid),
+               "k": k, "dtype": str(dt).replace("torch.", ""),
+               "max_abs_err": err, "tol": tol, "ms": ms,
+               "gbps": nbytes / ms / 1e6, "plain_ms": plain_ms,
+               "plain_gbps": nbytes / plain_ms / 1e6,
+               # 6x, six subtractions, one scale: 8 operations per element.
+               **bound(nbytes, 8 * n * k), "library_ms": None}
+        if dt == torch.float32 and grid == GRID3 and k == 16:
+            lib = conv3d_stencil(X, scale, grid)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                rec["library_max_abs_err"] = max_abs(
+                    lib().permute(0, 2, 3, 4, 1).reshape(n, k),
+                    k2.stencil3d_matmat_reference(X, scale, grid))
+                rec["library_ms"] = time_ms(lib)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
+        emit(rec)
+        out.append(rec)
+        del X
+        free()
+    return out
+
+
+# --- K3/K4/K5: the block-sparse SpMMs -----------------------------------------
+
+
+def csr_tensor(M, dev):
+    """A scipy CSR matrix as a torch f32 CSR tensor on the card."""
+    return torch.sparse_csr_tensor(
+        torch.from_numpy(M.indptr.astype(np.int64)),
+        torch.from_numpy(M.indices.astype(np.int64)),
+        torch.from_numpy(M.data.astype(np.float32)), size=M.shape,
+    ).to(dev)
+
+
+def spmm_check(name, fn, plain, abs_plain, depth, nnz, n, k, lib=None,
+               extra=None) -> dict:
+    """One kernel against its plain version on the same inputs, timed
+    beside its plain version and the library call; tolerance
+    2 x depth x eps_f32 x max(|A| |X|), the error bound of a length-depth
+    f32 dot summed in another order."""
+    Y, Yp = fn(), plain()
+    torch.cuda.synchronize()
+    err = max_abs(Y, Yp)
+    tol = 2 * depth * torch.finfo(torch.float32).eps * float(abs_plain().max())
+    rec = {"phase": "kernel", "name": name, "n": n, "k": k, "nnz": nnz,
+           "depth": depth, "max_abs_err": err, "tol": tol}
+    if extra is not None:
+        for key, other in extra.items():  # other references, same tolerance
+            rec[key] = max_abs(Y, other)
+            if not rec[key] <= tol:
+                raise AssertionError(f"{name}: {key} {rec[key]} > {tol}")
+    if tuple(Y.shape) != (n, k) or not torch.isfinite(Y).all():
+        raise AssertionError(f"{name}: bad output {tuple(Y.shape)}")
+    if not err <= tol:
+        raise AssertionError(f"{name} disagrees at n={n} k={k}: {err} > {tol}")
+    del Y, Yp
+    free()
+    ms = timed_untracked(fn)
+    plain_ms = time_ms(plain)
+    # Least bytes: the nonzeros' f32 values, X once, Y once.
+    nbytes = 4 * nnz + 2 * 4 * n * k
+    rec.update({"ms": ms, "gnnz_per_s": nnz * k / ms / 1e6,
+                "gbps": nbytes / ms / 1e6, "plain_ms": plain_ms,
+                **bound(nbytes, 2 * nnz * k),
+                "library_ms": None if lib is None else time_ms(lib)})
+    emit(rec)
+    return rec
+
+
+def ell_checks(name, cols, blocks, X, A_csr, nnz, extra=None):
+    bs, R = blocks.shape[2], blocks.shape[1]
+    absb = blocks.abs()
+    return spmm_check(
+        name, lambda: kb.bsr_matmat(cols, blocks, X),
+        lambda: kb.bsr_matmat_reference(cols, blocks, X),
+        lambda: kb.bsr_matmat_reference(cols, absb, X.abs()),
+        R * bs, nnz, X.shape[0], X.shape[1],
+        lib=lambda: torch.sparse.mm(A_csr, X), extra=extra)
+
+
+def laplacian_host_phase(dev):
+    """The 160^3 Laplacian's CSR and BSROperator, host seconds apart."""
+    t0 = time.perf_counter()
+    ip, ix, v = lt.laplacian_3d_csr(*GRID3)
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = lt.BSROperator.from_csr(ip, ix, v, block_size=8, device=dev)
+    torch.cuda.synchronize()
+    t_bsr = time.perf_counter() - t0
+    emit({"phase": "host", "what": "laplacian_3d_csr + BSROperator.from_csr",
+          "grid": list(GRID3), "nnz": int(len(v)),
+          "native_library": native.native_available(),
+          "laplacian_3d_csr_s": t_csr, "from_csr_s": t_bsr,
+          "ell_R": int(op.blocks.shape[1]),
+          "window_built": op.win_vals is not None})
+    if op.win_vals is not None:
+        raise AssertionError("the 160^3 Laplacian should not be windowable")
+    A_csr = csr_tensor(sp.csr_matrix((v, ix, ip), shape=(len(ip) - 1,) * 2), dev)
+    return op, A_csr, int(len(v))
+
+
+def k3_laplacian_phase(dev, op, A_csr, nnz) -> list[dict]:
+    gen = torch.Generator(device=dev).manual_seed(2)
+    out = []
+    for k in (16, 48):
+        X = torch.rand((op.n, k), generator=gen, device=dev) - 0.5
+        out.append(ell_checks("bsr_ell", op.block_cols, op.blocks, X, A_csr, nnz))
+        out[-1]["matrix"] = "laplacian3d_160"
+        del X
+        free()
+    return out
+
+
+def laplacian3d_phase(dev, name, A, X0, kernel) -> dict:
+    """Standard lobpcg on the 160^3 Laplacian through operator A."""
+    h = 1.0 / (GRID3[0] + 1)
+    scale = 1.0 / (h * h)
+    cfg = lt.SolverConfig(nev=NEV3, size_sub=SS3, tol=TOL3, max_iter=MAX_ITER3,
+                          gram_precision="highest")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    r = lt.lobpcg(A, X0, config=cfg, generator=gen)
+    lam = r.eigenvalues.double().cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    exact = lt.laplacian_nd_eigs(GRID3, scale, NEV3)
+    lam_max = 4 * scale * sum(math.sin(g * math.pi / (2 * (g + 1))) ** 2
+                              for g in GRID3)
+    err = np.abs(lam - exact)
+    rec = {"phase": "laplacian3d", "operator": name, "grid": list(GRID3),
+           "n": A.shape[0], "nev": NEV3, "size_sub": SS3, "tol": TOL3,
+           "dtype": "float32", "converged": r.converged,
+           "iterations": r.iterations, "wall_s": wall, "launches": counts,
+           "max_abs_err": float(err.max()),
+           "max_err_over_lam_max": float(err.max() / lam_max),
+           "max_rel_err": float((err / exact).max()),
+           "lam_max": lam_max,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit(rec)
+    if not np.all(np.isfinite(lam)) or tuple(lam.shape) != (NEV3,):
+        raise AssertionError(f"{name}: non-finite eigenvalues")
+    if r.converged != NEV3:
+        raise AssertionError(f"{name}: converged {r.converged}/{NEV3}")
+    if not err.max() <= TOL3 * lam_max:
+        raise AssertionError(f"{name}: max |theta - lambda| {err.max()} > "
+                             f"tol * lam_max {TOL3 * lam_max}")
+    if counts[kernel] < r.iterations:
+        raise AssertionError(f"{name}: {kernel} launched {counts[kernel]} "
+                             f"times in {r.iterations} iterations")
+    return rec
+
+
+def banded_bsr(n: int, bs: int, band: int, seed: int = 0):
+    """benchmarks/bsr_spmm.py's banded matrix in block-ELL form: block row
+    i couples to block columns i-w..i+w, w = ceil(band/bs), random
+    uniform(-0.5, 0.5) blocks from RandomState(seed)."""
+    rng = np.random.RandomState(seed)
+    nb = n // bs
+    w = -(-band // bs)
+    R = 2 * w + 1
+    cols = np.zeros((nb, R), np.int32)
+    vals = np.zeros((nb, R, bs, bs), np.float32)
+    for d in range(-w, w + 1):
+        r = d + w
+        i = np.arange(nb)
+        j = i + d
+        ok = (j >= 0) & (j < nb)
+        cols[ok, r] = j[ok]
+        vals[ok, r] = rng.uniform(-0.5, 0.5, (int(ok.sum()), bs, bs))
+    return cols, vals
+
+
+def ell_to_csr(cols, vals):
+    """The block-ELL matrix as scipy CSR (padding dropped)."""
+    nb, R, bs, _ = vals.shape
+    M = sp.bsr_matrix((vals.reshape(-1, bs, bs), cols.reshape(-1),
+                       np.arange(0, nb * R + 1, R)), shape=(nb * bs,) * 2)
+    M = M.tocsr()
+    M.sum_duplicates()
+    M.eliminate_zeros()
+    return M
+
+
+def band_phase(dev) -> dict:
+    """K3, K4 and K5 on the bench's banded matrix, the SpMM path, and the
+    symmetric SPD variant through BSROperator."""
+    out = {}
+    t0 = time.perf_counter()
+    cols, vals = banded_bsr(BAND_N, BAND_BS, BAND)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    M = ell_to_csr(cols, vals)
+    t_csr = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    sc, sv = kb.ell_to_strip_ell(cols, vals, strip=STRIP)
+    t_strip = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lo, wv = kb.ell_to_strip_window(cols, vals, strip=STRIP)
+    t_win = time.perf_counter() - t0
+    nnz = int(M.nnz)
+    emit({"phase": "host", "what": "banded matrix and its formats",
+          "n": BAND_N, "bs": BAND_BS, "band": BAND, "nnz": nnz, "strip": STRIP,
+          "ell_R": int(cols.shape[1]), "strip_ell_Rs": int(sc.shape[1]),
+          "window_W": int(wv.shape[2]), "window_gib": wv.nbytes / 2**30,
+          "build_s": t_build, "to_csr_s": t_csr, "ell_to_strip_ell_s": t_strip,
+          "ell_to_strip_window_s": t_win})
+
+    to = lambda a: torch.from_numpy(a).to(dev)
+    cols_d, vals_d, sc_d, sv_d, lo_d, wv_d = (to(a) for a in (cols, vals, sc, sv, lo, wv))
+    del sv, wv
+    A_csr = csr_tensor(M, dev)
+    X = (torch.rand((BAND_N, BAND_K), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(3)) - 0.5)
+    lib = lambda: torch.sparse.mm(A_csr, X)
+    ell_ref = kb.bsr_matmat_reference(cols_d, vals_d, X)
+    out["bsr_ell"] = ell_checks("bsr_ell", cols_d, vals_d, X, A_csr, nnz)
+    svabs, wvabs = sv_d.abs(), wv_d.abs()
+    out["bsr_strip"] = spmm_check(
+        "bsr_strip", lambda: kb.bsr_strip_matmat(sc_d, sv_d, X, bs=BAND_BS),
+        lambda: kb.bsr_strip_matmat_reference(sc_d, sv_d, X, bs=BAND_BS),
+        lambda: kb.bsr_strip_matmat_reference(sc_d, svabs, X.abs(), bs=BAND_BS),
+        sv_d.shape[2], nnz, BAND_N, BAND_K, lib=lib,
+        extra={"max_abs_err_vs_ell": ell_ref})
+    out["bsr_window"] = spmm_check(
+        "bsr_window", lambda: kb.bsr_window_matmat(lo_d, wv_d, X, bs=BAND_BS),
+        lambda: kb.bsr_window_matmat_reference(lo_d, wv_d, X, bs=BAND_BS),
+        lambda: kb.bsr_window_matmat_reference(lo_d, wvabs, X.abs(), bs=BAND_BS),
+        wv_d.shape[2], nnz, BAND_N, BAND_K, lib=lib,
+        extra={"max_abs_err_vs_ell": ell_ref})
+    for rec in out.values():
+        rec["matrix"] = "band"
+    del svabs, wvabs, ell_ref
+    free()
+
+    # The SpMM path (benchmarks/bsr_spmm.py's sequence): one apply per
+    # format through its wrapper, counted.
+    zero_counts()
+    for fn in (lambda: kb.bsr_window_matmat(lo_d, wv_d, X, bs=BAND_BS),
+               lambda: kb.bsr_strip_matmat(sc_d, sv_d, X, bs=BAND_BS),
+               lambda: kb.bsr_matmat(cols_d, vals_d, X)):
+        Y = fn()
+        if not torch.isfinite(Y).all():
+            raise AssertionError("SpMM path: non-finite output")
+    counts = read_counts()
+    emit({"phase": "spmm_path", "matrix": "band", "k": BAND_K, "launches": counts})
+    out["spmm_path_launches"] = counts
+    del cols_d, vals_d, sc_d, sv_d, lo_d, wv_d, A_csr, Y
+    free()
+
+    # The symmetric SPD variant: windowable, so matmat must pick K5.
+    t0 = time.perf_counter()
+    S = M + M.T
+    S = (S + sp.identity(BAND_N, format="csr")
+         * (float(abs(S).sum(axis=1).max()) + 1.0)).tocsr()
+    S.sort_indices()
+    t_sym = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    op = lt.BSROperator.from_csr(S.indptr, S.indices, S.data, block_size=BAND_BS,
+                                 device=dev)
+    torch.cuda.synchronize()
+    t_op = time.perf_counter() - t0
+    emit({"phase": "host", "what": "symmetric banded SPD variant",
+          "nnz": int(S.nnz), "symmetrise_s": t_sym, "from_csr_s": t_op,
+          "window_built": op.win_vals is not None,
+          "window_W": None if op.win_vals is None else int(op.win_vals.shape[2])})
+    if op.win_vals is None:
+        raise AssertionError("the symmetric band should carry the window")
+    S_csr = csr_tensor(S, dev)
+    zero_counts()
+    Y = op.matmat(X)
+    counts = read_counts()
+    torch.cuda.synchronize()
+    emit({"phase": "dispatch", "matrix": "band_spd", "k": BAND_K,
+          "launches": counts})
+    if counts["bsr_window"] != 1 or counts["bsr_ell"] != 0:
+        raise AssertionError(f"BSROperator.matmat dispatched {counts}")
+    out["dispatch_launches"] = counts
+    wvabs = op.win_vals.abs()
+    out["bsr_window_spd"] = spmm_check(
+        "bsr_window",
+        lambda: kb.bsr_window_matmat(op.win_lo, op.win_vals, X, bs=BAND_BS),
+        lambda: kb.bsr_window_matmat_reference(op.win_lo, op.win_vals, X,
+                                               bs=BAND_BS),
+        lambda: kb.bsr_window_matmat_reference(op.win_lo, wvabs, X.abs(),
+                                               bs=BAND_BS),
+        op.win_vals.shape[2], int(S.nnz), BAND_N, BAND_K,
+        lib=lambda: torch.sparse.mm(S_csr, X),
+        extra={"max_abs_err_vs_ell": kb.bsr_matmat_reference(
+            op.block_cols, op.blocks, X),
+            "max_abs_err_of_matmat": Y})
+    out["bsr_window_spd"]["matrix"] = "band_spd"
+    del op, S_csr, X, Y, wvabs
+    free()
+    return out
+
+
+def kernel_entry(name, launches, recs, at) -> dict:
+    """One kernel's record in the kernels line: its launches on its path,
+    the largest error over its checks, and the numbers at `at`, the
+    record of its path's shape."""
+    _, source, replaces = KERNELS[name]
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": replaces, "launches": launches,
+            "max_abs_err": max(r["max_abs_err"] for r in recs),
+            "ms": at["ms"], "plain_ms": at["plain_ms"],
+            "bound_ms": at["bound_ms"], "bound_by": at["bound_by"],
+            "library_ms": at.get("library_ms")}
 
 
 def main() -> None:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke.py: no CUDA device (torch.cuda.is_available() is False)")
     dev = torch.device("cuda", 0)
+    torch.backends.cuda.matmul.allow_tf32 = False  # plain versions in full f32
     card = card_line()
     emit({"phase": "device", "card": card,
           "name": torch.cuda.get_device_name(0),
           "count": torch.cuda.device_count(),
-          "torch": torch.__version__, "cuda": torch.version.cuda})
+          "torch": torch.__version__, "cuda": torch.version.cuda,
+          "native_library": "native/libsparse_prep.so"
+          if native.native_available() else "numpy/scipy fallbacks"})
+    t_start = time.perf_counter()
 
-    t0 = time.perf_counter()
-    rec = k1.build()
-    emit({"phase": "build", "kernel": "stencil1d", "nvcc_ran": rec["built"],
-          "nvcc_s": rec["seconds"], "total_s": time.perf_counter() - t0,
-          "ptxas": [ln for ln in rec["log"].splitlines() if "ptxas" in ln][:12]})
-
-    kernel_recs = kernel_phase(dev)
+    build_phase()
+    k1_recs = kernel_phase(dev)
     quickstart_phase(dev)
-    main_rec = main_phase(dev)
+    main_rec = main_phase(dev, "highest")
+    free()
+    main_phase(dev, "high")
+    free()
 
-    at_main = kernel_recs[0]  # [4M, 64] f32, 2 segments: the solve's shape
-    emit({"kernels": [{
-        "name": "stencil1d",
-        "route": "cuda",
-        "source": "lobpcg_tpu_torch/csrc/stencil1d.cu",
-        "replaces": "lobpcg_tpu/ops/pallas/stencil.py:75",
-        "launches": main_rec["stencil_launches"],
-        "max_abs_err": max(r["max_abs_err"] for r in kernel_recs),
-        "ms": at_main["ms"],
-        "plain_ms": at_main["plain_ms"],
-    }]})
+    k2_recs = k2_phase(dev)
+    op3, A_csr3, nnz3 = laplacian_host_phase(dev)
+    k3_lap = k3_laplacian_phase(dev, op3, A_csr3, nnz3)
+    del A_csr3
+    free()
+    X0 = torch.from_numpy(np.random.RandomState(0).uniform(
+        -0.5, 0.5, (math.prod(GRID3), SS3)).astype(np.float32)).to(dev)
+    h = 1.0 / (GRID3[0] + 1)
+    st_rec = laplacian3d_phase(dev, "LaplacianND",
+                               lt.LaplacianND(scale=1.0 / (h * h), grid=GRID3),
+                               X0, "stencil3d")
+    free()
+    bsr_rec = laplacian3d_phase(dev, "BSROperator", op3, X0, "bsr_ell")
+    del op3, X0
+    free()
+    band = band_phase(dev)
+
+    emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
+    emit({"kernels": [
+        # K1 at the BdG solve's shape, [4M, 64] f32.
+        kernel_entry("stencil1d", main_rec["launches"]["stencil1d"], k1_recs,
+                     k1_recs[0]),
+        # K2 at the 3-D solve's shape, 160^3 x 16 f32.
+        kernel_entry("stencil3d", st_rec["launches"]["stencil3d"], k2_recs,
+                     k2_recs[0]),
+        # K3 at the BSR solve's shape, the 160^3 block-ELL x 16.
+        kernel_entry("bsr_ell", bsr_rec["launches"]["bsr_ell"],
+                     k3_lap + [band["bsr_ell"]], k3_lap[0]),
+        # K4 on the SpMM path's band x 128 (no operator dispatches it).
+        kernel_entry("bsr_strip", band["spmm_path_launches"]["bsr_strip"],
+                     [band["bsr_strip"]], band["bsr_strip"]),
+        # K5 at the dispatch path's symmetric band x 128.
+        kernel_entry("bsr_window", band["dispatch_launches"]["bsr_window"],
+                     [band["bsr_window"], band["bsr_window_spd"]],
+                     band["bsr_window_spd"]),
+    ]})
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -23,6 +23,8 @@ from lobpcg_tpu_torch.operators.linop import (
     SumOperator,
 )
 from lobpcg_tpu_torch.operators.chebyshev import ChebyshevFilter
+from lobpcg_tpu_torch.operators.sparse import BSROperator, laplacian_3d_csr
+from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND, laplacian_nd_eigs
 from lobpcg_tpu_torch.solvers.ilobpcg import ilobpcg
 from lobpcg_tpu_torch.solvers.lobpcg import lobpcg
 from lobpcg_tpu_torch.solvers.state import (
@@ -43,6 +45,10 @@ __all__ = [
     "ChebyshevFilter",
     "CallableOperator",
     "Laplacian1D",
+    "LaplacianND",
+    "laplacian_nd_eigs",
+    "BSROperator",
+    "laplacian_3d_csr",
     "BlockDiagOperator",
     "BlockAntiDiagOperator",
     "ShiftedOperator",

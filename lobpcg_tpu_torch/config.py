@@ -80,12 +80,27 @@ def as_torch_dtype(name_or_dtype) -> torch.dtype:
     return dt
 
 
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``device`` when given, else
+    the CUDA card.  Without a card it raises rather than fall back to
+    the CPU; pass ``device="cpu"`` to run the plain versions there."""
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "no CUDA device: lobpcg_tpu_torch runs on the card by default; "
+            "pass X0 on the CPU or device='cpu' to run on the CPU"
+        )
+    return torch.device("cuda")
+
+
 @dataclasses.dataclass(frozen=True)
 class SolverConfig:
     """Static solver knobs; the same fields and defaults as
     ``lobpcg_tpu.SolverConfig`` (see that class for each knob's
-    rationale).  ``gram_precision="highest"`` is full f32 on the GPU
-    (TF32 off); ``"high"`` allows TF32 for the Gram contractions."""
+    rationale).  Both ``gram_precision`` values run the Gram
+    contractions in full f32 on the GPU, TF32 off (see
+    ``ops.gram.precision_ctx``)."""
 
     nev: int
     size_sub: int

@@ -18,6 +18,8 @@ import torch
 from lobpcg_tpu_torch.config import SolverConfig
 from lobpcg_tpu_torch.operators import linop
 from lobpcg_tpu_torch.operators.chebyshev import ChebyshevFilter
+from lobpcg_tpu_torch.operators.sparse import BSROperator
+from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
 
 
 def _tensor(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -27,6 +29,13 @@ def _tensor(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
 
 def _scalar(x) -> float:
     return float(np.asarray(x).real)
+
+
+def _dtype_of(x, dtype: Optional[torch.dtype]) -> torch.dtype:
+    """``dtype`` when given, else the torch dtype of the array ``x``."""
+    if dtype is not None:
+        return dtype
+    return torch.from_numpy(np.zeros((), np.asarray(x).dtype)).dtype
 
 
 def _scalar_like(x, dtype):
@@ -40,10 +49,11 @@ def _scalar_like(x, dtype):
 def operator_from_reference(op, *, device, dtype: Optional[torch.dtype] = None):
     """The port's counterpart of a JAX-package operator tree.
 
-    Handles Laplacian1D, DiagonalOperator, JacobiPreconditioner,
-    BlockAntiDiagOperator, BlockDiagOperator, SumOperator,
-    ScaledOperator, ShiftedOperator, ComposedOperator, DenseOperator and
-    ChebyshevFilter.  ``dtype`` (optional) casts every tensor field.
+    Handles Laplacian1D, LaplacianND, BSROperator, DiagonalOperator,
+    JacobiPreconditioner, BlockAntiDiagOperator, BlockDiagOperator,
+    SumOperator, ScaledOperator, ShiftedOperator, ComposedOperator,
+    DenseOperator and ChebyshevFilter.  ``dtype`` (optional) casts every
+    floating-point tensor field; index arrays keep their dtype.
     """
     name = type(op).__name__
 
@@ -51,12 +61,24 @@ def operator_from_reference(op, *, device, dtype: Optional[torch.dtype] = None):
         return operator_from_reference(o, device=device, dtype=dtype)
 
     if name == "Laplacian1D":
-        scale = np.asarray(op.scale)
         return linop.Laplacian1D(
-            scale=_scalar(scale), n=int(op.n), segments=int(op.segments),
-            pad_lanes=bool(op.pad_lanes),
-            dtype=dtype if dtype is not None
-            else torch.from_numpy(np.zeros((), scale.dtype)).dtype,
+            scale=_scalar(op.scale), n=int(op.n), segments=int(op.segments),
+            pad_lanes=bool(op.pad_lanes), dtype=_dtype_of(op.scale, dtype),
+        )
+    if name == "LaplacianND":
+        return LaplacianND(
+            scale=_scalar(op.scale), grid=tuple(int(g) for g in op.grid),
+            force_jnp=bool(op.force_jnp), dtype=_dtype_of(op.scale, dtype),
+        )
+    if name == "BSROperator":
+        def opt(x, dt):
+            return None if x is None else _tensor(x, device, dt)
+
+        return BSROperator(
+            block_cols=_tensor(op.block_cols, device, None),
+            blocks=_tensor(op.blocks, device, dtype),
+            win_lo=opt(op.win_lo, None), win_vals=opt(op.win_vals, dtype),
+            n=int(op.n),
         )
     if name in ("DiagonalOperator", "JacobiPreconditioner",
                 "BlockAntiDiagOperator"):

@@ -3,9 +3,10 @@ with a plain C interface, and load it with ctypes.
 
 ``nvcc -gencode arch=compute_90a,code=sm_90a -O3 -shared -Xcompiler -fPIC``
 runs at first use, into ``lobpcg_tpu_torch/_build/`` (listed in
-``.gitignore``).  The library's file name carries a hash of the source and
-the flags, so an edited source rebuilds and an unchanged one loads the
-library already built.  Nothing here runs at import time.
+``.gitignore``); ``build_all`` starts one nvcc per source, all together.
+The library's file name carries a hash of the source and the flags, so
+an edited source rebuilds and an unchanged one loads the library
+already built.  Nothing here runs at import time.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ import shutil
 import subprocess
 import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 PKG_DIR = pathlib.Path(__file__).resolve().parents[2]
 CSRC_DIR = PKG_DIR / "csrc"
@@ -51,43 +53,71 @@ def find_nvcc() -> str:
     return found
 
 
-def load_library(name: str) -> ctypes.CDLL:
-    """Build (if needed) and load ``csrc/<name>.cu``; cached per process."""
-    if name in _LOADED:
-        return _LOADED[name][0]
+def _paths(name: str):
     src = CSRC_DIR / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()
     ).hexdigest()[:16]
-    lib_path = BUILD_DIR / f"lib{name}_{digest}.so"
+    return src, BUILD_DIR / f"lib{name}_{digest}.so"
+
+
+def _compile(name: str) -> dict:
+    """Run nvcc on ``csrc/<name>.cu`` unless its library is built;
+    returns the build record."""
+    src, lib_path = _paths(name)
     record = {"name": name, "path": str(lib_path), "built": False,
               "seconds": 0.0, "log": ""}
-    if not lib_path.is_file():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        nvcc = find_nvcc()
-        # Build into a private temporary name, then rename: a concurrent
-        # process never loads a half-written library.
-        fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-        os.close(fd)
-        t0 = time.perf_counter()
-        proc = subprocess.run(
-            [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
-            capture_output=True, text=True,
+    if lib_path.is_file():
+        return record
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    nvcc = find_nvcc()
+    # Build into a private temporary name, then rename: a concurrent
+    # process never loads a half-written library.
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+    os.close(fd)
+    t0 = time.perf_counter()
+    proc = subprocess.run(
+        [nvcc, *NVCC_FLAGS, "-o", tmp, str(src)],
+        capture_output=True, text=True,
+    )
+    record["seconds"] = time.perf_counter() - t0
+    record["log"] = proc.stdout + proc.stderr
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(
+            f"nvcc failed on {src} (exit {proc.returncode}):\n"
+            + record["log"]
         )
-        record["seconds"] = time.perf_counter() - t0
-        record["log"] = proc.stdout + proc.stderr
-        if proc.returncode != 0:
-            os.unlink(tmp)
-            raise RuntimeError(
-                f"nvcc failed on {src} (exit {proc.returncode}):\n"
-                + record["log"]
-            )
-        os.replace(tmp, lib_path)
-        record["built"] = True
-    lib = ctypes.CDLL(str(lib_path))
-    lib.lobpcg_cuda_error_string.argtypes = [ctypes.c_int]
-    lib.lobpcg_cuda_error_string.restype = ctypes.c_char_p
-    _LOADED[name] = (lib, record)
+    os.replace(tmp, lib_path)
+    record["built"] = True
+    return record
+
+
+def build_all(names) -> list[dict]:
+    """Build the sources of ``names`` not yet loaded, one nvcc each, all
+    started together, then load them; returns their build records."""
+    todo = [nm for nm in dict.fromkeys(names) if nm not in _LOADED]
+    if todo:
+        with ThreadPoolExecutor(len(todo)) as pool:
+            records = list(pool.map(_compile, todo))
+        for record in records:
+            lib = ctypes.CDLL(record["path"])
+            lib.lobpcg_cuda_error_string.argtypes = [ctypes.c_int]
+            lib.lobpcg_cuda_error_string.restype = ctypes.c_char_p
+            _LOADED[record["name"]] = (lib, record)
+    return [build_record(nm) for nm in names]
+
+
+def load_library(name: str, signatures: dict) -> ctypes.CDLL:
+    """Build (if needed) and load ``csrc/<name>.cu``, cached per process,
+    and give each entry point of ``signatures`` (symbol -> ctypes
+    argument types) its argument types and an int return."""
+    build_all([name])
+    lib = _LOADED[name][0]
+    for sym, argtypes in signatures.items():
+        fn = getattr(lib, sym)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
     return lib
 
 

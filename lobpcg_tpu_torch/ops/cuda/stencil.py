@@ -31,19 +31,19 @@ _SYMBOLS = {
 }
 
 
+# The C entry points of csrc/stencil1d.cu and their argument types (each
+# returns an int cudaError_t).
+SIGNATURES = {
+    sym: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
+          ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+    for sym in _SYMBOLS.values()
+}
+
+
 @functools.cache
 def _lib():
     """The built library with its entry points' ctypes signatures."""
-    lib = load_library("stencil1d")
-    for sym in _SYMBOLS.values():
-        fn = getattr(lib, sym)
-        fn.argtypes = [
-            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-            ctypes.c_float, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-            ctypes.c_void_p,
-        ]
-        fn.restype = ctypes.c_int
-    return lib
+    return load_library("stencil1d", SIGNATURES)
 
 
 def build() -> dict:

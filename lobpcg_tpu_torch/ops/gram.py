@@ -5,11 +5,11 @@ One ``torch.matmul`` per Gram: a [k, n] x [n, k] contraction that goes to
 cuBLAS on the GPU.  The full k x k matrix is always formed (k <= 3 *
 size_sub); ``eigh`` symmetrizes the round-off.
 
-Precision: ``precision_ctx("highest")`` (the default) runs every f32
-contraction in full f32, with TF32 off; ``"high"`` allows TF32 (the
-counterpart of the TPU's bf16_3x passes).  The solver entry points set
-the context from ``SolverConfig.gram_precision`` and restore the
-previous backend flags on exit.
+Precision: both ``precision_ctx("highest")`` (the default) and
+``"high"`` run every f32 contraction in full f32, with TF32 off (see
+``precision_ctx``).  The solver entry points set the context from
+``SolverConfig.gram_precision`` and restore the previous backend flags
+on exit.
 """
 
 from __future__ import annotations
@@ -26,9 +26,16 @@ _PRECISION = ["highest"]
 
 
 class precision_ctx:
-    """Context manager: set the Gram-contraction precision ("highest":
-    TF32 off; "high": TF32 on) and restore the previous setting and the
-    backend TF32 flags on exit."""
+    """Context manager: set the Gram-contraction precision name and turn
+    TF32 off for the duration, restoring the previous name and backend
+    TF32 flags on exit.
+
+    Both names keep TF32 off.  The JAX package's ``Precision.HIGH`` is
+    the TPU's bf16_3x, close to full f32 accuracy; the card has no
+    counterpart through torch, and TF32 (about three decimal digits) is
+    much coarser: with it the BdG main path converged 0/56 in 300
+    iterations on the H100 where the reference converges.  TF32 stays
+    unused until a parity test shows it is safe."""
 
     def __init__(self, name: str):
         if name not in ("highest", "high"):
@@ -42,9 +49,8 @@ class precision_ctx:
             torch.backends.cudnn.allow_tf32,
         )
         _PRECISION[0] = self._new
-        tf32 = self._new == "high"
-        torch.backends.cuda.matmul.allow_tf32 = tf32
-        torch.backends.cudnn.allow_tf32 = tf32
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
         return self
 
     def __exit__(self, *exc):

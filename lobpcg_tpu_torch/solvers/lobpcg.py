@@ -16,7 +16,11 @@ from typing import Mapping, Optional
 import numpy as np
 import torch
 
-from lobpcg_tpu_torch.config import SolverConfig, validate_problem
+from lobpcg_tpu_torch.config import (
+    SolverConfig,
+    resolve_device,
+    validate_problem,
+)
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops import masking
 from lobpcg_tpu_torch.ops.gram import (
@@ -82,7 +86,8 @@ def _start_block(X0, rng, n, m, dtype, device):
 
 def _check_inputs(A, X0, config, it_cap, device):
     """Entry validation shared by lobpcg and ilobpcg; returns the device
-    of the solve (X0's, or ``device`` when X0 is None)."""
+    of the solve: X0's, or ``device`` when X0 is None, or the CUDA card
+    when neither is given (raises without one)."""
     validate_problem(A.shape[0], config)
     if X0 is not None:
         if X0.shape[1] != config.size_sub:
@@ -103,7 +108,7 @@ def _check_inputs(A, X0, config, it_cap, device):
         raise ValueError(
             f"it_cap ({it_cap}) > config.max_iter ({config.max_iter})"
         )
-    return torch.device(device if device is not None else "cpu")
+    return resolve_device(device)
 
 
 def _config_of(config, nev, size_sub, tol, max_iter):
@@ -280,7 +285,8 @@ def lobpcg(
 
     B=None gives the standard problem, T is an optional preconditioner,
     X0 an optional initial guess ([n, size_sub]).  The solve runs on
-    X0's device, or on ``device`` when X0 is None.  Random fills come
+    X0's device, or on ``device`` when X0 is None, or on the CUDA card
+    when neither is given.  Random fills come
     from ``generator`` (a ``torch.Generator`` on that device; None = the
     global one), except the named blocks given in ``draws`` (see
     ``utils.prng.Draws``).  ``it_cap``: an iteration cap <= max_iter.

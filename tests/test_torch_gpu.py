@@ -4,8 +4,9 @@ not installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
-The stencil kernel is held against its plain PyTorch version on the
-card, and a small BdG solve must go through the kernel.
+Each kernel (K1 stencil, K2 3-D stencil, K3/K4/K5 block-sparse SpMMs)
+is held against its plain PyTorch version on the card, and small solves
+must go through the kernels.
 """
 
 import numpy as np
@@ -13,7 +14,9 @@ import pytest
 import torch
 
 import lobpcg_tpu_torch as tl
+from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
+from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 
 SCALE = 3.7
 
@@ -21,7 +24,7 @@ SCALE = 3.7
 @pytest.fixture
 def cuda_device():
     if not torch.cuda.is_available():
-        pytest.skip("needs a CUDA device: the stencil kernel runs only on the card")
+        pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
     return torch.device("cuda", 0)
 
 
@@ -79,3 +82,219 @@ def test_small_bdg_solve_runs_through_the_kernel(cuda_device):
     exact = np.linalg.eigvalsh(H)[:nev]
     lam = r.eigenvalues.double().cpu().numpy()
     assert np.abs(lam - exact).max() / exact.min() <= 1e-5
+
+
+# --- K2: the fused 3-D stencil ----------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(1, 1, 1), (5, 7, 9), (3, 16, 8), (2, 3, 1)])
+@pytest.mark.parametrize("k", [1, 3, 4, 16, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil3d_kernel_matches_plain_on_card(cuda_device, grid, k, dtype):
+    """Tolerance: 4 ulp of the storage dtype x 12 |scale| max|X| (the
+    largest output); the kernel and the plain version do the same f32
+    operations in the same order."""
+    rng = np.random.default_rng(k)
+    n = int(np.prod(grid))
+    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, k))).to(cuda_device, dtype)
+    before = k2.stencil3d_matmat.launches
+    y = k2.stencil3d_matmat(X, SCALE, grid)
+    assert k2.stencil3d_matmat.launches == before + 1
+    want = k2.stencil3d_matmat_reference(X, SCALE, grid)
+    torch.cuda.synchronize()
+    tol = 4 * torch.finfo(dtype).eps * 12 * SCALE * float(X.float().abs().max())
+    assert y.dtype == dtype and y.shape == X.shape
+    assert float((y.float() - want.float()).abs().max()) <= tol
+
+
+# --- K3 / K4 / K5: the block-sparse SpMMs ---------------------------------
+
+def _bsr_tol(plain, op_abs, X, depth):
+    """2 x depth x eps_f32 x max(|A| |X|): the error bound of a length-
+    `depth` f32 dot in another summation order."""
+    return 2 * depth * torch.finfo(torch.float32).eps * float(
+        plain(op_abs, X.abs()).abs().max())
+
+
+def _banded(n, band, seed):
+    rng = np.random.RandomState(seed)
+    A = np.zeros((n, n))
+    for d in range(-band, band + 1):
+        A += np.diag(rng.randn(n - abs(d)), d)
+    return A
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,bs", [(96, 8), (99, 3), (192, 24)])
+@pytest.mark.parametrize("k", [1, 5, 8, 128])
+def test_bsr_ell_kernel_matches_plain_on_card(cuda_device, n, bs, k):
+    A = _banded(n, 2 * bs, n)
+    op = tl.BSROperator.from_dense(A, block_size=bs, device=cuda_device)
+    X = torch.from_numpy(np.random.default_rng(k).uniform(-1, 1, (n, k))
+                         ).to(cuda_device, torch.float32)
+    before = kb.bsr_matmat.launches
+    y = kb.bsr_matmat(op.block_cols, op.blocks, X)
+    assert kb.bsr_matmat.launches == before + 1
+    want = kb.bsr_matmat_reference(op.block_cols, op.blocks, X)
+    torch.cuda.synchronize()
+    R = op.blocks.shape[1]
+    tol = _bsr_tol(lambda B, Z: kb.bsr_matmat_reference(op.block_cols, B, Z),
+                   op.blocks.abs(), X, R * bs)
+    assert float((y - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,bs,band", [(256, 8, 8), (200, 8, 16), (384, 24, 30)])
+@pytest.mark.parametrize("k", [3, 128])
+def test_bsr_strip_and_window_kernels_match_plain_on_card(cuda_device, n, bs,
+                                                          band, k):
+    A = _banded(n, band, band)
+    op = tl.BSROperator.from_dense(A, block_size=bs, device="cpu")
+    strip = bs * (-(-256 // bs))
+    sc, sv = kb.ell_to_strip_ell(op.block_cols.numpy(), op.blocks.numpy(),
+                                 strip=strip)
+    lo, wv = kb.ell_to_strip_window(op.block_cols.numpy(), op.blocks.numpy(),
+                                    strip=strip)
+    dev = lambda a: torch.from_numpy(a).to(cuda_device)
+    sc, sv, lo, wv = dev(sc), dev(sv), dev(lo), dev(wv)
+    X = torch.from_numpy(np.random.default_rng(k).uniform(-1, 1, (n, k))
+                         ).to(cuda_device, torch.float32)
+    ell = kb.bsr_matmat_reference(op.block_cols.to(cuda_device),
+                                  op.blocks.to(cuda_device), X)
+    for fn, ref, idx, vals in (
+        (kb.bsr_strip_matmat, kb.bsr_strip_matmat_reference, sc, sv),
+        (kb.bsr_window_matmat, kb.bsr_window_matmat_reference, lo, wv),
+    ):
+        before = fn.launches
+        y = fn(idx, vals, X, bs=bs)
+        assert fn.launches == before + 1
+        want = ref(idx, vals, X, bs=bs)
+        torch.cuda.synchronize()
+        tol = _bsr_tol(lambda V, Z: ref(idx, V, Z, bs=bs), vals.abs(), X,
+                       vals.shape[2])
+        assert y.shape == (n, k)
+        assert float((y - want).abs().max()) <= tol
+        assert float((y - ell).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_bsr_operator_dispatch_on_card(cuda_device):
+    """A banded matrix carries the window and goes to K5; the 3-D
+    Laplacian's CSR does not and goes to K3."""
+    A = _banded(512, 16, 1)
+    banded = tl.BSROperator.from_dense(A, block_size=8, device=cuda_device)
+    assert banded.win_vals is not None
+    lap = tl.BSROperator.from_csr(*tl.laplacian_3d_csr(16, 16, 16),
+                                  block_size=8, device=cuda_device)
+    assert lap.win_vals is None
+    X = torch.ones((512, 4), device=cuda_device)
+    b5, b3 = kb.bsr_window_matmat.launches, kb.bsr_matmat.launches
+    y = banded.matmat(X)
+    assert (kb.bsr_window_matmat.launches, kb.bsr_matmat.launches) == (b5 + 1, b3)
+    np.testing.assert_allclose(y.cpu().numpy(), A.sum(axis=1)[:, None]
+                               * np.ones((1, 4)), rtol=1e-5, atol=1e-4)
+    lap.matmat(torch.ones((4096, 4), device=cuda_device))
+    assert kb.bsr_matmat.launches == b3 + 1
+
+
+@pytest.mark.gpu
+def test_small_3d_solves_run_through_k2_and_k3(cuda_device):
+    g, nev, ss = (12, 12, 12), 3, 6
+    n = int(np.prod(g))
+    h = 1.0 / 13
+    X0 = torch.from_numpy(np.random.RandomState(0).uniform(-0.5, 0.5, (n, ss))
+                          ).to(cuda_device, torch.float32)
+    exact = tl.laplacian_nd_eigs(g, 1.0 / h**2, nev)
+    ops = {
+        "k2": (tl.LaplacianND(scale=1.0 / h**2, grid=g), k2.stencil3d_matmat),
+        "k3": (tl.BSROperator.from_csr(*tl.laplacian_3d_csr(*g), block_size=8,
+                                       device=cuda_device), kb.bsr_matmat),
+    }
+    for A, fn in ops.values():
+        before = fn.launches
+        r = tl.lobpcg(A, X0, nev=nev, size_sub=ss, tol=1e-5, max_iter=500,
+                      generator=torch.Generator(device=cuda_device).manual_seed(0))
+        assert r.converged == nev
+        assert fn.launches - before >= r.iterations
+        lam = r.eigenvalues.double().cpu().numpy()
+        assert np.abs(lam - exact).max() <= 1e-5 * 12 / h**2
+
+
+@pytest.mark.gpu
+def test_entry_points_default_to_the_card(cuda_device):
+    A = tl.Laplacian1D(scale=1.0, n=64)
+    r = tl.lobpcg(A, nev=2, size_sub=4, tol=1e-5, max_iter=200)
+    assert r.eigenvalues.device.type == "cuda"
+    op = tl.BSROperator.from_dense(np.eye(16), block_size=8)
+    assert op.blocks.device.type == "cuda"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(40,), (12, 9), (6, 5, 7)])
+def test_laplacian_nd_kernels_match_plain_formula_on_card(cuda_device, grid):
+    """f32 LaplacianND (K1 passes in 1-D/2-D, K2 in 3-D) against its
+    plain pad/slice formula (force_jnp) on the card; tolerance 4 ulp x
+    12 |scale| max|X|, the largest output."""
+    n = int(np.prod(grid))
+    X = torch.from_numpy(np.random.default_rng(n).uniform(-0.5, 0.5, (n, 12))
+                         ).to(cuda_device, torch.float32)
+    y = tl.LaplacianND(scale=SCALE, grid=grid).matmat(X)
+    want = tl.LaplacianND(scale=SCALE, grid=grid, force_jnp=True).matmat(X)
+    torch.cuda.synchronize()
+    tol = 4 * torch.finfo(torch.float32).eps * 12 * SCALE * float(X.abs().max())
+    assert float((y - want).abs().max()) <= tol
+
+
+def _banded_ell(nb, bs, w, seed):
+    """A block-banded block-ELL matrix: block row i couples to block
+    columns i-w..i+w (padding blocks zero at column 0)."""
+    rng = np.random.RandomState(seed)
+    R = 2 * w + 1
+    i = np.arange(nb)[:, None]
+    j = i + np.arange(-w, w + 1)[None, :]
+    ok = (j >= 0) & (j < nb)
+    cols = np.where(ok, j, 0).astype(np.int32)
+    vals = rng.uniform(-0.5, 0.5, (nb, R, bs, bs)).astype(np.float32)
+    vals[~ok] = 0.0
+    return cols, vals
+
+
+@pytest.mark.gpu
+def test_kernels_address_past_2_31_elements(cuda_device):
+    """n * k > 2**31, so the last rows' element offsets need 64 bits: each
+    kernel's last rows against the plain version of the sub-problem that
+    produces them."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    eps = torch.finfo(torch.float32).eps
+    # K2 on 160^3 x 528.
+    g, k = (160, 160, 160), 528
+    plane = g[1] * g[2]
+    X = torch.rand((int(np.prod(g)), k), generator=gen, device=cuda_device) - 0.5
+    assert X.numel() > 2**31
+    y = k2.stencil3d_matmat(X, SCALE, g)[-plane:]
+    want = k2.stencil3d_matmat_reference(X[-2 * plane:], SCALE,
+                                         (2, g[1], g[2]))[-plane:]
+    assert float((y - want).abs().max()) <= 4 * eps * 12 * SCALE * 0.5
+    del X, y, want
+    torch.cuda.empty_cache()
+    # K3, K4, K5 on a block-banded matrix, n 2^20 x 2056.
+    nb, bs, w, k = 2**17, 8, 3, 2056
+    cols, vals = _banded_ell(nb, bs, w, 0)
+    strip = 256
+    sc, sv = kb.ell_to_strip_ell(cols, vals, strip=strip)
+    lo, wv = kb.ell_to_strip_window(cols, vals, strip=strip)
+    dev = lambda a: torch.from_numpy(a).to(cuda_device)
+    cols_d, vals_d, sc, sv, lo, wv = (dev(a) for a in (cols, vals, sc, sv, lo, wv))
+    X = torch.rand((nb * bs, k), generator=gen, device=cuda_device) - 0.5
+    assert X.numel() > 2**31
+    m = strip // bs  # the last strip's block rows
+    Xg = X.view(nb, bs, k)[cols_d[-m:].long()]
+    want = torch.einsum("nrij,nrjk->nik", vals_d[-m:], Xg).reshape(strip, k)
+    tol = 2 * wv.shape[2] * eps * 0.25 * (2 * w + 1) * bs
+    for fn, idx, v in ((kb.bsr_matmat, cols_d, vals_d),
+                       (kb.bsr_strip_matmat, sc, sv),
+                       (kb.bsr_window_matmat, lo, wv)):
+        y = fn(idx, v, X) if fn is kb.bsr_matmat else fn(idx, v, X, bs=bs)
+        assert float((y[-strip:] - want).abs().max()) <= tol
+        del y
+        torch.cuda.empty_cache()

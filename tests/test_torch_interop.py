@@ -13,6 +13,7 @@ import pytest
 import torch
 
 import lobpcg_tpu as jl
+from lobpcg_tpu.operators.sparse import BSROperator as JBSROperator
 import lobpcg_tpu_torch as tl
 from lobpcg_tpu_torch.interop import config_from_reference, operator_from_reference
 
@@ -26,6 +27,12 @@ def test_import_pulls_in_no_jax():
         "import sys\n"
         "import lobpcg_tpu_torch, lobpcg_tpu_torch.interop\n"
         "import lobpcg_tpu_torch.ops.cuda.stencil\n"
+        "import lobpcg_tpu_torch.ops.cuda.stencil3d\n"
+        "import lobpcg_tpu_torch.ops.cuda.bsr\n"
+        "import lobpcg_tpu_torch.operators.stencil_nd\n"
+        "import lobpcg_tpu_torch.operators.sparse\n"
+        "import lobpcg_tpu_torch.utils.native\n"
+        "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'lobpcg_tpu'"
         " or m.startswith('lobpcg_tpu.')]\n"
@@ -53,6 +60,13 @@ def _tree(dtype):
         "shifted": jl.ShiftedOperator(lap, jnp.asarray(dtype(0.5))),
         "composed": jl.ComposedOperator(lap, lap),
         "dense": jl.DenseOperator(jnp.asarray(np.eye(n, dtype=dtype))),
+        "laplacian_nd": jl.LaplacianND(scale=jnp.asarray(dtype(2.0)),
+                                       grid=(2, 2, 4)),
+        "laplacian_nd_2d": jl.LaplacianND(scale=jnp.asarray(dtype(2.0)),
+                                          grid=(4, 4)),
+        "bsr": JBSROperator.from_dense(
+            np.diag(d) + np.diag(np.ones(n - 1), 1) + np.diag(np.ones(n - 1), -1),
+            block_size=8, dtype=dtype),
         "cheb": jl.ChebyshevFilter(op=A, lo=jnp.asarray(dtype(1.0)),
                                    hi=jnp.asarray(dtype(10.0)), degree=3,
                                    chunk=2),

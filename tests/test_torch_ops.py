@@ -190,16 +190,31 @@ def test_widened_hdot_matches(chunk):
 
 
 def test_precision_ctx_sets_and_restores_tf32():
+    """Both names set TF32 off for the solve and restore the flags."""
     flags = (torch.backends.cuda.matmul.allow_tf32,
              torch.backends.cudnn.allow_tf32)
-    with tg.precision_ctx("high"):
-        assert torch.backends.cuda.matmul.allow_tf32
-        assert torch.backends.cudnn.allow_tf32
-        with tg.precision_ctx("highest"):
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        with tg.precision_ctx("high"):
             assert not torch.backends.cuda.matmul.allow_tf32
             assert not torch.backends.cudnn.allow_tf32
-    assert (torch.backends.cuda.matmul.allow_tf32,
-            torch.backends.cudnn.allow_tf32) == flags
+            with tg.precision_ctx("highest"):
+                assert not torch.backends.cuda.matmul.allow_tf32
+                assert not torch.backends.cudnn.allow_tf32
+        assert torch.backends.cuda.matmul.allow_tf32
+        assert torch.backends.cudnn.allow_tf32
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = flags
+
+
+@pytest.mark.parametrize("name", ["high", "highest"])
+def test_precision_high_leaves_tf32_off(name):
+    """gram_precision="high" keeps full f32 Grams: the card has no
+    counterpart of the TPU's bf16_3x through torch, and TF32 is coarser."""
+    with tg.precision_ctx(name):
+        assert torch.backends.cuda.matmul.allow_tf32 is False
 
 
 # --- residual ---------------------------------------------------------------

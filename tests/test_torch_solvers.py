@@ -77,7 +77,8 @@ def run_both(solver, jA, X0, jB, jT, cfg, key, **kw):
         port(jA), None if X0 is None else torch.from_numpy(np.array(X0)),
         port(jB),
         port(jT), config=config_from_reference(cfg), draws=draws,
-        P0=None if P0 is None else torch.from_numpy(np.array(P0)), **kw)
+        P0=None if P0 is None else torch.from_numpy(np.array(P0)),
+        device="cpu", **kw)
     return rt, rj
 
 
@@ -247,3 +248,18 @@ def test_klobpcg_alias_and_entry_validation():
         tl.ilobpcg(A, X0, None, nev=2, size_sub=4)  # B required
     with pytest.raises(ValueError):
         tl.lobpcg(A, nev=4, size_sub=11)  # 3 * size_sub > n
+
+
+@pytest.mark.parametrize("solver", ["lobpcg", "ilobpcg"])
+def test_entry_points_without_x0_or_device_need_the_card(solver, monkeypatch):
+    """With neither X0 nor device the solve runs on the CUDA card; without
+    one it raises instead of solving on the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    A = tl.Laplacian1D(scale=1.0, n=64, dtype=torch.float64)
+    B = tl.BlockAntiDiagOperator(d=torch.ones(32, dtype=torch.float64))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        getattr(tl, solver)(A, None, B if solver == "ilobpcg" else None,
+                            nev=2, size_sub=4)
+    r = getattr(tl, solver)(A, None, B if solver == "ilobpcg" else None,
+                            nev=2, size_sub=4, max_iter=2, device="cpu")
+    assert r.eigenvalues.device.type == "cpu"
