@@ -169,8 +169,20 @@ def build_phase() -> None:
     emit({"phase": "build", "total_s": time.perf_counter() - t0})
 
 
+def conv1d_stencil(X, scale, seg):
+    """K1's yardstick: one depthwise cuDNN conv1d over the same bytes, X
+    viewed as a channels-last [segments, k, n / segments] batch (no edge
+    rows; TF32 off)."""
+    n, k = X.shape
+    w = torch.tensor([-scale, 2.0 * scale, -scale], dtype=X.dtype,
+                     device=X.device).repeat(k, 1, 1)
+    Xc = X.view(seg, n // seg, k).permute(0, 2, 1)
+    return lambda: torch.nn.functional.conv1d(Xc, w, padding=1, groups=k)
+
+
 def kernel_phase(dev) -> list[dict]:
-    """K1 against its plain version at the main path's shapes."""
+    """K1 against its plain version at the main path's shapes, and the
+    library yardstick at the BdG solve's [4M, 64] f32."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [
         # (n, k, dtype, segments, edge_rows?)
@@ -216,8 +228,27 @@ def kernel_phase(dev) -> list[dict]:
             "ms": ms, "gbps": nbytes / ms / 1e6,
             "plain_ms": plain_ms, "plain_gbps": nbytes / plain_ms / 1e6,
             # 2x, two subtractions, one scale: 4 operations per element.
-            **bound(nbytes, 4 * n * k),
+            **bound(nbytes, 4 * n * k), "library_ms": None,
         }
+        if dt == torch.float32 and k == 64 and not with_edges:
+            lib = conv1d_stencil(X, scale, seg)
+            tf32 = torch.backends.cudnn.allow_tf32
+            torch.backends.cudnn.allow_tf32 = False
+            try:
+                lib_err = max_abs(
+                    lib().permute(0, 2, 1).reshape(n, k),
+                    k1.stencil_matmat_reference(X, scale, None,
+                                                num_segments=seg))
+                # 8 ulp of the largest output, 4 |scale| max|X|.
+                lib_tol = 16 * tol
+                if not lib_err <= lib_tol:
+                    raise AssertionError(f"conv1d yardstick computes another "
+                                         f"function: {lib_err} > {lib_tol}")
+                rec["library_max_abs_err"] = lib_err
+                rec["library_tol"] = lib_tol
+                rec["library_ms"] = time_ms(lib)
+            finally:
+                torch.backends.cudnn.allow_tf32 = tf32
         emit(rec)
         out.append(rec)
         del X, E

@@ -136,20 +136,9 @@ def ell_to_strip_ell(block_cols, blocks, *, strip: int = STRIP):
     return strip_cols, sv5.reshape(ns, strip, Rs * bs)
 
 
-def ell_to_strip_window(block_cols, blocks, *, strip: int = STRIP,
-                        ncols: int | None = None,
-                        force_width: int | None = None):
-    """Host-side conversion: block-ELL -> strip-window (banded fast path).
-
-    ``ncols``: number of block columns the indices address (defaults to
-    the row count, i.e. a square matrix).  The sharded operator passes
-    the EXTENDED local frame width nb_local + 2*halo here — its local
-    block matrix is rectangular (spmd_bsr.py), and window clamping must
-    use the X_ext row count, not the output row count.
-    ``force_width``: use this window width (in block columns) instead of
-    the computed one — the sharded operator converts each shard
-    separately and needs one uniform width across shards; must be >= the
-    max span and should already be lane-aligned.
+def ell_to_strip_window(block_cols, blocks, *, strip: int = STRIP):
+    """Host-side conversion: block-ELL -> strip-window (banded fast path),
+    for a square matrix.
 
     Each strip stores ONE contiguous block-column window [lo, lo + Wb)
     covering every column its rows touch, and a dense [strip, Wb*bs]
@@ -190,18 +179,9 @@ def ell_to_strip_window(block_cols, blocks, *, strip: int = STRIP,
     # Pad the window width to a multiple of lcm(bs, 128) columns: the
     # TPU's 128-lane alignment, kept so that both packages build the
     # same format (re-choosing it for Hopper is later tuning work).
-    nc = nb if ncols is None else ncols
-    if force_width is not None:
-        if force_width < Wb:
-            raise ValueError(
-                f"force_width {force_width} < max span {Wb}"
-            )
-        Wb = force_width
-    else:
-        step = math.lcm(bs, 128) // bs
-        Wb = -(-Wb // step) * step
-    Wb = min(Wb, nc)  # tiny matrices: window = whole matrix
-    lo = np.clip(cmin, 0, max(0, nc - Wb)).astype(np.int32)
+    step = math.lcm(bs, 128) // bs
+    Wb = min(-(-Wb // step) * step, nb)  # tiny matrices: the whole matrix
+    lo = np.clip(cmin, 0, max(0, nb - Wb)).astype(np.int32)
 
     win = np.zeros((ns, SB, bs, Wb, bs), vals.dtype)
     s_idx, m_idx = np.nonzero(nz2)
