@@ -7,25 +7,39 @@ non-zero; there is no CPU fallback):
 
 1. device     — requires CUDA; the card's name and power limit.
 2. build      — builds the kernels (csrc/stencil1d.cu, stencil3d.cu,
-                bsr.cu) with nvcc, one process per source, all at once.
+                bsr.cu, copy.cu) with nvcc, one process per source, all at
+                once.
 3. kernel K1  — the 1-D stencil against its plain version at the BdG
                 solve's shapes; error, ms and GB/s of both.
-4. quickstart — README: lobpcg on Laplacian1D, n 256, f32.
-5. main       — ilobpcg on the BdG quantum-well pencil at n 4,000,000,
-                nev 56, size_sub 64, Chebyshev degree 3, f32, against the
+4. kernel K7  — the streaming copy against its plain version (clone) at
+                [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
+                GB/s, bound, and Tensor.copy_ as the library time.
+5. quickstart — README: lobpcg on Laplacian1D, n 256, f32.
+6. main       — ilobpcg on the BdG quantum-well pencil of
+                lobpcg_tpu_torch/benchmarks/solve_bdg.py at n 4,000,000,
+                nev 56, size_sub 64, Chebyshev degree 3, f32, against its
                 dense well oracle; must go through K1.  Run twice, under
                 gram_precision "highest" and "high" (both TF32-free).
-6. kernel K2  — the fused 3-D stencil against its plain version at the
+7. bench      — the SpMM headline, lobpcg_tpu_torch.bench.measure_spmm
+                ([4M, 256] f32 through K1 against K7's copy roofline);
+                must launch K1 and K7.
+8. sub1M_150  — benchmarks.solve_bdg.solve at n 1,000,000, nev 150,
+                size_sub 164, Chebyshev degree 3, tol 1e-5, f32: 150/150
+                within 1e-5 of the oracle, K1 at least twice an iteration.
+9. realify    — the same pencil specified in complex128 and solved
+                through its split-real embedding, n 1,000,000, nev 16:
+                16/16 complex pairs within 1e-5; must go through K1.
+10. kernel K2  — the fused 3-D stencil against its plain version at the
                 160^3 grid (k 16, 48, 128 f32; 16 bf16) and an odd grid.
-7. host / kernel K3 — the 160^3 Laplacian's CSR and BSROperator (host
+11. host / kernel K3 — the 160^3 Laplacian's CSR and BSROperator (host
                 seconds on their own lines); K3 on its block-ELL at k 16
                 and 48.
-8. laplacian3d — standard lobpcg at the 160^3 grid (n 4,096,000), nev 10,
+12. laplacian3d — standard lobpcg at the 160^3 grid (n 4,096,000), nev 10,
                 size_sub 16, tol 1e-5, max_iter 2000, f32, twice from one
                 X0: through
                 LaplacianND (K2) and through BSROperator.from_csr (K3),
                 against laplacian_nd_eigs.
-9. band       — benchmarks/bsr_spmm.py's banded matrix (n 1,048,576,
+13. band       — benchmarks/bsr_spmm.py's banded matrix (n 1,048,576,
                 bs 8, band 24, k 128) in its three formats: K3, K4, K5
                 against their plain versions, and the SpMM path (one
                 apply per format).  Then a symmetric SPD variant
@@ -42,7 +56,6 @@ from __future__ import annotations
 
 import json
 import math
-import statistics
 import subprocess
 import time
 
@@ -51,18 +64,22 @@ import scipy.sparse as sp
 import torch
 
 import lobpcg_tpu_torch as lt
+from lobpcg_tpu_torch import bench
+from lobpcg_tpu_torch.benchmarks import solve_bdg
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import build as cuda_build
+from lobpcg_tpu_torch.ops.cuda import copy as k7
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 from lobpcg_tpu_torch.utils import native
 
 N_MAIN = 4_000_000
 NEV, SIZE_SUB = 56, 64
-WELL, BARRIER, SHIFT = 1024, 1.0, 1.0  # benchmarks/solve_bdg.py's well
 CHEB_DEGREE = 3
 TOL, MAX_ITER = 1e-5, 300
 ORACLE_RTOL = 1e-5
+N_SUB, NEV_SUB, SS_SUB = 1_000_000, 150, 164  # bench.py's sub1M_150 line
+NEV_REALIFY = 16
 
 GRID3 = (160, 160, 160)  # benchmarks/README.md's 3-D operator shape
 # max_iter 2000: the tenth pair's residual crosses 1e-5 after ~1,460-1,490
@@ -88,6 +105,7 @@ KERNELS = {
                   "lobpcg_tpu/ops/pallas/bsr.py:186"),
     "bsr_window": (kb.bsr_window_matmat, "lobpcg_tpu_torch/csrc/bsr.cu",
                    "lobpcg_tpu/ops/pallas/bsr.py:381"),
+    "copy": (k7.stream_copy, "lobpcg_tpu_torch/csrc/copy.cu", "bench.py:65"),
 }
 
 
@@ -112,27 +130,19 @@ def read_counts() -> dict:
     return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
 
 
-def time_ms(fn, reps: int = 10) -> float:
-    """Median of `reps` CUDA-event timings of fn(), after one warm-up."""
-    fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(reps):
-        t0 = torch.cuda.Event(enable_timing=True)
-        t1 = torch.cuda.Event(enable_timing=True)
-        t0.record()
-        fn()
-        t1.record()
-        t1.synchronize()
-        times.append(t0.elapsed_time(t1))
-    return statistics.median(times)
+def time_ms(fn) -> float:
+    """ms of one fn() on the card, by lobpcg_tpu_torch.bench.time_ms: CUDA
+    events around windows of 15 back-to-back calls, the best of three
+    windows after a warm-up window (the wrapper's host time overlaps the
+    previous call, as on a solve's path)."""
+    return bench.time_ms(fn, torch.device("cuda"))
 
 
-def timed_untracked(fn, reps: int = 10) -> float:
+def timed_untracked(fn) -> float:
     """time_ms of a kernel wrapper whose launches must not count."""
     counts = read_counts()
     try:
-        return time_ms(fn, reps)
+        return time_ms(fn)
     finally:
         for name, (wrapper, _, _) in KERNELS.items():
             wrapper.launches = counts[name]
@@ -161,7 +171,7 @@ def free() -> None:
 
 def build_phase() -> None:
     t0 = time.perf_counter()
-    recs = cuda_build.build_all(["stencil1d", "stencil3d", "bsr"])
+    recs = cuda_build.build_all(["stencil1d", "stencil3d", "bsr", "copy"])
     for rec in recs:
         emit({"phase": "build", "kernel": rec["name"], "nvcc_ran": rec["built"],
               "nvcc_s": rec["seconds"],
@@ -274,36 +284,47 @@ def quickstart_phase(dev) -> None:
         raise AssertionError(f"quick start eigenvalues off: {lam}")
 
 
-def well_eigs_oracle(w: int, nev: int, barrier: float, margin: int = 2048):
-    """Low eigenvalues of the truncated well Hamiltonian (dense, host);
-    the formula of benchmarks/solve_bdg.py."""
-    size = w + 2 * margin
-    V = np.full(size, barrier + SHIFT)
-    V[margin : margin + w] = SHIFT
-    H = (
-        np.diag(2.0 + V)
-        - np.diag(np.ones(size - 1), 1)
-        - np.diag(np.ones(size - 1), -1)
-    )
-    return np.linalg.eigvalsh(H)[:nev]
+def copy_phase(dev) -> list[dict]:
+    """K7 against its plain version (clone), bit for bit, at the
+    headline's [4M, 256], the BdG solve's [4M, 64] and an odd shape
+    (n not a multiple of 2048, k odd, numel not a multiple of 4), timed
+    beside its plain version and Tensor.copy_ into a preallocated block."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    out = []
+    for n, k in ((N_MAIN, 256), (N_MAIN, 64), (1_000_003, 77)):
+        X = torch.rand((n, k), generator=gen, device=dev) - 0.5
+        Y = k7.stream_copy(X)
+        Yp = k7.stream_copy_reference(X)
+        torch.cuda.synchronize()
+        err = max_abs(Y, Yp)
+        if not (err == 0.0 and torch.equal(Y, Yp)):
+            raise AssertionError(f"copy kernel differs at n={n} k={k}: {err}")
+        del Y, Yp
+        free()
+        dst = torch.empty_like(X)
+        ms = timed_untracked(lambda: k7.stream_copy(X))
+        plain_ms = time_ms(lambda: k7.stream_copy_reference(X))
+        lib_ms = time_ms(lambda: dst.copy_(X))
+        nbytes = 2 * n * k * 4
+        rec = {"phase": "kernel", "name": "copy", "n": n, "k": k,
+               "dtype": "float32", "max_abs_err": err, "tol": 0.0,
+               "ms": ms, "gbps": nbytes / ms / 1e6,
+               "plain_ms": plain_ms, "plain_gbps": nbytes / plain_ms / 1e6,
+               **bound(nbytes, 0), "library_ms": lib_ms,
+               "library_gbps": nbytes / lib_ms / 1e6}
+        emit(rec)
+        out.append(rec)
+        del X, dst
+        free()
+    return out
 
 
 def main_phase(dev, precision: str) -> dict:
     """ilobpcg on the BdG well pencil at the flagship shape."""
-    n, m, ss, dt = N_MAIN, N_MAIN // 2, SIZE_SUB, torch.float32
-    lo = (m - WELL) // 2
-    V = np.full(m, BARRIER + SHIFT, np.float64)
-    V[lo : lo + WELL] = SHIFT
-    Vd = torch.as_tensor(np.concatenate([V, V]), dtype=dt, device=dev)
-    A = lt.Laplacian1D(scale=1.0, n=n, segments=2, dtype=dt) \
-        + lt.DiagonalOperator(Vd)
-    B = lt.BlockAntiDiagOperator(d=torch.ones((m,), dtype=dt, device=dev))
-    T = lt.ChebyshevFilter(op=A, lo=2.0, hi=4.0 + BARRIER + SHIFT + 0.1,
-                           degree=CHEB_DEGREE, chunk=0)
-    rng = np.random.RandomState(42)
-    u = np.zeros((m, ss), np.float32)
-    u[lo : lo + WELL] = rng.uniform(-0.5, 0.5, size=(WELL, ss))
-    X0 = torch.as_tensor(np.concatenate([u, u], axis=0), device=dev)
+    A, B, T, X0, _, _ = solve_bdg.well_problem(
+        N_MAIN, NEV, SIZE_SUB, dtype=torch.float32, cheb=CHEB_DEGREE,
+        precond=True, device=dev, cheb_chunk=0)
+    n, ss = N_MAIN, SIZE_SUB
     cfg = lt.SolverConfig(nev=NEV, size_sub=ss, tol=TOL, max_iter=MAX_ITER,
                           gram_precision=precision, use_ax_cache=True,
                           use_b_cache=True, dual_basis=True)
@@ -318,12 +339,12 @@ def main_phase(dev, precision: str) -> dict:
     wall = time.perf_counter() - t0
     counts = read_counts()
 
-    exact = well_eigs_oracle(WELL, NEV, BARRIER)
+    exact = solve_bdg.well_eigs_oracle(solve_bdg.WELL, NEV, solve_bdg.BARRIER)
     rel = np.abs(lam - exact) / np.abs(exact)
     rec = {
         "phase": "main", "n": n, "nev": NEV, "size_sub": ss,
-        "dtype": "float32", "cheb_degree": CHEB_DEGREE, "tol": TOL,
-        "gram_precision": precision,
+        "dtype": "float32", "cheb_degree": CHEB_DEGREE, "cheb_chunk": T.chunk,
+        "tol": TOL, "gram_precision": precision,
         "converged": r.converged, "iterations": r.iterations,
         "quality5": r.quality5_count, "rr_failed": r.rr_fail_count,
         "wall_s": wall, "launches": counts,
@@ -342,6 +363,46 @@ def main_phase(dev, precision: str) -> dict:
             f"stencil kernel launched {counts['stencil1d']} times in "
             f"{r.iterations} iterations"
         )
+    return rec
+
+
+def bench_phase(dev) -> dict:
+    """The SpMM headline through the bench entry point: K1 at [4M, 256]
+    f32 against K7's copy roofline on the same block."""
+    zero_counts()
+    rec = bench.measure_spmm(dev)
+    counts = read_counts()
+    rec = {"phase": "bench", **rec, "launches": counts}
+    emit(rec)
+    if counts["copy"] < 1 or counts["stencil1d"] < 1:
+        raise AssertionError(f"bench path launched {counts}")
+    if not (rec["apply_finite"] and math.isfinite(rec["value"])
+            and rec["value"] > 0 and math.isfinite(rec["vs_baseline"])):
+        raise AssertionError(f"bench headline not finite: {rec}")
+    return rec
+
+
+def well_solve_phase(dev, phase: str, n: int, nev: int, size_sub: int,
+                     realify: bool) -> dict:
+    """One solve through benchmarks.solve_bdg.solve (Chebyshev degree 3,
+    tol 1e-5, f32, no warm-up), against the dense well oracle."""
+    torch.cuda.synchronize()
+    zero_counts()
+    rec = solve_bdg.solve(n, nev, size_sub, tol=TOL, dtype="float32",
+                          cheb=CHEB_DEGREE, check=True, realify=realify,
+                          warmup=False, reps=1, device=dev)
+    counts = read_counts()
+    rec = {"phase": phase, **rec, "launches": counts}
+    emit(rec)
+    if rec["converged"] != nev:
+        raise AssertionError(f"{phase}: converged {rec['converged']}/{nev}")
+    if not rec["max_rel_err"] <= ORACLE_RTOL:
+        raise AssertionError(f"{phase}: max rel err {rec['max_rel_err']} > "
+                             f"{ORACLE_RTOL}")
+    if counts["stencil1d"] < 2 * rec["iterations"]:
+        raise AssertionError(f"{phase}: stencil kernel launched "
+                             f"{counts['stencil1d']} times in "
+                             f"{rec['iterations']} iterations")
     return rec
 
 
@@ -717,10 +778,17 @@ def main() -> None:
 
     build_phase()
     k1_recs = kernel_phase(dev)
+    k7_recs = copy_phase(dev)
     quickstart_phase(dev)
     main_rec = main_phase(dev, "highest")
     free()
     main_phase(dev, "high")
+    free()
+    bench_rec = bench_phase(dev)
+    free()
+    well_solve_phase(dev, "sub1M_150", N_SUB, NEV_SUB, SS_SUB, realify=False)
+    free()
+    well_solve_phase(dev, "realify", N_SUB, NEV_REALIFY, 0, realify=True)
     free()
 
     k2_recs = k2_phase(dev)
@@ -758,6 +826,9 @@ def main() -> None:
         kernel_entry("bsr_window", band["dispatch_launches"]["bsr_window"],
                      [band["bsr_window"], band["bsr_window_spd"]],
                      band["bsr_window_spd"]),
+        # K7 at the headline's shape, [4M, 256] f32.
+        kernel_entry("copy", bench_rec["launches"]["copy"], k7_recs,
+                     k7_recs[0]),
     ]})
     print(card, flush=True)
     emit({"ok": True, "device": {

@@ -23,6 +23,12 @@ from lobpcg_tpu_torch.operators.linop import (
     SumOperator,
 )
 from lobpcg_tpu_torch.operators.chebyshev import ChebyshevFilter
+from lobpcg_tpu_torch.operators.realify import (
+    derealify,
+    realify_operator,
+    realify_problem,
+    realify_x0,
+)
 from lobpcg_tpu_torch.operators.sparse import BSROperator, laplacian_3d_csr
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND, laplacian_nd_eigs
 from lobpcg_tpu_torch.solvers.ilobpcg import ilobpcg
@@ -31,6 +37,16 @@ from lobpcg_tpu_torch.solvers.state import (
     ILOBPCGResult,
     LOBPCGResult,
     SolveHistory,
+)
+from lobpcg_tpu_torch.utils.checkpoint import (
+    load_checkpoint,
+    save_checkpoint,
+    solve_checkpointed,
+)
+from lobpcg_tpu_torch.utils.plan import (
+    estimate_peak_gb,
+    plan_config,
+    probe_hbm_gb,
 )
 
 # `klobpcg` is a pure alias of the standard solver, as in the JAX package.
@@ -61,6 +77,16 @@ __all__ = [
     "LOBPCGResult",
     "ILOBPCGResult",
     "SolveHistory",
+    "realify_operator",
+    "realify_problem",
+    "realify_x0",
+    "derealify",
+    "save_checkpoint",
+    "load_checkpoint",
+    "solve_checkpointed",
+    "estimate_peak_gb",
+    "plan_config",
+    "probe_hbm_gb",
 ]
 
 __version__ = "0.1.0"

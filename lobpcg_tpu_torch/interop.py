@@ -18,8 +18,13 @@ import torch
 from lobpcg_tpu_torch.config import SolverConfig
 from lobpcg_tpu_torch.operators import linop
 from lobpcg_tpu_torch.operators.chebyshev import ChebyshevFilter
+from lobpcg_tpu_torch.operators.realify import (
+    RealEmbeddedDenseOperator,
+    RealEmbeddedDiagonalOperator,
+)
 from lobpcg_tpu_torch.operators.sparse import BSROperator
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
+from lobpcg_tpu_torch.physics.bdg import BlockDiag2Operator
 
 
 def _tensor(x, device, dtype: Optional[torch.dtype]) -> torch.Tensor:
@@ -52,7 +57,8 @@ def operator_from_reference(op, *, device, dtype: Optional[torch.dtype] = None):
     Handles Laplacian1D, LaplacianND, BSROperator, DiagonalOperator,
     JacobiPreconditioner, BlockAntiDiagOperator, BlockDiagOperator,
     SumOperator, ScaledOperator, ShiftedOperator, ComposedOperator,
-    DenseOperator and ChebyshevFilter.  ``dtype`` (optional) casts every
+    DenseOperator, ChebyshevFilter, BlockDiag2Operator,
+    RealEmbeddedDenseOperator and RealEmbeddedDiagonalOperator.  ``dtype`` (optional) casts every
     floating-point tensor field; index arrays keep their dtype.
     """
     name = type(op).__name__
@@ -95,6 +101,14 @@ def operator_from_reference(op, *, device, dtype: Optional[torch.dtype] = None):
         return linop.ScaledOperator(sub(op.op), _scalar_like(op.alpha, dtype))
     if name == "ShiftedOperator":
         return linop.ShiftedOperator(sub(op.op), _scalar_like(op.sigma, dtype))
+    if name == "BlockDiag2Operator":
+        return BlockDiag2Operator(sub(op.top), sub(op.bottom))
+    if name == "RealEmbeddedDenseOperator":
+        return RealEmbeddedDenseOperator(_tensor(op.Ar, device, dtype),
+                                         _tensor(op.Ai, device, dtype))
+    if name == "RealEmbeddedDiagonalOperator":
+        return RealEmbeddedDiagonalOperator(_tensor(op.dr, device, dtype),
+                                            _tensor(op.di, device, dtype))
     if name == "ChebyshevFilter":
         return ChebyshevFilter(
             sub(op.op), lo=_scalar(op.lo), hi=_scalar(op.hi),

@@ -100,8 +100,9 @@ CATEGORIES = (
     ("K3 bsr_ell", ("bsr_ell_kernel",)),
     ("K1 stencil1d", ("stencil1d_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "Kernel2")),
-    ("eigh / QR (cuSOLVER)", ("syevj", "syevd", "geqrf", "orgqr", "ormqr",
-                              "potrf", "trsm", "cusolver", "jacobi")),
+    ("eigh / QR (cuSOLVER)", ("syevj", "syevd", "sytrd", "stedc", "steqr",
+                              "sterf", "ormtr", "orgtr", "geqrf", "orgqr",
+                              "ormqr", "potrf", "trsm", "cusolver", "jacobi")),
     ("memcpy / memset", ("Memcpy", "Memset")),
 )
 

@@ -1,0 +1,104 @@
+"""Device-memory-aware solve planning (port of ``lobpcg_tpu/utils/plan.py``):
+estimate a solve's peak device memory and fit the fastest SolverConfig
+inside a budget.
+
+The anchors are the card's own: ``tools/plan_anchors.py`` runs short
+ilobpcg solves of the 4M x 64 f32 BdG well for each memory knob
+combination and reads ``torch.cuda.max_memory_allocated``.  The JAX
+package's anchors are TPU-compiled peaks, where XLA counted both
+branches of every ``lax.cond``; eager torch allocates only the branch
+that runs, so the dual-basis branch costs memory only in the iterations
+where it fires (never in the well solves the anchors measure).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import numpy as np
+import torch
+
+# Peak in units of one [n, size_sub] operator-dtype block, keyed by
+# (use_b_cache, use_ax_cache): tools/plan_anchors.py at n 4M, size_sub 64,
+# f32, 5 iterations (NVIDIA H100 80GB HBM3, 700.00 W).  dual_basis on and
+# off measured the same (its branch allocates only in the iterations where
+# it fires), and pack_applies does not enter: the port never packs two
+# applies into one (ops/gram.py), so it cannot change the allocations.
+PEAK_BLOCKS_H100 = {
+    (True, True): 14.057,
+    (True, False): 13.057,
+    (False, True): 12.057,
+    (False, False): 11.057,
+}
+
+# Knob combinations from the fastest to the leanest, the JAX package's
+# order without its dual-basis and packing rungs (they save no memory
+# here); each entry overrides SolverConfig fields.
+_LADDER = (
+    {},
+    {"use_b_cache": False},
+    {"use_b_cache": False, "use_ax_cache": False},
+)
+
+
+def _itemsize(dtype) -> int:
+    if isinstance(dtype, torch.dtype):
+        return dtype.itemsize
+    return np.dtype(dtype).itemsize
+
+
+def estimate_peak_gb(n: int, size_sub: int, dtype, config,
+                     pad_lanes: bool = False) -> float:
+    """Peak device memory (GiB) of an ilobpcg/lobpcg solve: the measured
+    4M x 64 f32 anchors scaled by the block size n * size_sub * itemsize.
+    k x k scratch is not modelled.  ``pad_lanes`` is accepted for parity
+    and adds nothing (the Hopper stencil takes any width).  Exact at the
+    measured corner, proportional elsewhere: keep a margin.
+    """
+    del pad_lanes
+    key = (bool(config.use_b_cache), bool(config.use_ax_cache))
+    block_gb = n * size_sub * _itemsize(dtype) / (1 << 30)
+    return PEAK_BLOCKS_H100[key] * block_gb
+
+
+def probe_hbm_gb(device=None) -> float:
+    """The card's free device memory in GiB (``torch.cuda.mem_get_info``;
+    nothing is allocated).  Raises without a card."""
+    if not torch.cuda.is_available():
+        raise RuntimeError("probe_hbm_gb: no CUDA device")
+    free, _ = torch.cuda.mem_get_info(device)
+    return free / (1 << 30)
+
+
+def plan_config(
+    config,
+    n: int,
+    dtype=torch.float32,
+    *,
+    hbm_gb: Optional[float] = None,
+    margin: float = 0.95,
+):
+    """The first variant of ``config`` along the ladder (full -> b-cache
+    off -> both caches off) whose estimated peak
+    fits ``margin * hbm_gb``; ``hbm_gb`` None means the card's free
+    memory now (``probe_hbm_gb``).
+
+    Knobs the caller already disabled stay disabled.  Raises
+    ``ValueError`` if even the leanest configuration does not fit.
+    """
+    budget = margin * (probe_hbm_gb() if hbm_gb is None else hbm_gb)
+    for rung in _LADDER:
+        kw = dict(rung)
+        for field in ("use_b_cache", "use_ax_cache"):
+            if not getattr(config, field):
+                kw[field] = False  # never re-enable a knob the caller turned off
+        cand = dataclasses.replace(config, **kw)
+        if estimate_peak_gb(n, config.size_sub, dtype, cand) <= budget:
+            return cand
+    raise ValueError(
+        f"no single-card configuration fits: dim {n} x size_sub "
+        f"{config.size_sub} needs >= "
+        f"{estimate_peak_gb(n, config.size_sub, dtype, cand):.2f} GB "
+        f"(budget {budget:.2f} GB); shrink size_sub or shard the problem."
+    )

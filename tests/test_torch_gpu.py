@@ -4,9 +4,9 @@ not installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
-Each kernel (K1 stencil, K2 3-D stencil, K3/K4/K5 block-sparse SpMMs)
-is held against its plain PyTorch version on the card, and small solves
-must go through the kernels.
+Each kernel (K1 stencil, K2 3-D stencil, K3/K4/K5 block-sparse SpMMs,
+K7 streaming copy) is held against its plain PyTorch version on the
+card, and small solves must go through the kernels.
 """
 
 import numpy as np
@@ -15,6 +15,7 @@ import torch
 
 import lobpcg_tpu_torch as tl
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
+from lobpcg_tpu_torch.ops.cuda import copy as k7
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 
@@ -298,3 +299,137 @@ def test_kernels_address_past_2_31_elements(cuda_device):
         assert float((y[-strip:] - want).abs().max()) <= tol
         del y
         torch.cuda.empty_cache()
+
+
+# --- K7: the streaming copy ---------------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 64, 256])
+@pytest.mark.parametrize("n", [1, 7, 1021, 4099])
+@pytest.mark.parametrize("offset", [0, 1, 3])
+def test_copy_kernel_matches_clone_on_card(cuda_device, n, k, offset):
+    """Bit for bit, at n not a multiple of 4 and, with a nonzero offset,
+    a base address that is not 16-byte aligned (a contiguous view into
+    an offset storage)."""
+    buf = torch.rand(n * k + offset, device=cuda_device) - 0.5
+    X = buf[offset:].view(n, k)
+    assert X.is_contiguous() and (X.data_ptr() % 16 == 0) == (offset == 0)
+    before = k7.stream_copy.launches
+    Y = k7.stream_copy(X)
+    assert k7.stream_copy.launches == before + 1
+    torch.cuda.synchronize()
+    assert Y.data_ptr() != X.data_ptr()
+    assert torch.equal(Y, k7.stream_copy_reference(X))
+
+
+@pytest.mark.gpu
+def test_copy_kernel_rejects_what_it_does_not_take(cuda_device):
+    X = torch.zeros((64, 8), device=cuda_device)
+    with pytest.raises(TypeError):
+        k7.stream_copy(X.double())
+    with pytest.raises(ValueError):
+        k7.stream_copy(X[:, ::2])  # not contiguous
+
+
+@pytest.mark.gpu
+def test_copy_kernel_past_2_31_bytes(cuda_device):
+    """[2^21 + 3, 256] f32 is more than 2^31 bytes (and 2^29 elements):
+    the offsets of the last rows need more than 31 bits of bytes."""
+    n, k = 2**21 + 3, 256
+    X = torch.rand((n, k), device=cuda_device,
+                   generator=torch.Generator(device=cuda_device).manual_seed(0))
+    assert X.numel() * 4 > 2**31
+    Y = k7.stream_copy(X)
+    torch.cuda.synchronize()
+    assert torch.equal(Y, X)
+
+
+@pytest.mark.gpu
+def test_solve_checkpointed_on_card(cuda_device, tmp_path):
+    """A small well Hamiltonian K = tridiag[-1, 2, -1] + V solved in
+    chunks of 7 iterations, snapshotted to disk, against the one-shot
+    solve from the same X0 and the dense eigenvalues (f32; tolerance
+    1e-5 relative, the f32 solve's: ||K|| ~ 6, so rounding is far
+    below it)."""
+    n, nev, ss, well = 256, 3, 6, 32
+    V = np.full(n, 2.0)
+    V[(n - well) // 2 : (n + well) // 2] = 1.0
+    A = tl.Laplacian1D(scale=1.0, n=n) + tl.DiagonalOperator(
+        torch.as_tensor(V, dtype=torch.float32, device=cuda_device))
+    X0 = torch.from_numpy(np.random.RandomState(5).uniform(-0.5, 0.5, (n, ss))
+                          ).to(cuda_device, torch.float32)
+    cfg = tl.SolverConfig(nev=nev, size_sub=ss, tol=1e-5, max_iter=300)
+    gen = lambda: torch.Generator(device=cuda_device).manual_seed(0)
+    full = tl.lobpcg(A, X0, config=cfg, generator=gen())
+    before = k1.stencil_matmat.launches
+    r = tl.solve_checkpointed(tl.lobpcg, A, X0, config=cfg,
+                              path=tmp_path / "ck.npz", every=7,
+                              generator=gen())
+    assert k1.stencil_matmat.launches > before
+    assert r.converged == nev and r.eigenvalues.device.type == "cuda"
+    ck = tl.load_checkpoint(tmp_path / "ck.npz")
+    assert ck["basis"].shape == (n, ss) and ck["iterations"] == r.iterations
+    np.testing.assert_allclose(r.eigenvalues.cpu().numpy(),
+                               full.eigenvalues.cpu().numpy(), rtol=1e-5)
+    H = np.diag(2.0 + V) - np.eye(n, k=1) - np.eye(n, k=-1)
+    np.testing.assert_allclose(r.eigenvalues.double().cpu().numpy(),
+                               np.linalg.eigvalsh(H)[:nev], rtol=1e-5)
+
+
+@pytest.mark.gpu
+def test_bdg_physics_solve_runs_through_k1(cuda_device):
+    """The uniform-gas BdG pencil (physics/bdg.py) in f32 on the card:
+    the Laplacian1D kinetic term launches K1, and the solve reproduces
+    the Bogoliubov dispersion to 1e-3 relative: f32 rounding at
+    ||A|| ~ 3.3e4 bounds the absolute error near ||A|| eps_f32 ~ 2e-3,
+    6e-5 of omega_1 ~ 33, and the tolerance leaves a margin over it."""
+    from lobpcg_tpu_torch.physics import bdg_operators, bdg_positive_start
+
+    m, g, nev, ss = 128, 50.0, 4, 8
+    h = 1.0 / (m + 1)
+    kinetic = tl.Laplacian1D(scale=0.5 / h**2, n=m)
+    psi = torch.ones(m, device=cuda_device)
+    A, B, _, _ = bdg_operators(kinetic, psi, g=g, mu=g)
+    eps = 2.0 / h**2 * np.sin(np.arange(1, m + 1) * np.pi * h / 2) ** 2
+    omega = np.sort(np.sqrt(eps * (eps + 2 * g)))
+    gen = torch.Generator(device=cuda_device).manual_seed(42)
+    X0 = bdg_positive_start(gen, m, ss, torch.float32)
+    before = k1.stencil_matmat.launches
+    r = tl.ilobpcg(A, X0, B, nev=nev, size_sub=ss, tol=1e-5, max_iter=400,
+                   generator=gen)
+    assert r.converged == nev
+    assert k1.stencil_matmat.launches - before >= 2 * r.iterations
+    np.testing.assert_allclose(r.eigenvalues.double().cpu().numpy(),
+                               omega[:nev], rtol=1e-3)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype,tol,rtol", [(torch.complex128, 1e-8, 1e-9),
+                                            (torch.complex64, 1e-5, 1e-5)])
+def test_native_complex_solve_matches_realify_on_card(cuda_device, dtype, tol,
+                                                      rtol):
+    """A dense Hermitian problem (n 64, nev 3) solved natively in complex
+    on the card and through the split-real embedding: both within rtol
+    of the dense eigenvalues (1e-9 in complex128 at tol 1e-8; 1e-5 in
+    complex64 at tol 1e-5, whose rounding floor is ~||A|| eps_f32 ~ 1e-5
+    absolute at ||A|| ~ 100 against eigenvalues ~ 50)."""
+    n, nev, ss = 64, 3, 5
+    rng = np.random.RandomState(1)
+    M = rng.randn(n, n) + 1j * rng.randn(n, n)
+    A_np = (M + M.conj().T) / 2 + n * np.eye(n)
+    X0 = rng.uniform(-0.5, 0.5, (n, ss)) + 1j * rng.uniform(-0.5, 0.5, (n, ss))
+    A = tl.DenseOperator(torch.from_numpy(A_np).to(cuda_device, dtype))
+    X0t = torch.from_numpy(X0).to(cuda_device, dtype)
+    cfg = tl.SolverConfig(nev=nev, size_sub=ss, tol=tol, max_iter=300)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    native = tl.lobpcg(A, X0t, config=cfg, generator=gen)
+    Ar, X0r, _, _, cfgr = tl.realify_problem(A, X0t, config=cfg)
+    assert Ar.dtype == dtype.to_real()
+    rr = tl.lobpcg(Ar, X0r, config=cfgr, generator=gen)
+    lam, _, _ = tl.derealify(rr, nev)
+    exact = np.linalg.eigvalsh(A_np)[:nev]
+    assert native.converged == nev and rr.converged == 2 * nev
+    assert native.eigenvectors.dtype == dtype
+    np.testing.assert_allclose(native.eigenvalues.double().cpu().numpy(),
+                               exact, rtol=rtol)
+    np.testing.assert_allclose(lam, exact, rtol=rtol)

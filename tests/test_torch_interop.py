@@ -32,6 +32,17 @@ def test_import_pulls_in_no_jax():
         "import lobpcg_tpu_torch.operators.stencil_nd\n"
         "import lobpcg_tpu_torch.operators.sparse\n"
         "import lobpcg_tpu_torch.utils.native\n"
+        "import lobpcg_tpu_torch.ops.cuda.copy\n"
+        "import lobpcg_tpu_torch.physics, lobpcg_tpu_torch.physics.bdg\n"
+        "import lobpcg_tpu_torch.operators.realify\n"
+        "import lobpcg_tpu_torch.utils.checkpoint\n"
+        "import lobpcg_tpu_torch.utils.plan\n"
+        "import lobpcg_tpu_torch.utils.profiling\n"
+        "import lobpcg_tpu_torch.benchmarks.solve_bdg\n"
+        "import lobpcg_tpu_torch.bench\n"
+        "import lobpcg_tpu_torch.tools.plan_anchors\n"
+        "import lobpcg_tpu_torch.tools.profile_well\n"
+        "import lobpcg_tpu_torch.tools.convergence_trace\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'lobpcg_tpu'"

@@ -27,6 +27,7 @@ import lobpcg_tpu_torch as tl
 from lobpcg_tpu_torch.interop import operator_from_reference
 from lobpcg_tpu_torch.operators import sparse as tsparse
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
+from lobpcg_tpu_torch.ops.cuda import copy as k7
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 from lobpcg_tpu_torch.utils import native as tnative
@@ -348,7 +349,8 @@ _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
 
 @pytest.mark.parametrize("module,source", [(k1, "stencil1d.cu"),
                                            (k2, "stencil3d.cu"),
-                                           (kb, "bsr.cu")])
+                                           (kb, "bsr.cu"),
+                                           (k7, "copy.cu")])
 def test_ctypes_signatures_match_the_sources(module, source):
     """Each wrapper's ctypes argument list equals its C entry point's
     parameter list in csrc/ (a mismatch shows only on the card, as a
