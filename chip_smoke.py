@@ -45,6 +45,20 @@ non-zero; there is no CPU fallback):
                 apply per format).  Then a symmetric SPD variant
                 (M + M^T + shift I) through BSROperator.from_csr, whose
                 matmat must pick K5.
+14. k6        — that SPD band cut into 4 virtual row shards by
+                parallel.plan_shards (halo 3 blocks, window 384 rows), the
+                halos cut from the global X: per shard K6 equal to K5 on
+                the concatenated frame (torch.equal) and within tolerance
+                of its plain version; all three window sources hit in the
+                interior shards; the shards together against the global
+                plain product; K6 timed on an interior shard beside
+                torch.sparse.mm of that shard's CSR rows.
+15. sharded   — the row-sharded layer at world size 1 on NCCL
+                (parallel.row_mesh(1)): the flagship well through
+                shard_problem and `with mesh: ilobpcg` (56/56, 1e-5, K1),
+                beside the unsharded flagship's numbers; then one apply of
+                the sharded SPD band, which must launch K6 once and K5
+                never.
 
 Every kernel wrapper counts its launches; each path runs with every
 count set to 0 just before it and read just after.  The second-to-last
@@ -64,13 +78,14 @@ import scipy.sparse as sp
 import torch
 
 import lobpcg_tpu_torch as lt
-from lobpcg_tpu_torch import bench
+from lobpcg_tpu_torch import bench, parallel
 from lobpcg_tpu_torch.benchmarks import solve_bdg
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import build as cuda_build
 from lobpcg_tpu_torch.ops.cuda import copy as k7
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
+from lobpcg_tpu_torch.parallel import mesh as pmesh
 from lobpcg_tpu_torch.utils import native
 
 N_MAIN = 4_000_000
@@ -87,6 +102,7 @@ GRID3 = (160, 160, 160)  # benchmarks/README.md's 3-D operator shape
 NEV3, SS3, TOL3, MAX_ITER3 = 10, 16, 1e-5, 2000
 BAND_N, BAND_BS, BAND, BAND_K = 1_048_576, 8, 24, 128  # benchmarks/bsr_spmm.py
 STRIP = 256  # BSROperator's strip for bs 8
+K6_SHARDS = 4  # virtual row shards of the band for K6 (one card)
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32
 # operations/s outside the tensor cores.
@@ -105,8 +121,16 @@ KERNELS = {
                   "lobpcg_tpu/ops/pallas/bsr.py:186"),
     "bsr_window": (kb.bsr_window_matmat, "lobpcg_tpu_torch/csrc/bsr.cu",
                    "lobpcg_tpu/ops/pallas/bsr.py:381"),
+    "bsr_window_edges": (kb.bsr_window_matmat_edges,
+                         "lobpcg_tpu_torch/csrc/bsr.cu",
+                         "lobpcg_tpu/ops/pallas/bsr.py:468"),
     "copy": (k7.stream_copy, "lobpcg_tpu_torch/csrc/copy.cu", "bench.py:65"),
 }
+
+# The collectives of the row-sharded layer, counted as the kernels are.
+COLLECTIVES = {"all_reduce": pmesh.all_reduce,
+               "halo_exchange": pmesh.halo_exchange, "swap": pmesh.swap,
+               "all_gather_rows": pmesh.all_gather_rows}
 
 
 def emit(obj) -> None:
@@ -124,10 +148,16 @@ def card_line() -> str:
 def zero_counts() -> None:
     for fn, _, _ in KERNELS.values():
         fn.launches = 0
+    for fn in COLLECTIVES.values():
+        fn.launches = 0
 
 
 def read_counts() -> dict:
     return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+
+
+def read_collectives() -> dict:
+    return {name: fn.launches for name, fn in COLLECTIVES.items()}
 
 
 def time_ms(fn) -> float:
@@ -485,17 +515,19 @@ def csr_tensor(M, dev):
 
 
 def spmm_check(name, fn, plain, abs_plain, depth, nnz, n, k, lib=None,
-               extra=None) -> dict:
+               extra=None, timed=True, extra_bytes=0, info=None) -> dict:
     """One kernel against its plain version on the same inputs, timed
-    beside its plain version and the library call; tolerance
-    2 x depth x eps_f32 x max(|A| |X|), the error bound of a length-depth
-    f32 dot summed in another order."""
+    (unless ``timed`` is False) beside its plain version and the library
+    call; tolerance 2 x depth x eps_f32 x max(|A| |X|), the error bound of
+    a length-depth f32 dot summed in another order.  ``extra_bytes``:
+    inputs the bound counts beyond the nonzeros, X and Y; ``info``: keys
+    added to the record."""
     Y, Yp = fn(), plain()
     torch.cuda.synchronize()
     err = max_abs(Y, Yp)
     tol = 2 * depth * torch.finfo(torch.float32).eps * float(abs_plain().max())
     rec = {"phase": "kernel", "name": name, "n": n, "k": k, "nnz": nnz,
-           "depth": depth, "max_abs_err": err, "tol": tol}
+           "depth": depth, "max_abs_err": err, "tol": tol, **(info or {})}
     if extra is not None:
         for key, other in extra.items():  # other references, same tolerance
             rec[key] = max_abs(Y, other)
@@ -507,10 +539,13 @@ def spmm_check(name, fn, plain, abs_plain, depth, nnz, n, k, lib=None,
         raise AssertionError(f"{name} disagrees at n={n} k={k}: {err} > {tol}")
     del Y, Yp
     free()
+    if not timed:
+        emit(rec)
+        return rec
     ms = timed_untracked(fn)
     plain_ms = time_ms(plain)
     # Least bytes: the nonzeros' f32 values, X once, Y once.
-    nbytes = 4 * nnz + 2 * 4 * n * k
+    nbytes = 4 * nnz + 2 * 4 * n * k + extra_bytes
     rec.update({"ms": ms, "gnnz_per_s": nnz * k / ms / 1e6,
                 "gbps": nbytes / ms / 1e6, "plain_ms": plain_ms,
                 **bound(nbytes, 2 * nnz * k),
@@ -744,9 +779,192 @@ def band_phase(dev) -> dict:
             op.block_cols, op.blocks, X),
             "max_abs_err_of_matmat": Y})
     out["bsr_window_spd"]["matrix"] = "band_spd"
-    del op, S_csr, X, Y, wvabs
+    del S_csr, Y, wvabs
     free()
-    return out
+    return out, op, S, X
+
+
+# --- K6 and the row-sharded layer ---------------------------------------------
+
+
+def k6_phase(dev, op, S, X) -> list[dict]:
+    """K6 on the symmetric band x 128 cut into K6_SHARDS virtual row
+    shards, planned by the sharded operator's own planning
+    (parallel.plan_shards); each shard's halos are cut from the global X,
+    as the exchange delivers them.  Per shard: K6 equal to K5 on the
+    concatenated frame (torch.equal) and within spmm_check's tolerance of
+    its plain version; the shards' outputs together against the global
+    plain product; an interior shard timed."""
+    t0 = time.perf_counter()
+    plan = parallel.plan_shards(op, K6_SHARDS)
+    t_plan = time.perf_counter() - t0
+    bs, H, nd = BAND_BS, plan.halo, K6_SHARDS
+    hrows, n_loc, W = H * bs, BAND_N // nd, plan.width * bs
+    emit({"phase": "host", "what": "band planned for row shards",
+          "shards": nd, "halo_blocks": H, "hrows": hrows, "n_loc": n_loc,
+          "strip": plan.strip, "window_W": W,
+          "window_gib": sum(w.nbytes for w in plan.win.values()) / 2**30,
+          "plan_s": t_plan})
+    if W > n_loc or H == 0:
+        raise AssertionError(f"K6 needs 0 < H and W <= n_loc: {H}, {W}")
+    k = X.shape[1]
+    Xabs = X.abs()
+    zeros = torch.zeros((hrows, k), device=dev)
+    recs, parts = [], []
+    for d in range(nd):
+        rows = slice(d * n_loc, (d + 1) * n_loc)
+        up = X[d * n_loc - hrows : d * n_loc] if d > 0 else zeros
+        dn = X[(d + 1) * n_loc : (d + 1) * n_loc + hrows] if d + 1 < nd else zeros
+        up_abs, dn_abs = up.abs(), dn.abs()
+        xs, xs_abs = X[rows], Xabs[rows]
+        top, bot = torch.cat([up, xs[:W]]), torch.cat([xs[-W:], dn])
+        top_abs, bot_abs = torch.cat([up_abs, xs_abs[:W]]), torch.cat([xs_abs[-W:], dn_abs])
+        lo = torch.from_numpy(plan.lo[d]).to(dev)
+        wv = torch.from_numpy(plan.win[d]).to(dev)
+        wvabs = wv.abs()
+        x_ext = torch.cat([up, xs, dn])
+        starts = plan.lo[d].astype(np.int64) * bs
+        classes = {"top": int((starts < hrows).sum()),
+                   "bottom": int((starts > hrows + n_loc - W).sum())}
+        classes["body"] = len(starts) - classes["top"] - classes["bottom"]
+        if 0 < d < nd - 1 and min(classes.values()) == 0:
+            raise AssertionError(f"interior shard {d} misses a source class: "
+                                 f"{classes}")
+        y6 = kb.bsr_window_matmat_edges(lo, wv, xs, top, bot, bs=bs, hrows=hrows)
+        y5 = kb.bsr_window_matmat(lo, wv, x_ext, bs=bs, out_rows=n_loc)
+        torch.cuda.synchronize()
+        if not torch.equal(y6, y5):
+            raise AssertionError(f"K6 differs from K5 on shard {d}: "
+                                 f"{max_abs(y6, y5)}")
+        parts.append(y6)
+        del y5
+        # The shard's nonzeros: its rows of S, over the columns of its
+        # frame (the bound counts them; the interior shard's CSR times the
+        # concatenated frame is the library product of the same function).
+        M = S[rows.start : rows.stop,
+              max(0, rows.start - hrows) : rows.stop + hrows].tocsr()
+        timed = d == 1
+        info = {"matrix": "band_spd", "shard": d, "classes": classes,
+                "torch_equal_k5": True}
+        lib = None
+        if timed:
+            M_csr = csr_tensor(M, dev)
+            lib = lambda: torch.sparse.mm(M_csr, x_ext)
+            info["k5_frame_ms"] = timed_untracked(
+                lambda: kb.bsr_window_matmat(lo, wv, x_ext, bs=bs,
+                                             out_rows=n_loc))
+            # The two choices ShardedBSROperator.matmat has, each with the
+            # buffers it builds: the edge buffers and K6, or the frame
+            # and K5.
+            info["edges_k6_ms"] = timed_untracked(
+                lambda: kb.bsr_window_matmat_edges(
+                    lo, wv, xs, torch.cat([up, xs[:W]]),
+                    torch.cat([xs[-W:], dn]), bs=bs, hrows=hrows))
+            info["cat_k5_ms"] = timed_untracked(
+                lambda: kb.bsr_window_matmat(lo, wv, torch.cat([up, xs, dn]),
+                                             bs=bs, out_rows=n_loc))
+        recs.append(spmm_check(
+            "bsr_window_edges",
+            lambda: kb.bsr_window_matmat_edges(lo, wv, xs, top, bot, bs=bs,
+                                               hrows=hrows),
+            lambda: kb.bsr_window_matmat_edges_reference(lo, wv, xs, top, bot,
+                                                         bs=bs, hrows=hrows),
+            lambda: kb.bsr_window_matmat_edges_reference(
+                lo, wvabs, xs_abs, top_abs, bot_abs, bs=bs, hrows=hrows),
+            W, int(M.nnz), n_loc, k, lib=lib, timed=timed,
+            extra_bytes=4 * 2 * (hrows + W) * k, info=info))
+        lib = M_csr = None
+        del lo, wv, wvabs, x_ext, top, bot, top_abs, bot_abs, up_abs, dn_abs
+        free()
+    Y = torch.cat(parts)
+    del parts
+    Yp = kb.bsr_matmat_reference(op.block_cols, op.blocks, X)
+    Yabs = kb.bsr_matmat_reference(op.block_cols, op.blocks.abs(), Xabs)
+    torch.cuda.synchronize()
+    err = max_abs(Y, Yp)
+    tol = 2 * W * torch.finfo(torch.float32).eps * float(Yabs.max())
+    emit({"phase": "k6_global", "shards": nd, "max_abs_err": err, "tol": tol})
+    if not err <= tol:
+        raise AssertionError(f"K6 shards against the global product: {err} > {tol}")
+    del Y, Yp, Yabs, Xabs
+    free()
+    return recs
+
+
+def sharded_phase(dev, main_rec, op, X) -> dict:
+    """The row-sharded layer at world size 1 on NCCL: the flagship well
+    through shard_problem and `with mesh: ilobpcg`, then one apply of the
+    sharded band operator (which must launch K6 once and K5 never)."""
+    t0 = time.perf_counter()
+    mesh = parallel.row_mesh(1)
+    mesh.all_reduce(torch.zeros(1, device=dev))  # NCCL sets up its communicator
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    A, B, T, X0, _, _ = solve_bdg.well_problem(
+        N_MAIN, NEV, SIZE_SUB, dtype=torch.float32, cheb=CHEB_DEGREE,
+        precond=True, device=dev, cheb_chunk=0)
+    As, X0s, Bs, Ts = parallel.shard_problem(mesh, A, X0, B, T)
+    cfg = lt.SolverConfig(nev=NEV, size_sub=SIZE_SUB, tol=TOL, max_iter=MAX_ITER,
+                          gram_precision="highest", use_ax_cache=True,
+                          use_b_cache=True, dual_basis=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    resident = torch.cuda.memory_allocated()  # the band operator and its X
+    zero_counts()
+    t0 = time.perf_counter()
+    with mesh:
+        r = lt.ilobpcg(As, X0s, Bs, Ts, config=cfg, generator=gen)
+    lam = r.eigenvalues.double().cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts, coll = read_counts(), read_collectives()
+    exact = solve_bdg.well_eigs_oracle(solve_bdg.WELL, NEV, solve_bdg.BARRIER)
+    rel = np.abs(lam - exact) / np.abs(exact)
+    rec = {"phase": "sharded", "world_size": mesh.size,
+           "backend": str(torch.distributed.get_backend()),
+           "group_setup_s": t_init, "n": N_MAIN, "nev": NEV, "size_sub": SIZE_SUB,
+           "converged": r.converged, "iterations": r.iterations, "wall_s": wall,
+           "max_rel_err": float(rel.max()), "launches": counts,
+           "collectives": coll,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "resident_before_gib": resident / 2**30,
+           "solve_peak_gib": (torch.cuda.max_memory_allocated() - resident) / 2**30,
+           "unsharded": {key: main_rec[key] for key in (
+               "iterations", "wall_s", "max_rel_err", "max_memory_allocated_gib")}}
+    emit(rec)
+    del As, X0s, Bs, Ts, A, B, T, X0, r
+    free()
+    if not np.all(np.isfinite(lam)) or tuple(lam.shape) != (NEV,):
+        raise AssertionError("sharded solve returned non-finite eigenvalues")
+    if rec["converged"] != NEV or not rel.max() <= ORACLE_RTOL:
+        raise AssertionError(f"sharded solve: {rec['converged']}/{NEV}, "
+                             f"max rel err {rel.max()}")
+    if counts["stencil1d"] < rec["iterations"] or coll["all_reduce"] < 1:
+        raise AssertionError(f"sharded solve launched {counts}, {coll}")
+
+    sop = parallel.ShardedBSROperator.shard(op, mesh)
+    Yref = op.matmat(X)
+    zero_counts()
+    Y = sop.matmat(X)
+    counts = read_counts()
+    torch.cuda.synchronize()
+    Yabs = kb.bsr_matmat_reference(op.block_cols, op.blocks.abs(), X.abs())
+    W = sop.win_vals.shape[2]
+    tol = 2 * W * torch.finfo(torch.float32).eps * float(Yabs.max())
+    err = max_abs(Y, Yref)
+    brec = {"phase": "sharded_bsr", "world_size": mesh.size, "halo": sop.halo,
+            "window_W": W, "launches": counts, "max_abs_err_vs_matmat": err,
+            "tol": tol}
+    emit(brec)
+    if counts["bsr_window_edges"] != 1 or counts["bsr_window"] != 0:
+        raise AssertionError(f"sharded BSR apply launched {counts}")
+    if not err <= tol:
+        raise AssertionError(f"sharded BSR apply: {err} > {tol}")
+    del sop, Y, Yref, Yabs
+    torch.distributed.destroy_process_group()
+    free()
+    rec["bsr"] = brec
+    return rec
 
 
 def kernel_entry(name, launches, recs, at) -> dict:
@@ -806,7 +1024,11 @@ def main() -> None:
     bsr_rec = laplacian3d_phase(dev, "BSROperator", op3, X0, "bsr_ell")
     del op3, X0
     free()
-    band = band_phase(dev)
+    band, op_spd, S_spd, X_band = band_phase(dev)
+    k6_recs = k6_phase(dev, op_spd, S_spd, X_band)
+    sharded_rec = sharded_phase(dev, main_rec, op_spd, X_band)
+    del op_spd, S_spd, X_band
+    free()
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
@@ -826,6 +1048,11 @@ def main() -> None:
         kernel_entry("bsr_window", band["dispatch_launches"]["bsr_window"],
                      [band["bsr_window"], band["bsr_window_spd"]],
                      band["bsr_window_spd"]),
+        # K6 at an interior shard of the symmetric band x 128 cut in four,
+        # launched on the world-size-1 sharded BSR apply.
+        kernel_entry("bsr_window_edges",
+                     sharded_rec["bsr"]["launches"]["bsr_window_edges"],
+                     k6_recs, k6_recs[1]),
         # K7 at the headline's shape, [4M, 256] f32.
         kernel_entry("copy", bench_rec["launches"]["copy"], k7_recs,
                      k7_recs[0]),

@@ -1,8 +1,8 @@
 """Carry operators and configs across from the JAX package.
 
 ``operator_from_reference`` turns a ``lobpcg_tpu`` operator tree into
-the port's equivalent; ``config_from_reference`` converts a
-``lobpcg_tpu.SolverConfig``.  Neither imports jax: dataclass fields are
+the port's equivalent (sharded for one rank, given the port's mesh);
+``config_from_reference`` converts a ``lobpcg_tpu.SolverConfig``.  Neither imports jax: dataclass fields are
 read with ``np.asarray`` and dispatch is on the class name, so the same
 numpy bytes reach both packages.
 """
@@ -51,20 +51,72 @@ def _scalar_like(x, dtype):
     return float(a)
 
 
-def operator_from_reference(op, *, device, dtype: Optional[torch.dtype] = None):
+def operator_from_reference(op, *, device, dtype: Optional[torch.dtype] = None,
+                            mesh=None):
     """The port's counterpart of a JAX-package operator tree.
 
     Handles Laplacian1D, LaplacianND, BSROperator, DiagonalOperator,
     JacobiPreconditioner, BlockAntiDiagOperator, BlockDiagOperator,
     SumOperator, ScaledOperator, ShiftedOperator, ComposedOperator,
     DenseOperator, ChebyshevFilter, BlockDiag2Operator,
-    RealEmbeddedDenseOperator and RealEmbeddedDiagonalOperator.  ``dtype`` (optional) casts every
-    floating-point tensor field; index arrays keep their dtype.
+    RealEmbeddedDenseOperator and RealEmbeddedDiagonalOperator, and the
+    sharded SpmdLaplacian1D and ShardedBSROperator.  ``dtype`` (optional)
+    casts every floating-point tensor field; index arrays keep their
+    dtype.
+
+    ``mesh`` (a port ``parallel.RowMesh``): the tree is converted, then
+    sharded for this rank (``parallel.shard_operator``); a JAX sharded
+    operator keeps its own planning (the JAX ShardedBSROperator's
+    windows, cut to this rank), and needs a mesh of the same size.
     """
+    top = _convert(op, device, dtype, mesh)
+    if mesh is None:
+        return top
+    from lobpcg_tpu_torch.parallel.sharding import shard_operator
+
+    return shard_operator(top, mesh)
+
+
+def _sharded_from_reference(op, name, device, dtype, mesh):
+    """A JAX SpmdLaplacian1D / ShardedBSROperator on the port's mesh."""
+    from lobpcg_tpu_torch.parallel import ShardedBSROperator, SpmdLaplacian1D
+
+    if mesh is None:
+        raise ValueError(f"operator_from_reference: the JAX {name} is "
+                         "sharded; pass the port's mesh (mesh=)")
+    nd = int(op.mesh.shape[op.axis])
+    if nd != mesh.size:
+        raise ValueError(f"operator_from_reference: the JAX {name} is "
+                         f"sharded over {nd} devices, the mesh has "
+                         f"{mesh.size} ranks")
+    pallas = str(op.pallas)
+    if name == "SpmdLaplacian1D":
+        return SpmdLaplacian1D(
+            scale=_scalar(op.scale), n=int(op.n), segments=int(op.segments),
+            mesh=mesh, pallas=pallas, dtype=_dtype_of(op.scale, dtype))
+    cols = np.asarray(op.block_cols)
+    nb_loc = cols.shape[0] // nd
+    rows = slice(mesh.rank * nb_loc, (mesh.rank + 1) * nb_loc)
+    win = op.win_lo is not None
+    return ShardedBSROperator(
+        block_cols=_tensor(cols[rows], device, None),
+        blocks=_tensor(np.asarray(op.blocks)[rows], device, dtype),
+        win_lo=_tensor(np.asarray(op.win_lo)[mesh.rank], device, None)
+        if win else None,
+        win_vals=_tensor(np.asarray(op.win_vals)[mesh.rank], device, dtype)
+        if win else None,
+        n=int(op.n), bs=int(op.bs), halo=int(op.halo), mesh=mesh,
+        pallas=pallas)
+
+
+def _convert(op, device, dtype, mesh):
     name = type(op).__name__
 
     def sub(o):
-        return operator_from_reference(o, device=device, dtype=dtype)
+        return _convert(o, device, dtype, mesh)
+
+    if name in ("SpmdLaplacian1D", "ShardedBSROperator"):
+        return _sharded_from_reference(op, name, device, dtype, mesh)
 
     if name == "Laplacian1D":
         return linop.Laplacian1D(

@@ -12,6 +12,10 @@ Port of the TPU kernels of ``lobpcg_tpu/ops/pallas/bsr.py``:
 - K5 ``bsr_window_matmat`` (``bsr_window_matmat_pallas``): strip-window,
   per strip one [strip, W] row block times the contiguous X rows
   [lo[s]*bs, lo[s]*bs + W).
+- K6 ``bsr_window_matmat_edges`` (``bsr_window_matmat_pallas_edges``):
+  K5 against a halo-extended frame [halo_up | X | halo_dn] handed over as
+  three buffers (X and two small edge buffers), so the sharded operator
+  never concatenates the frame.
 
 Each wrapper launches its kernel for a CUDA tensor (f32, contiguous, any
 k >= 1, int32 indices; full f32 FFMA, no TF32) and runs its plain
@@ -50,6 +54,8 @@ SIGNATURES = {
     "lobpcg_bsr_ell_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "lobpcg_bsr_strip_f32": [_P, _I64, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
     "lobpcg_bsr_window_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "lobpcg_bsr_window_edges_f32": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
+                                    _I64, _I64, _I64, _I64, _P],
 }
 
 
@@ -136,9 +142,18 @@ def ell_to_strip_ell(block_cols, blocks, *, strip: int = STRIP):
     return strip_cols, sv5.reshape(ns, strip, Rs * bs)
 
 
-def ell_to_strip_window(block_cols, blocks, *, strip: int = STRIP):
-    """Host-side conversion: block-ELL -> strip-window (banded fast path),
-    for a square matrix.
+def ell_to_strip_window(block_cols, blocks, *, strip: int = STRIP,
+                        ncols: Optional[int] = None,
+                        force_width: Optional[int] = None):
+    """Host-side conversion: block-ELL -> strip-window (banded fast path).
+
+    ``ncols``: number of block columns the indices address (default: the
+    row count, a square matrix).  The sharded operator passes its
+    halo-extended local frame width nb_local + 2*halo: its local block
+    matrix is rectangular, and windows clamp to the extended frame.
+    ``force_width``: use this window width (in block columns) instead of
+    the computed one; the sharded operator converts each shard on its own
+    and needs one width across shards.  Must be >= the max span.
 
     Each strip stores ONE contiguous block-column window [lo, lo + Wb)
     covering every column its rows touch, and a dense [strip, Wb*bs]
@@ -179,9 +194,16 @@ def ell_to_strip_window(block_cols, blocks, *, strip: int = STRIP):
     # Pad the window width to a multiple of lcm(bs, 128) columns: the
     # TPU's 128-lane alignment, kept so that both packages build the
     # same format (re-choosing it for Hopper is later tuning work).
-    step = math.lcm(bs, 128) // bs
-    Wb = min(-(-Wb // step) * step, nb)  # tiny matrices: the whole matrix
-    lo = np.clip(cmin, 0, max(0, nb - Wb)).astype(np.int32)
+    nc = nb if ncols is None else ncols
+    if force_width is not None:
+        if force_width < Wb:
+            raise ValueError(f"force_width {force_width} < max span {Wb}")
+        Wb = force_width
+    else:
+        step = math.lcm(bs, 128) // bs
+        Wb = -(-Wb // step) * step
+    Wb = min(Wb, nc)  # tiny matrices: the whole matrix
+    lo = np.clip(cmin, 0, max(0, nc - Wb)).astype(np.int32)
 
     win = np.zeros((ns, SB, bs, Wb, bs), vals.dtype)
     s_idx, m_idx = np.nonzero(nz2)
@@ -270,6 +292,19 @@ def bsr_window_matmat_reference(lo, win_vals, X, *, bs: int = 8,
     return _strip_product(rows, win_vals, X, _out_rows(X, out_rows))
 
 
+def bsr_window_matmat_edges_reference(lo, win_vals, X, edge_top, edge_bot, *,
+                                      bs: int = 8, hrows: int = 0,
+                                      out_rows: Optional[int] = None):
+    """K6's function: the strip-window product against the extended frame
+    [edge_top[:hrows] | X | edge_bot[W:]] (= [halo_up | X | halo_dn]),
+    concatenated here and handed to the K5 plain version."""
+    _check_edges(lo, win_vals, X, edge_top, edge_bot, hrows, out_rows)
+    W = win_vals.shape[2]
+    x_ext = torch.cat([edge_top[:hrows], X, edge_bot[W:]], dim=0)
+    return bsr_window_matmat_reference(
+        lo, win_vals, x_ext, bs=bs, out_rows=_out_rows(X, out_rows))
+
+
 # ---------------------------------------------------------------------------
 # Argument checks and the kernel wrappers
 
@@ -327,6 +362,26 @@ def _check_window(lo, win_vals, X, bs, out_rows):
         raise ValueError(f"bsr_window_matmat: window width {win_vals.shape[2]} "
                          f"exceeds X's {X.shape[0]} rows")
     _check_strip_rows("bsr_window_matmat", win_vals, X, out_rows)
+
+
+def _check_edges(lo, win_vals, X, edge_top, edge_bot, hrows, out_rows):
+    what = "bsr_window_matmat_edges"
+    _check_common(what, win_vals, X, lo)
+    if lo.dim() != 1 or win_vals.dim() != 3 or win_vals.shape[0] != lo.shape[0]:
+        raise ValueError(f"{what}: lo must be [ns] and win_vals [ns, strip, W]")
+    W, (n_loc, k) = win_vals.shape[2], X.shape
+    if W > n_loc:
+        raise ValueError(f"{what}: window width {W} exceeds the {n_loc} local "
+                         "rows; use the extended-frame product")
+    if hrows < 0:
+        raise ValueError(f"{what}: hrows must be >= 0, got {hrows}")
+    for name, e in (("edge_top", edge_top), ("edge_bot", edge_bot)):
+        if tuple(e.shape) != (hrows + W, k):
+            raise ValueError(f"{what}: {name} must be [{hrows + W}, {k}], got "
+                             f"{tuple(e.shape)}")
+        if e.device != X.device or e.dtype != X.dtype:
+            raise ValueError(f"{what}: {name} differs from X in device or dtype")
+    _check_strip_rows(what, win_vals, X, out_rows)
 
 
 def _kernel_operands(what, vals, X, idx):
@@ -428,6 +483,47 @@ def bsr_window_matmat(lo: torch.Tensor, win_vals: torch.Tensor,
     return Y
 
 
+def bsr_window_matmat_edges(lo: torch.Tensor, win_vals: torch.Tensor,
+                            X: torch.Tensor, edge_top: torch.Tensor,
+                            edge_bot: torch.Tensor, *, bs: int = 8,
+                            hrows: int = 0,
+                            out_rows: Optional[int] = None) -> torch.Tensor:
+    """K6: the strip-window SpMM against the halo-extended frame
+    [halo_up | X | halo_dn] without building it, [out_rows (default X's
+    rows), k].  ``lo`` addresses the extended frame (in blocks);
+    ``edge_top`` = [halo_up | X[:W]] and ``edge_bot`` = [X[-W:] | halo_dn]
+    are [hrows + W, k] each, and W <= X's rows.
+
+    CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_window_edges_f32`` and
+    counts it in ``bsr_window_matmat_edges.launches``.  CPU tensor: the
+    plain version."""
+    _check_edges(lo, win_vals, X, edge_top, edge_bot, hrows, out_rows)
+    if X.device.type == "cpu":
+        return bsr_window_matmat_edges_reference(
+            lo, win_vals, X, edge_top, edge_bot, bs=bs, hrows=hrows,
+            out_rows=out_rows)
+    what = "bsr_window_matmat_edges"
+    _kernel_operands(what, win_vals, X, lo)
+    if not (edge_top.is_contiguous() and edge_bot.is_contiguous()):
+        raise ValueError(f"{what}: operands must be contiguous")
+    lib = _lib()
+    _, strip, W = win_vals.shape
+    n_loc, k = X.shape
+    nr = _out_rows(X, out_rows)
+    Y = _empty_out(X, nr)
+    with torch.cuda.device(X.device):
+        code = lib.lobpcg_bsr_window_edges_f32(
+            lo.data_ptr(), win_vals.data_ptr(), X.data_ptr(),
+            edge_top.data_ptr(), edge_bot.data_ptr(), Y.data_ptr(),
+            nr, strip, W, bs, k, hrows, n_loc,
+            torch.cuda.current_stream().cuda_stream,
+        )
+    bsr_window_matmat_edges.launches += 1
+    check(lib, code, "bsr_window_matmat_edges launch")
+    return Y
+
+
 bsr_matmat.launches = 0
 bsr_strip_matmat.launches = 0
 bsr_window_matmat.launches = 0
+bsr_window_matmat_edges.launches = 0

@@ -5,6 +5,10 @@ One ``torch.matmul`` per Gram: a [k, n] x [n, k] contraction that goes to
 cuBLAS on the GPU.  The full k x k matrix is always formed (k <= 3 *
 size_sub); ``eigh`` symmetrizes the round-off.
 
+Under a row group (a sharded solve, ``ops/rows.py``) every contraction
+over the rows of tall blocks (``_hdot`` and the Grams built on it) is
+all-reduced; the ``_mat`` Grams act on k x k coefficients and are not.
+
 Precision: both ``precision_ctx("highest")`` (the default) and
 ``"high"`` run every f32 contraction in full f32, with TF32 off (see
 ``precision_ctx``).  The solver entry points set the context from
@@ -19,6 +23,7 @@ from typing import Optional
 import torch
 
 from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.ops.rows import row_sum
 
 # The active Gram precision name ("highest" or "high"), set by
 # precision_ctx for the duration of a solve.
@@ -149,9 +154,10 @@ class mixed_chunk_ctx:
         return False
 
 
-def _hdot(V: torch.Tensor, U: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """V^H @ U.  ``out_dtype`` wider than the storage dtype accumulates
-    in that dtype, casting row chunks (mixed_chunk_ctx) of both operands."""
+def _local_hdot(V: torch.Tensor, U: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """V^H @ U over the rows at hand.  ``out_dtype`` wider than the
+    storage dtype accumulates in that dtype, casting row chunks
+    (mixed_chunk_ctx) of both operands."""
     dt = out_dtype if out_dtype is not None else U.dtype
     if dt == V.dtype and dt == U.dtype:
         return torch.matmul(V.mH, U)
@@ -162,6 +168,12 @@ def _hdot(V: torch.Tensor, U: torch.Tensor, out_dtype=None) -> torch.Tensor:
         p = torch.matmul(V[j : j + rows].to(dt).mH, U[j : j + rows].to(dt))
         acc = p if acc is None else acc + p
     return acc
+
+
+def _hdot(V: torch.Tensor, U: torch.Tensor, out_dtype=None) -> torch.Tensor:
+    """V^H @ U for tall blocks: the local contraction, all-reduced over
+    the row group of a sharded solve (ops/rows.py)."""
+    return row_sum(_local_hdot(V, U, out_dtype))
 
 
 def gram_self(
@@ -192,15 +204,17 @@ def gram_cross(
 
 
 def gram_self_mat(U: torch.Tensor, mat: torch.Tensor, out_dtype=None) -> torch.Tensor:
-    """G = U^H mat U with an explicit dense metric."""
-    return _hdot(U, mm(mat, U), out_dtype)
+    """G = U^H mat U with an explicit dense metric, in coefficient
+    space (U is [k, c], replicated: no row reduction)."""
+    return _local_hdot(U, mm(mat, U), out_dtype)
 
 
 def gram_cross_mat(
     V: torch.Tensor, U: torch.Tensor, mat: torch.Tensor, out_dtype=None
 ) -> torch.Tensor:
-    """G = V^H mat U with an explicit dense metric."""
-    return _hdot(V, mm(mat, U), out_dtype)
+    """G = V^H mat U with an explicit dense metric, in coefficient
+    space."""
+    return _local_hdot(V, mm(mat, U), out_dtype)
 
 
 def as_blocks(S, nx: int):
@@ -286,8 +300,14 @@ def scale_diag(G: torch.Tensor):
 
 
 def frob_norm(X: torch.Tensor) -> torch.Tensor:
-    """Frobenius norm returning the real dtype."""
+    """Frobenius norm of a k x k (replicated) matrix, in the real dtype."""
     return torch.sqrt(torch.sum(torch.abs(X) ** 2))
+
+
+def tall_frob_norm(X: torch.Tensor) -> torch.Tensor:
+    """Frobenius norm of a tall [n, k] block, summed over the row group
+    of a sharded solve."""
+    return torch.sqrt(row_sum(torch.sum(torch.abs(X) ** 2)))
 
 
 def ortho_err(G: torch.Tensor, count=None) -> torch.Tensor:

@@ -28,7 +28,9 @@ from lobpcg_tpu_torch.ops.gram import (
     mm,
     ortho_err,
     scale_diag,
+    tall_frob_norm,
 )
+from lobpcg_tpu_torch.ops.rows import row_sum
 from lobpcg_tpu_torch.ops.svqb import _svqb_transform, svqb_mat
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 
@@ -46,18 +48,18 @@ def _bnorm(B, vb):
         Bb = apply_block_op(B, b)
         t = torch.sum(torch.abs(Bb) ** 2)
         total = t if total is None else total + t
-    return torch.sqrt(total)
+    return torch.sqrt(row_sum(total))
 
 
 def _inner_err_ok(U, BU, G, nu, B, eps_ortho, *, indefinite):
     """The inner-loop convergence criterion: ortho_drop normalizes by
     ||B U||*||U||; ortho_indefinite by ||U||^2."""
     err = ortho_err(G, nu)
-    U_norm = _guard(frob_norm(U), eps_ortho)
+    U_norm = _guard(tall_frob_norm(U), eps_ortho)
     if indefinite:
         denom = U_norm * U_norm
     else:
-        BU_norm = U_norm if B is None else _guard(frob_norm(BU), eps_ortho)
+        BU_norm = U_norm if B is None else _guard(tall_frob_norm(BU), eps_ortho)
         denom = BU_norm * U_norm
     return err / denom < eps_ortho
 
@@ -115,7 +117,7 @@ def _entry_state(U, nu, B, vb, Bvb, BV_norm, eps_ortho, eps_drop,
         bh_dot(Bvb, U, rr_dtype) if Bvb is not None
         else bh_dot(vb, BU, rr_dtype)
     )
-    U_norm = _guard(frob_norm(U), eps_ortho)
+    U_norm = _guard(tall_frob_norm(U), eps_ortho)
     rerr = frob_norm(coef) / (BV_norm * U_norm)
     return U, BU, bool(ok_self & (rerr < eps_ortho))
 
@@ -148,7 +150,7 @@ def _outer_loop(U, nu, vb, B, Bvb, BV_norm, sig, eps_ortho, eps_drop,
             indefinite=indefinite, rr_dtype=rr_dtype, seed_done=entry_check,
         )
         coef2 = bh_dot(vb, BU)
-        U_norm = _guard(frob_norm(U), eps_ortho)
+        U_norm = _guard(tall_frob_norm(U), eps_ortho)
         rerr = frob_norm(coef2) / (BV_norm * U_norm)
         done = bool(rerr < eps_ortho)
         outer += 1
@@ -186,7 +188,7 @@ def ortho_drop(
     vb = as_blocks(V, U.shape[1])
     U = masking.mask_cols(U, nu)
     if Bvb is not None:
-        bv2 = sum(torch.sum(torch.abs(Bb) ** 2) for Bb in Bvb)
+        bv2 = row_sum(sum(torch.sum(torch.abs(Bb) ** 2) for Bb in Bvb))
         BV_norm = _guard(torch.sqrt(bv2), eps_ortho)
     else:
         BV_norm = _guard(_bnorm(B, vb), eps_ortho)
@@ -227,7 +229,7 @@ def ortho_indefinite(
     if Bvb is not None:
         if sig is None:
             sig = herm_tile_gram(vb, Bvb)
-        bv2 = sum(torch.sum(torch.abs(Bb) ** 2) for Bb in Bvb)
+        bv2 = row_sum(sum(torch.sum(torch.abs(Bb) ** 2) for Bb in Bvb))
         BV_norm = _guard(torch.sqrt(bv2), eps_ortho)
     else:
         if sig is None:

@@ -8,7 +8,15 @@ from typing import Optional
 import torch
 
 from lobpcg_tpu_torch.ops.gram import apply_block_op
+from lobpcg_tpu_torch.ops.rows import row_sum
 from lobpcg_tpu_torch.operators.linop import LinearOperator
+
+
+def col_norms(W: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
+    """Column 2-norms of a tall block, summed over the row group of a
+    sharded solve."""
+    return torch.sqrt(row_sum(torch.sum(torch.abs(W) ** 2, dim=0,
+                                        keepdim=keepdim)))
 
 
 def get_residual(
@@ -40,11 +48,11 @@ def get_residual_norm(
     (pre-applied B @ W[:, :nev]) switches the numerator to the
     B-seminorm sqrt(|w_i^H B w_i|)."""
     if BW is not None:
-        nom = torch.sqrt(torch.abs(
+        nom = torch.sqrt(torch.abs(row_sum(
             torch.sum(W[:, :nev].conj() * BW[:, :nev], dim=0).real
-        ))
+        )))
     else:
-        nom = torch.sqrt(torch.sum(torch.abs(W[:, :nev]) ** 2, dim=0))
+        nom = col_norms(W[:, :nev])
     b_norm = torch.where(b_norm > 0, b_norm, 1.0)
     denom = a_norm + torch.abs(lam[:nev]).to(nom.dtype) * b_norm
     return (nom / denom).to(nom.dtype)
@@ -59,12 +67,12 @@ def estimate_norm(
     ``v`` ([n, block]; each column normalized independently, the
     estimate is the max per-column growth).  The caller draws ``v``
     (``utils.prng``), where the JAX package passes a key."""
-    nrm0 = torch.sqrt(torch.sum(torch.abs(v) ** 2, dim=0))
+    nrm0 = col_norms(v)
     v = v / torch.where(nrm0 > 0, nrm0, 1.0).to(v.dtype)
     nrm = nrm0
     for _ in range(iters):
         w = A.matmat(v)
-        nrm = torch.sqrt(torch.sum(torch.abs(w) ** 2, dim=0))
+        nrm = col_norms(w)
         v = torch.where(
             nrm > 0, w / torch.where(nrm > 0, nrm, 1.0).to(w.dtype), w
         )

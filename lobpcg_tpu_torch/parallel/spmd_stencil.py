@@ -1,0 +1,222 @@
+"""Row-sharded stencils with an explicit halo exchange (port of
+``lobpcg_tpu/parallel/spmd_stencil.py``).
+
+``SpmdLaplacian1D``: each rank holds [n_loc, k] rows; one batch of sends
+and receives brings the row above and the row below from the neighbours
+(zeros at the ends of the chain, the Dirichlet boundary), and the local
+product is K1 (``ops/cuda/stencil.py``) with those rows as its
+``edge_rows``.  Segment boundaries (the BdG block structure
+A = diag(K, ..., K)) must not couple: a halo row across a segment
+boundary is zeroed, and boundaries inside a shard are K1's own segments.
+The per-shard row count must divide the segment length or the reverse.
+
+``SpmdLaplacianND``: the JAX package lets the partitioner derive the
+halos of its pad/slice formula (``_rewrite`` sets ``force_jnp``); the
+port partitions the leading grid axis, exchanges one plane with each
+neighbour, runs the unsharded operator (K2 for a 3-D f32 grid) on the
+[nx_loc + 2, ...] extended slab and keeps the interior planes: the
+slab's Dirichlet faces touch only the dropped halo planes.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from lobpcg_tpu_torch.operators.linop import (
+    BlockDiagOperator,
+    DiagonalOperator,
+    JacobiPreconditioner,
+    Laplacian1D,
+    LinearOperator,
+    ScaledOperator,
+    ShiftedOperator,
+    SumOperator,
+)
+from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
+from lobpcg_tpu_torch.ops.cuda.stencil import (
+    KERNEL_DTYPES,
+    stencil_matmat,
+    stencil_matmat_reference,
+)
+from lobpcg_tpu_torch.parallel.mesh import RowMesh, halo_exchange
+
+PALLAS_MODES = ("auto", "interpret", "off")
+
+
+def stencil_matmat_spmd(
+    X: torch.Tensor,
+    scale: float,
+    mesh: RowMesh,
+    *,
+    num_segments: int = 1,
+    n=None,
+    pallas: str = "auto",
+) -> torch.Tensor:
+    """Y = scale * tridiag[-1, 2, -1] X per row segment, for this rank's
+    rows X [n_loc, k] of the global [n, k] block (``n`` defaults to
+    n_loc times the ranks).
+
+    ``pallas`` (the JAX package's name, kept for API parity): "auto" and
+    "interpret" run the local product through ``stencil_matmat`` (K1 for
+    a CUDA tensor in f32/bf16, its plain version for a CPU tensor);
+    "off" runs the plain formula.  Other dtypes take the plain formula.
+    """
+    if pallas not in PALLAS_MODES:
+        raise ValueError(f"pallas must be one of {PALLAS_MODES}, got {pallas!r}")
+    nd = mesh.size
+    local_rows, k = X.shape
+    n = local_rows * nd if n is None else int(n)
+    if n != local_rows * nd:
+        raise ValueError(f"n={n} does not split into {nd} shards of "
+                         f"{local_rows} rows")
+    if n % (num_segments * nd):
+        raise ValueError(
+            f"n={n} must divide into {num_segments} segments x {nd} shards")
+    seg = n // num_segments
+    # Segment boundaries must align with the shard grid: every shard
+    # holds whole segments (the kernel's own segments handle them) or
+    # every segment spans whole shards (the halo zeroing handles them).
+    if (seg % local_rows) and (local_rows % seg):
+        raise ValueError(
+            f"segment length {seg} and shard rows {local_rows} must divide "
+            "one another (segment boundaries would fall inside a shard)")
+
+    halo_up, halo_dn = halo_exchange(mesh, X, 1)
+    r = mesh.rank
+    if (r * local_rows) % seg == 0:  # this shard starts a segment
+        halo_up = torch.zeros_like(halo_up)
+    if ((r + 1) * local_rows) % seg == 0:  # and the next one starts one
+        halo_dn = torch.zeros_like(halo_dn)
+    edge = torch.cat([halo_up, halo_dn], dim=0)
+    segs = local_rows // min(seg, local_rows)
+    if pallas != "off" and X.dtype in KERNEL_DTYPES:
+        return stencil_matmat(X.contiguous(), scale, edge, num_segments=segs)
+    return stencil_matmat_reference(X, scale, edge, num_segments=segs)
+
+
+@dataclasses.dataclass
+class SpmdLaplacian1D(LinearOperator):
+    """Laplacian1D over a row mesh, with the explicit halo exchange of
+    ``stencil_matmat_spmd``.  Produced by ``use_spmd_stencils`` /
+    ``shard_problem``; ``matmat`` takes and returns this rank's rows, and
+    ``shape`` is the global one."""
+
+    scale: float
+    n: int = 0
+    segments: int = 1
+    mesh: RowMesh = None
+    pallas: str = "auto"
+    dtype: torch.dtype = torch.float32
+
+    def matmat(self, X):
+        return stencil_matmat_spmd(
+            X, self.scale, self.mesh, num_segments=self.segments, n=self.n,
+            pallas=self.pallas)
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+
+@dataclasses.dataclass
+class SpmdLaplacianND(LinearOperator):
+    """LaplacianND over a row mesh: the leading grid axis is partitioned
+    (nx must be divisible by the ranks), one plane is exchanged with each
+    neighbour, and the unsharded operator runs on the extended slab."""
+
+    scale: float
+    grid: tuple = ()
+    mesh: RowMesh = None
+    force_jnp: bool = False
+    dtype: torch.dtype = torch.float32
+
+    def matmat(self, X):
+        nx, rest = int(self.grid[0]), tuple(int(g) for g in self.grid[1:])
+        nd = self.mesh.size
+        if nx % nd:
+            raise ValueError(f"grid {tuple(self.grid)}: nx={nx} does not "
+                             f"divide over {nd} ranks")
+        plane, nx_loc = math.prod(rest), nx // nd
+        if X.shape[0] != nx_loc * plane:
+            raise ValueError(f"X has {X.shape[0]} rows, this rank holds "
+                             f"{nx_loc * plane}")
+        halo_up, halo_dn = halo_exchange(self.mesh, X, plane)
+        slab = LaplacianND(scale=self.scale, grid=(nx_loc + 2,) + rest,
+                           force_jnp=self.force_jnp, dtype=self.dtype)
+        Y = slab.matmat(torch.cat([halo_up, X, halo_dn], dim=0))
+        return Y[plane : plane + X.shape[0]]
+
+    @property
+    def shape(self):
+        n = math.prod(self.grid)
+        return (n, n)
+
+
+def _holds_stencil(op) -> bool:
+    if isinstance(op, Laplacian1D):
+        return True
+    return dataclasses.is_dataclass(op) and any(
+        _holds_stencil(getattr(op, f.name)) for f in dataclasses.fields(op)
+        if isinstance(getattr(op, f.name), LinearOperator))
+
+
+def unroll_block_diag(op: BlockDiagOperator) -> LinearOperator:
+    """diag(K, ..., K) as one operator on the stacked rows, as
+    ``benchmarks/solve_bdg.py:well_problem`` builds it: each Laplacian1D
+    of K becomes one with ``copies`` times its segments, each diagonal is
+    tiled.  K may be built of Laplacian1D, DiagonalOperator,
+    JacobiPreconditioner and Sum/Scaled/Shifted of them."""
+    c = int(op.copies)
+
+    def unroll(o):
+        if isinstance(o, Laplacian1D):
+            return Laplacian1D(scale=o.scale, n=o.n * c,
+                               segments=o.segments * c,
+                               pad_lanes=o.pad_lanes, dtype=o.dtype)
+        if isinstance(o, (DiagonalOperator, JacobiPreconditioner)):
+            return type(o)(o.d.repeat(c))
+        if isinstance(o, SumOperator):
+            return SumOperator(unroll(o.left), unroll(o.right))
+        if isinstance(o, ScaledOperator):
+            return ScaledOperator(unroll(o.op), o.alpha)
+        if isinstance(o, ShiftedOperator):
+            return ShiftedOperator(unroll(o.op), o.sigma)
+        raise NotImplementedError(
+            f"no sharded form of BlockDiagOperator over {type(o).__name__}")
+
+    return unroll(op.inner)
+
+
+def _rewrite(op, mesh: RowMesh):
+    """Replace the stencils of an operator tree with their sharded forms;
+    every other node is kept."""
+    if isinstance(op, Laplacian1D):
+        return SpmdLaplacian1D(scale=op.scale, n=op.n, segments=op.segments,
+                               mesh=mesh, dtype=op.dtype)
+    if isinstance(op, LaplacianND):
+        return SpmdLaplacianND(scale=op.scale, grid=tuple(op.grid), mesh=mesh,
+                               force_jnp=op.force_jnp, dtype=op.dtype)
+    if isinstance(op, BlockDiagOperator) and _holds_stencil(op.inner):
+        return _rewrite(unroll_block_diag(op), mesh)
+    if dataclasses.is_dataclass(op):
+        changes = {}
+        for f in dataclasses.fields(op):
+            child = getattr(op, f.name)
+            if isinstance(child, LinearOperator):
+                new = _rewrite(child, mesh)
+                if new is not child:
+                    changes[f.name] = new
+        if changes:
+            return dataclasses.replace(op, **changes)
+    return op
+
+
+def use_spmd_stencils(op, mesh: RowMesh):
+    """A copy of the operator tree with every Laplacian1D and LaplacianND
+    swapped for its sharded form, and every BlockDiagOperator of a
+    Laplacian1D rewritten as one segmented stencil first; other nodes
+    stay as they are (``shard_operator`` places them)."""
+    return _rewrite(op, mesh)

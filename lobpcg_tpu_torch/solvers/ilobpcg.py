@@ -23,24 +23,26 @@ from lobpcg_tpu_torch.ops.gram import (
     apply_block_op,
     apply_block_op_pair,
     b_mm,
-    mixed_chunk_ctx,
     mm,
-    precision_ctx,
 )
 from lobpcg_tpu_torch.ops.indefinite import (
     indefinite_rayleigh_ritz,
     indefinite_rayleigh_ritz_modified,
 )
 from lobpcg_tpu_torch.ops.ortho import ortho_indefinite
-from lobpcg_tpu_torch.ops.residual import get_residual, get_residual_norm
+from lobpcg_tpu_torch.ops.residual import (
+    col_norms,
+    get_residual,
+    get_residual_norm,
+)
 from lobpcg_tpu_torch.ops.svqb import robust_basis_init
 from lobpcg_tpu_torch.solvers import observe
 from lobpcg_tpu_torch.solvers.lobpcg import (
-    _check_inputs,
     _config_of,
+    _local_rows,
     _norms,
-    _prepare_p0,
     _start_block,
+    solve_entry,
 )
 from lobpcg_tpu_torch.solvers.state import ILOBPCGResult
 from lobpcg_tpu_torch.utils.prng import Draws
@@ -48,7 +50,8 @@ from lobpcg_tpu_torch.utils.prng import Draws
 
 def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
                   P0=None, p0_cnt=0, it_cap=None) -> ILOBPCGResult:
-    n = A.shape[0]
+    n = A.shape[0]  # global: the random draws are [n, .], cut to n_loc
+    n_loc, _ = _local_rows(n)
     m = config.size_sub
     nev = config.nev
     dtype = A.dtype
@@ -83,7 +86,7 @@ def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
     res = res_norm(W, lam)
 
     P = (
-        torch.zeros((n, m), dtype=dtype, device=device) if P0 is None
+        torch.zeros((n_loc, m), dtype=dtype, device=device) if P0 is None
         else P0.to(device=device, dtype=dtype)
     )
     p_cnt = p0_cnt if P0 is not None else 0
@@ -104,9 +107,7 @@ def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
         tripped = bool(config.stall_reset) and stall >= config.stall_reset
         if tripped:
             z = rng.fill(f"stall{it}", (n, m), dtype, device)
-            nrm = torch.sqrt(
-                torch.sum(torch.abs(W) ** 2, dim=0, keepdim=True)
-            ).to(dtype)
+            nrm = col_norms(W, keepdim=True).to(dtype)
             W = W + z * (STALL_NOISE * nrm)
             del z
 
@@ -245,9 +246,5 @@ def ilobpcg(
     if B is None:
         raise ValueError("ilobpcg: B operator must not be None")
     config = _config_of(config, nev, size_sub, tol, max_iter)
-    device = _check_inputs(A, X0, config, it_cap, device)
-    P0, p0_cnt = _prepare_p0(P0, A, config)
-    with precision_ctx(config.gram_precision), \
-            mixed_chunk_ctx(config.rr_chunk_rows):
-        return _ilobpcg_impl(A, B, T, X0, Draws(generator, draws), config,
-                             device, P0, p0_cnt, it_cap)
+    return solve_entry(_ilobpcg_impl, A, B, T, X0, P0, config, generator,
+                       device, draws, it_cap)

@@ -22,7 +22,7 @@ from lobpcg_tpu_torch.config import (
     validate_problem,
 )
 from lobpcg_tpu_torch.operators.linop import LinearOperator
-from lobpcg_tpu_torch.ops import masking
+from lobpcg_tpu_torch.ops import masking, rows
 from lobpcg_tpu_torch.ops.gram import (
     apply_block_op,
     apply_block_op_pair,
@@ -44,18 +44,32 @@ from lobpcg_tpu_torch.solvers.state import LOBPCGResult
 from lobpcg_tpu_torch.utils.prng import Draws
 
 
+def _local_rows(n: int):
+    """(rows this rank holds, their slice of an [n, .] global block) under
+    the active row group; (n, None) for an unsharded solve."""
+    mesh = rows.active()
+    if mesh is None:
+        return n, None
+    if n % mesh.size:
+        raise ValueError(f"n={n} rows do not divide over {mesh.size} ranks")
+    n_loc = n // mesh.size
+    return n_loc, slice(mesh.rank * n_loc, (mesh.rank + 1) * n_loc)
+
+
 def _prepare_p0(P0, A, config):
-    """Validate and prefix-compact a warm-restart momentum block: the
-    live P columns must form a zero-padded prefix, so nonzero columns
-    move to the front (stable) and are counted.  Returns (P0, count)."""
+    """Validate and prefix-compact a warm-restart momentum block (this
+    rank's rows under a row group): the live P columns must form a
+    zero-padded prefix, so nonzero columns move to the front (stable) and
+    are counted.  Returns (P0, count)."""
     if P0 is None:
         return None, 0
-    if tuple(P0.shape) != (A.shape[0], config.size_sub):
+    n_loc, _ = _local_rows(A.shape[0])
+    if tuple(P0.shape) != (n_loc, config.size_sub):
         raise ValueError(
             f"P0 has shape {tuple(P0.shape)}, expected "
-            f"({A.shape[0]}, {config.size_sub})"
+            f"({n_loc}, {config.size_sub})"
         )
-    nonzero = (torch.amax(torch.abs(P0), dim=0) > 0).cpu().numpy()
+    nonzero = (rows.row_max(torch.amax(torch.abs(P0), dim=0)) > 0).cpu().numpy()
     order = np.argsort(~nonzero, kind="stable")
     p0_cnt = int(nonzero.sum())
     if not (order == np.arange(order.size)).all():
@@ -89,26 +103,58 @@ def _check_inputs(A, X0, config, it_cap, device):
     of the solve: X0's, or ``device`` when X0 is None, or the CUDA card
     when neither is given (raises without one)."""
     validate_problem(A.shape[0], config)
+    n_loc, _ = _local_rows(A.shape[0])
     if X0 is not None:
         if X0.shape[1] != config.size_sub:
             raise ValueError(
                 f"X0 has {X0.shape[1]} columns, expected "
                 f"size_sub={config.size_sub}"
             )
-        if X0.shape[0] != A.shape[0]:
+        if X0.shape[0] != n_loc:
             raise ValueError(
-                f"X0 has {X0.shape[0]} rows, expected A.shape[0]={A.shape[0]}"
+                f"X0 has {X0.shape[0]} rows, expected {n_loc} (A.shape[0]="
+                f"{A.shape[0]}{'' if rows.active() is None else ', this rank'})"
             )
         if device is not None and torch.device(device) != X0.device:
             raise ValueError(
                 f"device={device} but X0 lies on {X0.device}"
             )
         device = X0.device
+    elif device is None and rows.active() is not None:
+        device = rows.active().device
     if it_cap is not None and it_cap > config.max_iter:
         raise ValueError(
             f"it_cap ({it_cap}) > config.max_iter ({config.max_iter})"
         )
     return resolve_device(device)
+
+
+def _check_rr_chunk_unsharded(config: SolverConfig, mesh) -> None:
+    """The JAX package refuses rr_chunk_rows with row-sharded inputs
+    (its chunking reshape conflicts with a sharded leading axis); the
+    port keeps that contract for groups of more than one rank."""
+    if config.rr_chunk_rows and mesh is not None and mesh.size > 1:
+        raise ValueError(
+            "rr_chunk_rows is set but the inputs are row-sharded over "
+            f"{mesh.size} ranks: unset rr_chunk_rows for sharded solves"
+        )
+
+
+def solve_entry(impl, A, B, T, X0, P0, config, generator, device, draws,
+                it_cap):
+    """The entry steps lobpcg and ilobpcg share: find the row group (the
+    active mesh, or the mesh of a sharded operator in A, B or T), check
+    the inputs against this rank's rows, and run ``impl`` under the
+    config's precision with the random draws cut to this rank's rows."""
+    mesh = rows.active() or rows.find_mesh(A, B, T)
+    with rows.rows_ctx(mesh):
+        _check_rr_chunk_unsharded(config, mesh)
+        device = _check_inputs(A, X0, config, it_cap, device)
+        P0, p0_cnt = _prepare_p0(P0, A, config)
+        rng = Draws(generator, draws, rows=_local_rows(A.shape[0])[1])
+        with precision_ctx(config.gram_precision), \
+                mixed_chunk_ctx(config.rr_chunk_rows):
+            return impl(A, B, T, X0, rng, config, device, P0, p0_cnt, it_cap)
 
 
 def _config_of(config, nev, size_sub, tol, max_iter):
@@ -126,7 +172,8 @@ def _config_of(config, nev, size_sub, tol, max_iter):
 
 def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
                  P0=None, p0_cnt=0, it_cap=None) -> LOBPCGResult:
-    n = A.shape[0]
+    n = A.shape[0]  # global: the random draws are [n, .], cut to n_loc
+    n_loc, _ = _local_rows(n)
     m = config.size_sub
     nev = config.nev
     dtype = A.dtype
@@ -159,7 +206,7 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
         AX = None
 
     P = (
-        torch.zeros((n, m), dtype=dtype, device=device) if P0 is None
+        torch.zeros((n_loc, m), dtype=dtype, device=device) if P0 is None
         else P0.to(device=device, dtype=dtype)
     )
     p_cnt = p0_cnt if P0 is not None else 0
@@ -292,9 +339,5 @@ def lobpcg(
     ``utils.prng.Draws``).  ``it_cap``: an iteration cap <= max_iter.
     """
     config = _config_of(config, nev, size_sub, tol, max_iter)
-    device = _check_inputs(A, X0, config, it_cap, device)
-    P0, p0_cnt = _prepare_p0(P0, A, config)
-    with precision_ctx(config.gram_precision), \
-            mixed_chunk_ctx(config.rr_chunk_rows):
-        return _lobpcg_impl(A, B, T, X0, Draws(generator, draws), config,
-                            device, P0, p0_cnt, it_cap)
+    return solve_entry(_lobpcg_impl, A, B, T, X0, P0, config, generator,
+                       device, draws, it_cap)

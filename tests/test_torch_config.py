@@ -107,6 +107,30 @@ def test_fill_random_range_shape_and_generator(dtype):
         assert float(p.std()) > 0.2  # uniform on [-0.5, 0.5]: std 0.289
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.complex128])
+@pytest.mark.parametrize("nd", [1, 3, 4])
+def test_fill_random_rows_are_the_global_fills_rows(dtype, nd):
+    """Each rank's rows, drawn chunk by chunk without the global block,
+    are its rows of the unsharded fill; on the CPU the chunks give the
+    bits of one generator call."""
+    n, chunk = 96, 40
+    whole = fill_random(torch.Generator().manual_seed(5), (n, 3), dtype, "cpu",
+                        chunk_rows=chunk)
+    n_loc = n // nd
+    parts = [fill_random(torch.Generator().manual_seed(5), (n, 3), dtype, "cpu",
+                         rows=slice(r * n_loc, (r + 1) * n_loc), chunk_rows=chunk)
+             for r in range(nd)]
+    assert torch.equal(torch.cat(parts), whole)
+    assert torch.equal(whole, fill_random(torch.Generator().manual_seed(5),
+                                          (n, 3), dtype, "cpu"))
+    if not dtype.is_complex:
+        one = torch.rand((n, 3), generator=torch.Generator().manual_seed(5),
+                         dtype=dtype) - 0.5
+        assert torch.equal(whole, one)
+    d = Draws(None, {"x0": whole.numpy()}, rows=slice(n_loc, 2 * n_loc))
+    assert torch.equal(d.fill("x0", (n, 3), dtype, "cpu"), whole[n_loc : 2 * n_loc])
+
+
 def test_draws_override_and_shape_check():
     given = np.arange(6.0).reshape(3, 2)
     d = Draws(torch.Generator().manual_seed(0), {"x0": given})

@@ -4,9 +4,10 @@ not installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
-Each kernel (K1 stencil, K2 3-D stencil, K3/K4/K5 block-sparse SpMMs,
-K7 streaming copy) is held against its plain PyTorch version on the
-card, and small solves must go through the kernels.
+Each kernel (K1 stencil, K2 3-D stencil, K3/K4/K5/K6 block-sparse
+SpMMs, K7 streaming copy) is held against its plain PyTorch version on
+the card, and small solves must go through the kernels; the row-sharded
+layer runs at world size 1 on NCCL.
 """
 
 import numpy as np
@@ -196,6 +197,118 @@ def test_bsr_operator_dispatch_on_card(cuda_device):
                                * np.ones((1, 4)), rtol=1e-5, atol=1e-4)
     lap.matmat(torch.ones((4096, 4), device=cuda_device))
     assert kb.bsr_matmat.launches == b3 + 1
+
+
+# --- K6 and the row-sharded layer ------------------------------------------
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,offset", [(1, 0), (3, 0), (64, 0), (128, 0),
+                                      (128, 1)])
+def test_k6_matches_k5_and_plain_on_card(cuda_device, k, offset):
+    """A banded matrix cut into 4 row shards by the sharded operator's
+    planning, the halos cut from the global X: K6 on each shard equals K5
+    on the concatenated frame bit for bit (the same FFMA order), and its
+    plain version within the window tolerance.  ``offset`` 1 makes X's
+    rows start off a 16-byte boundary (the scalar path)."""
+    from lobpcg_tpu_torch.parallel import plan_shards
+
+    n, nd, bs = 4096, 4, 8
+    op = tl.BSROperator.from_dense(_banded(n, 24, 3), block_size=bs, device="cpu")
+    plan = plan_shards(op, nd)
+    H, W, n_loc = plan.halo, plan.width * bs, n // nd
+    hrows = H * bs
+    big = torch.from_numpy(np.random.default_rng(k).uniform(-1, 1, (n * k + 1,))
+                           ).to(cuda_device, torch.float32)
+    X = big[offset : offset + n * k].view(n, k)
+    zeros = torch.zeros((hrows, k), device=cuda_device)
+    for d in range(nd):
+        xs = X[d * n_loc : (d + 1) * n_loc]
+        up = X[d * n_loc - hrows : d * n_loc] if d else zeros
+        dn = X[(d + 1) * n_loc : (d + 1) * n_loc + hrows] if d < nd - 1 else zeros
+        top = torch.cat([up, xs[:W]])
+        bot = torch.cat([xs[-W:], dn])
+        lo = torch.from_numpy(plan.lo[d]).to(cuda_device)
+        wv = torch.from_numpy(plan.win[d]).to(cuda_device)
+        before = kb.bsr_window_matmat_edges.launches
+        y6 = kb.bsr_window_matmat_edges(lo, wv, xs, top, bot, bs=bs, hrows=hrows)
+        assert kb.bsr_window_matmat_edges.launches == before + 1
+        y5 = kb.bsr_window_matmat(lo, wv, torch.cat([up, xs, dn]), bs=bs,
+                                  out_rows=n_loc)
+        want = kb.bsr_window_matmat_edges_reference(lo, wv, xs, top, bot, bs=bs,
+                                                    hrows=hrows)
+        torch.cuda.synchronize()
+        assert torch.equal(y6, y5), d
+        tol = _bsr_tol(lambda V, Z: kb.bsr_window_matmat_reference(
+            lo, V, torch.cat([up.abs(), Z, dn.abs()]), bs=bs, out_rows=n_loc),
+            wv.abs(), xs, W)
+        assert float((y6 - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_k6_rejects_what_it_does_not_take(cuda_device):
+    lo = torch.zeros(2, dtype=torch.int32, device=cuda_device)
+    wv = torch.zeros((2, 16, 16), device=cuda_device)
+    X = torch.zeros((32, 4), device=cuda_device)
+    top = torch.zeros((24, 4), device=cuda_device)
+    with pytest.raises(TypeError):
+        kb.bsr_window_matmat_edges(lo.long(), wv, X, top, top, bs=8, hrows=8)
+    with pytest.raises(ValueError):
+        kb.bsr_window_matmat_edges(lo, wv, X, top[:, ::2], top[:, ::2], bs=8,
+                                   hrows=8)
+
+
+@pytest.mark.gpu
+def test_sharded_layer_at_world_size_one_on_card(cuda_device):
+    """row_mesh(1) on NCCL: a sharded banded apply launches K6 once (and
+    K5 never) and agrees with BSROperator.matmat; a sharded BdG well solve
+    converges through K1 with its reductions all-reduced."""
+    import torch.distributed as dist
+
+    from lobpcg_tpu_torch import parallel
+    from lobpcg_tpu_torch.parallel import mesh as pmesh
+
+    mesh = parallel.row_mesh(1)
+    try:
+        n, k = 4096, 16
+        op = tl.BSROperator.from_dense(_banded(n, 24, 5), block_size=8,
+                                       device=cuda_device)
+        sop = parallel.ShardedBSROperator.shard(op, mesh)
+        X = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (n, k))
+                             ).to(cuda_device, torch.float32)
+        b6, b5 = kb.bsr_window_matmat_edges.launches, kb.bsr_window_matmat.launches
+        y = sop.matmat(X)
+        assert (kb.bsr_window_matmat_edges.launches,
+                kb.bsr_window_matmat.launches) == (b6 + 1, b5)
+        want = op.matmat(X)
+        torch.cuda.synchronize()
+        tol = _bsr_tol(lambda B, Z: kb.bsr_matmat_reference(op.block_cols, B, Z),
+                       op.blocks.abs(), X, sop.win_vals.shape[2])
+        assert float((y - want).abs().max()) <= tol
+
+        m, well, nev, ss = 512, 64, 4, 8
+        lo = (m - well) // 2
+        V = np.full(m, 2.0)
+        V[lo : lo + well] = 1.0
+        Vd = torch.as_tensor(np.concatenate([V, V]), dtype=torch.float32,
+                             device=cuda_device)
+        A = tl.Laplacian1D(scale=1.0, n=2 * m, segments=2) + tl.DiagonalOperator(Vd)
+        B = tl.BlockAntiDiagOperator(d=torch.ones(m, device=cuda_device))
+        T = tl.ChebyshevFilter(op=A, lo=2.0, hi=6.1, degree=3)
+        u = np.zeros((m, ss), np.float32)
+        u[lo : lo + well] = np.random.RandomState(42).uniform(-0.5, 0.5, (well, ss))
+        X0 = torch.as_tensor(np.concatenate([u, u]), device=cuda_device)
+        As, X0s, Bs, Ts = parallel.shard_problem(mesh, A, X0, B, T)
+        k1_before, ar_before = k1.stencil_matmat.launches, pmesh.all_reduce.launches
+        with mesh:
+            r = tl.ilobpcg(As, X0s, Bs, Ts, nev=nev, size_sub=ss, tol=1e-5,
+                           max_iter=300,
+                           generator=torch.Generator(device=cuda_device).manual_seed(0))
+        assert r.converged == nev
+        assert k1.stencil_matmat.launches - k1_before >= r.iterations
+        assert pmesh.all_reduce.launches > ar_before
+        assert torch.isfinite(r.eigenvalues).all()
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.gpu

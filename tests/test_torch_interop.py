@@ -16,6 +16,8 @@ import lobpcg_tpu as jl
 from lobpcg_tpu.operators.sparse import BSROperator as JBSROperator
 import lobpcg_tpu_torch as tl
 from lobpcg_tpu_torch.interop import config_from_reference, operator_from_reference
+from lobpcg_tpu_torch.parallel import ShardedBSROperator, SpmdLaplacian1D
+from test_torch_spmd_bsr import _banded_matrix, _mesh, _same
 
 torch.set_num_threads(2)
 
@@ -43,6 +45,11 @@ def test_import_pulls_in_no_jax():
         "import lobpcg_tpu_torch.tools.plan_anchors\n"
         "import lobpcg_tpu_torch.tools.profile_well\n"
         "import lobpcg_tpu_torch.tools.convergence_trace\n"
+        "import lobpcg_tpu_torch.ops.rows\n"
+        "import lobpcg_tpu_torch.parallel, lobpcg_tpu_torch.parallel.mesh\n"
+        "import lobpcg_tpu_torch.parallel.sharding\n"
+        "import lobpcg_tpu_torch.parallel.spmd_stencil\n"
+        "import lobpcg_tpu_torch.parallel.spmd_bsr\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'lobpcg_tpu'"
@@ -121,3 +128,40 @@ def test_config_from_reference_round_trip():
     assert isinstance(t, tl.SolverConfig)
     assert dataclasses.asdict(t) == dataclasses.asdict(cfg)
     assert t.resolved_rr_dtype(torch.float32) == torch.float64
+
+
+def test_operator_from_reference_converts_the_sharded_operators():
+    """Given the port's mesh, a JAX ShardedBSROperator keeps its planning
+    (this rank's window starts and values, byte-identical to the port's
+    own plan) and a JAX SpmdLaplacian1D becomes the port's."""
+    from lobpcg_tpu.parallel import SpmdLaplacian1D as JSpmdLaplacian1D
+    from lobpcg_tpu.parallel import ShardedBSROperator as JShardedBSROperator
+    from lobpcg_tpu.parallel import row_mesh as jrow_mesh
+
+    nd, n = 4, 2048
+    A = _banded_matrix(n, 17)
+    jmesh = jrow_mesh(nd)
+    jsop = JShardedBSROperator.shard(
+        JBSROperator.from_dense(A, block_size=8, dtype=jnp.float32), jmesh)
+    top = tl.BSROperator.from_dense(A, block_size=8, dtype=torch.float32,
+                                    device="cpu")
+    for r in range(nd):
+        mesh = _mesh(r, nd)
+        got = operator_from_reference(jsop, device="cpu", mesh=mesh)
+        mine = ShardedBSROperator.shard(top, mesh)
+        assert isinstance(got, ShardedBSROperator) and got.mesh is mesh
+        assert (got.halo, got.bs, got.n) == (mine.halo, mine.bs, mine.n)
+        for a, b in ((got.win_lo, mine.win_lo), (got.win_vals, mine.win_vals),
+                     (got.block_cols, mine.block_cols),
+                     (got.blocks, mine.blocks)):
+            _same(a.numpy(), b.numpy())
+    jlap = JSpmdLaplacian1D(scale=jnp.asarray(2.0), n=64, segments=2,
+                            mesh=jmesh)
+    got = operator_from_reference(jlap, device="cpu", mesh=_mesh(1, nd))
+    assert isinstance(got, SpmdLaplacian1D)
+    assert (got.scale, got.n, got.segments, got.dtype) == (
+        2.0, 64, 2, torch.float64)
+    with pytest.raises(ValueError, match="mesh"):
+        operator_from_reference(jlap, device="cpu")
+    with pytest.raises(ValueError, match="ranks"):
+        operator_from_reference(jlap, device="cpu", mesh=_mesh(0, 2))
