@@ -44,7 +44,12 @@ non-zero; there is no CPU fallback):
                 against their plain versions, and the SpMM path (one
                 apply per format).  Then a symmetric SPD variant
                 (M + M^T + shift I) through BSROperator.from_csr, whose
-                matmat must pick K5.
+                matmat must pick K5; on it K5 at the solver widths k 16
+                and 48 beside K3 and torch.sparse.mm.  K5's and K6's
+                records carry the window format's floor
+                (format_bound_ms: win_vals, X and Y at the HBM rate;
+                dense_ffma_ms: the dense window product at the f32 peak)
+                beside the nonzero bound.
 14. k6        — that SPD band cut into 4 virtual row shards by
                 parallel.plan_shards (halo 3 blocks, window 384 rows), the
                 halos cut from the global X: per shard K6 equal to K5 on
@@ -102,6 +107,7 @@ GRID3 = (160, 160, 160)  # benchmarks/README.md's 3-D operator shape
 NEV3, SS3, TOL3, MAX_ITER3 = 10, 16, 1e-5, 2000
 BAND_N, BAND_BS, BAND, BAND_K = 1_048_576, 8, 24, 128  # benchmarks/bsr_spmm.py
 STRIP = 256  # BSROperator's strip for bs 8
+SOLVER_KS = (16, 48)  # solver block widths at which K5 meets K3
 K6_SHARDS = 4  # virtual row shards of the band for K6 (one card)
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32
@@ -515,13 +521,18 @@ def csr_tensor(M, dev):
 
 
 def spmm_check(name, fn, plain, abs_plain, depth, nnz, n, k, lib=None,
-               extra=None, timed=True, extra_bytes=0, info=None) -> dict:
+               extra=None, timed=True, extra_bytes=0, info=None,
+               window=None) -> dict:
     """One kernel against its plain version on the same inputs, timed
     (unless ``timed`` is False) beside its plain version and the library
     call; tolerance 2 x depth x eps_f32 x max(|A| |X|), the error bound of
     a length-depth f32 dot summed in another order.  ``extra_bytes``:
     inputs the bound counts beyond the nonzeros, X and Y; ``info``: keys
-    added to the record."""
+    added to the record.  ``window``: the strip-window values of K5/K6,
+    whose format floor goes beside the nonzero bound: ``format_bound_ms``
+    (win_vals, X, Y and ``extra_bytes`` over the HBM rate) and
+    ``dense_ffma_ms`` (the dense [n, W] x [W, k] product at the f32
+    peak)."""
     Y, Yp = fn(), plain()
     torch.cuda.synchronize()
     err = max_abs(Y, Yp)
@@ -550,6 +561,11 @@ def spmm_check(name, fn, plain, abs_plain, depth, nnz, n, k, lib=None,
                 "gbps": nbytes / ms / 1e6, "plain_ms": plain_ms,
                 **bound(nbytes, 2 * nnz * k),
                 "library_ms": None if lib is None else time_ms(lib)})
+    if window is not None:
+        W = window.shape[2]
+        rec["format_bound_ms"] = (4 * window.numel() + 2 * 4 * n * k
+                                  + extra_bytes) / HBM_BYTES_PER_S * 1e3
+        rec["dense_ffma_ms"] = 2 * n * W * k / F32_FLOPS * 1e3
     emit(rec)
     return rec
 
@@ -716,7 +732,7 @@ def band_phase(dev) -> dict:
         lambda: kb.bsr_window_matmat_reference(lo_d, wv_d, X, bs=BAND_BS),
         lambda: kb.bsr_window_matmat_reference(lo_d, wvabs, X.abs(), bs=BAND_BS),
         wv_d.shape[2], nnz, BAND_N, BAND_K, lib=lib,
-        extra={"max_abs_err_vs_ell": ell_ref})
+        extra={"max_abs_err_vs_ell": ell_ref}, window=wv_d)
     for rec in out.values():
         rec["matrix"] = "band"
     del svabs, wvabs, ell_ref
@@ -777,9 +793,38 @@ def band_phase(dev) -> dict:
         lib=lambda: torch.sparse.mm(S_csr, X),
         extra={"max_abs_err_vs_ell": kb.bsr_matmat_reference(
             op.block_cols, op.blocks, X),
-            "max_abs_err_of_matmat": Y})
+            "max_abs_err_of_matmat": Y}, window=op.win_vals)
     out["bsr_window_spd"]["matrix"] = "band_spd"
-    del S_csr, Y, wvabs
+    del Y
+    free()
+
+    # Solver widths: K5 beside K3 and torch.sparse.mm on the same SPD band
+    # (does the window format pay at small k, where win_vals' bytes stay
+    # while the product shrinks?).
+    gen = torch.Generator(device=dev).manual_seed(5)
+    for k in SOLVER_KS:
+        Xk = torch.rand((BAND_N, k), generator=gen, device=dev) - 0.5
+        rec = spmm_check(
+            "bsr_window",
+            lambda: kb.bsr_window_matmat(op.win_lo, op.win_vals, Xk, bs=BAND_BS),
+            lambda: kb.bsr_window_matmat_reference(op.win_lo, op.win_vals, Xk,
+                                                   bs=BAND_BS),
+            lambda: kb.bsr_window_matmat_reference(op.win_lo, wvabs, Xk.abs(),
+                                                   bs=BAND_BS),
+            op.win_vals.shape[2], int(S.nnz), BAND_N, k,
+            lib=lambda: torch.sparse.mm(S_csr, Xk), window=op.win_vals,
+            info={"matrix": "band_spd"})
+        k3 = ell_checks("bsr_ell", op.block_cols, op.blocks, Xk, S_csr, int(S.nnz))
+        k3["matrix"] = "band_spd"
+        out[f"bsr_window_spd_k{k}"], out[f"bsr_ell_spd_k{k}"] = rec, k3
+        emit({"phase": "window_vs_ell", "matrix": "band_spd", "k": k,
+              "k5_ms": rec["ms"], "k3_ms": k3["ms"],
+              "sparse_mm_ms": rec["library_ms"],
+              "k5_format_bound_ms": rec["format_bound_ms"],
+              "k3_bound_ms": k3["bound_ms"]})
+        del Xk
+        free()
+    del S_csr, wvabs
     free()
     return out, op, S, X
 
@@ -872,7 +917,7 @@ def k6_phase(dev, op, S, X) -> list[dict]:
             lambda: kb.bsr_window_matmat_edges_reference(
                 lo, wvabs, xs_abs, top_abs, bot_abs, bs=bs, hrows=hrows),
             W, int(M.nnz), n_loc, k, lib=lib, timed=timed,
-            extra_bytes=4 * 2 * (hrows + W) * k, info=info))
+            extra_bytes=4 * 2 * (hrows + W) * k, info=info, window=wv))
         lib = M_csr = None
         del lo, wv, wvabs, x_ext, top, bot, top_abs, bot_abs, up_abs, dn_abs
         free()

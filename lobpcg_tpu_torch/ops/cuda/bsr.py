@@ -462,7 +462,11 @@ def bsr_window_matmat(lo: torch.Tensor, win_vals: torch.Tensor,
 
     CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_window_f32`` and
     counts it in ``bsr_window_matmat.launches``.  CPU tensor: the plain
-    version."""
+    version.  The kernel skips window chunks whose values are all zero:
+    for finite X it gives the full sum (at most a zero's sign differs),
+    but a NaN or Inf of X
+    that only stored zeros multiply does not reach Y (the plain version
+    makes it NaN)."""
     _check_window(lo, win_vals, X, bs, out_rows)
     if X.device.type == "cpu":
         return bsr_window_matmat_reference(lo, win_vals, X, bs=bs,
@@ -495,8 +499,10 @@ def bsr_window_matmat_edges(lo: torch.Tensor, win_vals: torch.Tensor,
     are [hrows + W, k] each, and W <= X's rows.
 
     CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_window_edges_f32`` and
-    counts it in ``bsr_window_matmat_edges.launches``.  CPU tensor: the
-    plain version."""
+    counts it in ``bsr_window_matmat_edges.launches``: K5's kernel on
+    another base pointer, so equal to K5 on the concatenated frame bit for
+    bit (and skipping all-zero chunks as K5 does).  CPU tensor: the plain
+    version."""
     _check_edges(lo, win_vals, X, edge_top, edge_bot, hrows, out_rows)
     if X.device.type == "cpu":
         return bsr_window_matmat_edges_reference(

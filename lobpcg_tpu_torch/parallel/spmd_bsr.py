@@ -17,7 +17,9 @@ of shards of an operator, so one process can plan every shard.
 On the card, an f32 apply with a window plan runs K6
 (``bsr_window_matmat_edges``) on X and two small edge buffers when the
 halo is non-empty and the window fits the local rows, else K5
-(``bsr_window_matmat``) on the concatenated frame; without a window plan
+(``bsr_window_matmat``) on the concatenated frame (on the H100 the edge
+buffers and K6 take less time than building the frame and running K5:
+PERF.md); without a window plan
 (or for f64) the plain gather + einsum runs on the remapped columns, as
 in the JAX package.  The JAX package's TPU gates (k % 128, the VMEM
 budget) do not apply: the kernels take any k.

@@ -145,11 +145,31 @@ def test_bsr_ell_kernel_matches_plain_on_card(cuda_device, n, bs, k):
     assert float((y - want).abs().max()) <= tol
 
 
+# The window tile kernel's edges (csrc/bsr.cu: 32- or 64-row tiles, 16-
+# or 32-row window chunks, 16/32/64/128-column tiles from k): (256, 8, 8) and
+# (200, 8, 16) have all-zero chunks in every row tile; (384, 24, 30) a
+# strip of 264 rows (whole tiles and 8 rows); (99, 3, 6) a window of
+# 99 rows (ragged chunk) on a strip of 258; (128, 8, 127) a dense matrix,
+# no zero chunk.  k fills each column tile (16, 32, 64, 128), leaves
+# ragged ones (1, 3, 5, 24, 48) and exceeds 128 (130).
+WINDOW_KS = [1, 3, 5, 16, 24, 32, 48, 64, 128, 130]
+
+
+def _offset_X(n, k, offset, seed, device):
+    """A uniform(-1, 1) [n, k] f32 X whose rows start ``offset`` elements
+    into an allocation (offset 1: off a 16-byte boundary)."""
+    big = torch.from_numpy(np.random.default_rng(seed).uniform(-1, 1, (n * k + 1,))
+                           ).to(device, torch.float32)
+    return big[offset : offset + n * k].view(n, k)
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,bs,band", [(256, 8, 8), (200, 8, 16), (384, 24, 30)])
-@pytest.mark.parametrize("k", [3, 128])
+@pytest.mark.parametrize("n,bs,band", [(256, 8, 8), (200, 8, 16), (384, 24, 30),
+                                       (99, 3, 6), (128, 8, 127)])
+@pytest.mark.parametrize("k", WINDOW_KS)
+@pytest.mark.parametrize("offset", [0, 1])
 def test_bsr_strip_and_window_kernels_match_plain_on_card(cuda_device, n, bs,
-                                                          band, k):
+                                                          band, k, offset):
     A = _banded(n, band, band)
     op = tl.BSROperator.from_dense(A, block_size=bs, device="cpu")
     strip = bs * (-(-256 // bs))
@@ -159,8 +179,7 @@ def test_bsr_strip_and_window_kernels_match_plain_on_card(cuda_device, n, bs,
                                     strip=strip)
     dev = lambda a: torch.from_numpy(a).to(cuda_device)
     sc, sv, lo, wv = dev(sc), dev(sv), dev(lo), dev(wv)
-    X = torch.from_numpy(np.random.default_rng(k).uniform(-1, 1, (n, k))
-                         ).to(cuda_device, torch.float32)
+    X = _offset_X(n, k, offset, k, cuda_device)
     ell = kb.bsr_matmat_reference(op.block_cols.to(cuda_device),
                                   op.blocks.to(cuda_device), X)
     for fn, ref, idx, vals in (
@@ -177,6 +196,32 @@ def test_bsr_strip_and_window_kernels_match_plain_on_card(cuda_device, n, bs,
         assert y.shape == (n, k)
         assert float((y - want).abs().max()) <= tol
         assert float((y - ell).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("W,strip,k", [(4196, 96, 5), (8200, 70, 16), (4099, 64, 48)])
+def test_window_kernel_wide_and_scattered_windows_on_card(cuda_device, W, strip, k):
+    """K5 on windows wider than the window rule admits (4,096 rows), with
+    half of the 16-row chunks zero at random (holes between nonzero
+    chunks), a strip that is not a multiple of the row tile and the last
+    strip's rows cut by out_rows."""
+    rng = np.random.default_rng(W)
+    ns = 2
+    wv = rng.uniform(-1, 1, (ns, strip, W)).astype(np.float32)
+    for c in np.nonzero(rng.random(-(-W // 16)) < 0.5)[0]:
+        wv[:, :, c * 16 : (c + 1) * 16] = 0.0
+    rows = W + 40
+    lo = rng.integers(0, (rows - W) // 8 + 1, ns).astype(np.int32)
+    lo, wv = torch.from_numpy(lo).to(cuda_device), torch.from_numpy(wv).to(cuda_device)
+    X = torch.from_numpy(rng.uniform(-1, 1, (rows, k))).to(cuda_device, torch.float32)
+    n_out = ns * strip - 5
+    y = kb.bsr_window_matmat(lo, wv, X, bs=8, out_rows=n_out)
+    want = kb.bsr_window_matmat_reference(lo, wv, X, bs=8, out_rows=n_out)
+    torch.cuda.synchronize()
+    tol = _bsr_tol(lambda V, Z: kb.bsr_window_matmat_reference(
+        lo, V, Z, bs=8, out_rows=n_out), wv.abs(), X, W)
+    assert y.shape == (n_out, k)
+    assert float((y - want).abs().max()) <= tol
 
 
 @pytest.mark.gpu
@@ -201,34 +246,64 @@ def test_bsr_operator_dispatch_on_card(cuda_device):
 
 # --- K6 and the row-sharded layer ------------------------------------------
 
-@pytest.mark.gpu
-@pytest.mark.parametrize("k,offset", [(1, 0), (3, 0), (64, 0), (128, 0),
-                                      (128, 1)])
-def test_k6_matches_k5_and_plain_on_card(cuda_device, k, offset):
-    """A banded matrix cut into 4 row shards by the sharded operator's
-    planning, the halos cut from the global X: K6 on each shard equals K5
-    on the concatenated frame bit for bit (the same FFMA order), and its
-    plain version within the window tolerance.  ``offset`` 1 makes X's
-    rows start off a 16-byte boundary (the scalar path)."""
+def _k6_shards(case):
+    """(bs, hrows, n_loc, W, [(lo, win_vals)] per shard, global rows) of a
+    row-sharded banded matrix.  "band4": n 4096 cut into 4 shards by the
+    sharded operator's planning (strip 256, W 384).  "ragged264": one
+    interior shard built by hand at bs 24: strip 264 (not a multiple of
+    the 32- or 64-row tile), halo 1 block, n_loc 792, W 312 (not a
+    multiple of the 16- or 32-row chunk), its three strips reading
+    edge_top, X and edge_bot."""
     from lobpcg_tpu_torch.parallel import plan_shards
 
-    n, nd, bs = 4096, 4, 8
-    op = tl.BSROperator.from_dense(_banded(n, 24, 3), block_size=bs, device="cpu")
-    plan = plan_shards(op, nd)
-    H, W, n_loc = plan.halo, plan.width * bs, n // nd
-    hrows = H * bs
-    big = torch.from_numpy(np.random.default_rng(k).uniform(-1, 1, (n * k + 1,))
-                           ).to(cuda_device, torch.float32)
-    X = big[offset : offset + n * k].view(n, k)
+    if case == "band4":
+        n, nd, bs = 4096, 4, 8
+        op = tl.BSROperator.from_dense(_banded(n, 24, 3), block_size=bs,
+                                       device="cpu")
+        plan = plan_shards(op, nd)
+        return (bs, plan.halo * bs, n // nd, plan.width * bs,
+                [(plan.lo[d], plan.win[d]) for d in range(nd)], n)
+    bs, nb_loc, halo, Wb = 24, 33, 1, 13
+    rng = np.random.RandomState(6)
+    # Local block row i couples to frame block columns i .. i + 2.
+    cols = (np.arange(nb_loc)[:, None] + np.arange(3)[None, :]).astype(np.int32)
+    vals = rng.uniform(-0.5, 0.5, (nb_loc, 3, bs, bs)).astype(np.float32)
+    lo, wv = kb.ell_to_strip_window(cols, vals, strip=264,
+                                    ncols=nb_loc + 2 * halo, force_width=Wb)
+    n_loc = nb_loc * bs
+    # The one shard sits in the middle of a global X of 3 shards' rows.
+    return bs, halo * bs, n_loc, Wb * bs, [(None, None), (lo, wv), (None, None)], \
+        3 * n_loc
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["band4", "ragged264"])
+@pytest.mark.parametrize("k", WINDOW_KS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_k6_matches_k5_and_plain_on_card(cuda_device, case, k, offset):
+    """A banded matrix cut into row shards, the halos cut from the global
+    X: K6 on each shard equals K5 on the concatenated frame bit for bit
+    (the same tile function, tiles and FFMA order), and its plain version
+    within the window tolerance.  ``offset`` 1 makes X's rows start off a
+    16-byte boundary (the 4-byte path of K6; K5 reads the concatenated,
+    aligned frame)."""
+    bs, hrows, n_loc, W, shards, n = _k6_shards(case)
+    X = _offset_X(n, k, offset, k, cuda_device)
     zeros = torch.zeros((hrows, k), device=cuda_device)
-    for d in range(nd):
+    nd = len(shards)
+    for d, (lo, wv) in enumerate(shards):
+        if lo is None:
+            continue
         xs = X[d * n_loc : (d + 1) * n_loc]
         up = X[d * n_loc - hrows : d * n_loc] if d else zeros
         dn = X[(d + 1) * n_loc : (d + 1) * n_loc + hrows] if d < nd - 1 else zeros
         top = torch.cat([up, xs[:W]])
         bot = torch.cat([xs[-W:], dn])
-        lo = torch.from_numpy(plan.lo[d]).to(cuda_device)
-        wv = torch.from_numpy(plan.win[d]).to(cuda_device)
+        starts = lo.astype(np.int64) * bs
+        if case == "ragged264":
+            assert (starts < hrows).any() and (starts > hrows + n_loc - W).any()
+        lo = torch.from_numpy(lo).to(cuda_device)
+        wv = torch.from_numpy(wv).to(cuda_device)
         before = kb.bsr_window_matmat_edges.launches
         y6 = kb.bsr_window_matmat_edges(lo, wv, xs, top, bot, bs=bs, hrows=hrows)
         assert kb.bsr_window_matmat_edges.launches == before + 1
@@ -237,6 +312,7 @@ def test_k6_matches_k5_and_plain_on_card(cuda_device, k, offset):
         want = kb.bsr_window_matmat_edges_reference(lo, wv, xs, top, bot, bs=bs,
                                                     hrows=hrows)
         torch.cuda.synchronize()
+        assert y6.shape == (n_loc, k)
         assert torch.equal(y6, y5), d
         tol = _bsr_tol(lambda V, Z: kb.bsr_window_matmat_reference(
             lo, V, torch.cat([up.abs(), Z, dn.abs()]), bs=bs, out_rows=n_loc),

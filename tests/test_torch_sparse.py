@@ -175,8 +175,10 @@ def test_plain_strip_ell_matches_pallas_interpret(n, bs):
 
 
 @pytest.mark.parametrize("n,bs,band", [(256, 8, 8), (384, 8, 24), (256, 16, 16),
-                                       (200, 8, 16)])
+                                       (200, 8, 16), (104, 8, 16)])
 def test_plain_strip_window_matches_pallas_interpret(n, bs, band):
+    """(104, 8, 16): a 13-block matrix, so the window is the whole matrix,
+    W 104 (not a multiple of 32 or of the kernel's window chunk)."""
     cols, blocks = _ell(n, bs, seed=5, banded=band)
     lo, wv = kb.ell_to_strip_window(cols, blocks)
     X = _X(n, 128, band)
