@@ -41,15 +41,21 @@ non-zero; there is no CPU fallback):
                 against laplacian_nd_eigs.
 13. band       — benchmarks/bsr_spmm.py's banded matrix (n 1,048,576,
                 bs 8, band 24, k 128) in its three formats: K3, K4, K5
-                against their plain versions, and the SpMM path (one
-                apply per format).  Then a symmetric SPD variant
-                (M + M^T + shift I) through BSROperator.from_csr, whose
-                matmat must pick K5; on it K5 at the solver widths k 16
-                and 48 beside K3 and torch.sparse.mm.  K5's and K6's
-                records carry the window format's floor
-                (format_bound_ms: win_vals, X and Y at the HBM rate;
-                dense_ffma_ms: the dense window product at the f32 peak)
-                beside the nonzero bound.
+                against their plain versions, the time of K4's and K5's
+                non-finite flag pass beside them, the non-finite pattern
+                of all three on an X with NaN and +-Inf, and the SpMM
+                path (one apply per format).  Then a symmetric SPD
+                variant (M + M^T + shift I) through BSROperator.from_csr,
+                whose matmat must launch the kernel its rule names.  The
+                SpMM records carry their format's
+                floor (format_bound_ms: the stored values, X and Y at the
+                HBM rate; dense_ffma_ms: every stored value times k at
+                the f32 peak) beside the nonzero bound.
+    sweep      — K5 beside K3 at k 16 to 128 on that SPD band (window 384
+                rows; torch.sparse.mm beside them) and on the band-72
+                matrix (window 512): the crossing behind
+                BSROperator.window_pays, with one matmat apply at each
+                width that must launch the kernel the rule names.
 14. k6        — that SPD band cut into 4 virtual row shards by
                 parallel.plan_shards (halo 3 blocks, window 384 rows), the
                 halos cut from the global X: per shard K6 equal to K5 on
@@ -107,7 +113,11 @@ GRID3 = (160, 160, 160)  # benchmarks/README.md's 3-D operator shape
 NEV3, SS3, TOL3, MAX_ITER3 = 10, 16, 1e-5, 2000
 BAND_N, BAND_BS, BAND, BAND_K = 1_048_576, 8, 24, 128  # benchmarks/bsr_spmm.py
 STRIP = 256  # BSROperator's strip for bs 8
-SOLVER_KS = (16, 48)  # solver block widths at which K5 meets K3
+# Widths of the K5/K3 sweep behind BSROperator.matmat's rule (the solver's
+# blocks are 16-48 wide), and the wider band it also runs on (+-9 blocks
+# at bs 8: a window of 512 rows).
+SWEEP_KS = (16, 24, 32, 48, 64, 96, 128)
+BAND_WIDE = 72
 K6_SHARDS = 4  # virtual row shards of the band for K6 (one card)
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32
@@ -522,17 +532,18 @@ def csr_tensor(M, dev):
 
 def spmm_check(name, fn, plain, abs_plain, depth, nnz, n, k, lib=None,
                extra=None, timed=True, extra_bytes=0, info=None,
-               window=None) -> dict:
+               fmt=None) -> dict:
     """One kernel against its plain version on the same inputs, timed
     (unless ``timed`` is False) beside its plain version and the library
     call; tolerance 2 x depth x eps_f32 x max(|A| |X|), the error bound of
     a length-depth f32 dot summed in another order.  ``extra_bytes``:
     inputs the bound counts beyond the nonzeros, X and Y; ``info``: keys
-    added to the record.  ``window``: the strip-window values of K5/K6,
-    whose format floor goes beside the nonzero bound: ``format_bound_ms``
-    (win_vals, X, Y and ``extra_bytes`` over the HBM rate) and
-    ``dense_ffma_ms`` (the dense [n, W] x [W, k] product at the f32
-    peak)."""
+    added to the record.  ``fmt``: the stored values of the kernel's
+    format (blocks [nb, R, bs, bs], strip_vals or win_vals [ns, strip,
+    W]), whose floor goes beside the nonzero bound: ``format_bound_ms``
+    (the stored values, X, Y and ``extra_bytes`` over the HBM rate) and
+    ``dense_ffma_ms`` (every stored value of the n output rows times k
+    columns, at the f32 peak)."""
     Y, Yp = fn(), plain()
     torch.cuda.synchronize()
     err = max_abs(Y, Yp)
@@ -561,13 +572,21 @@ def spmm_check(name, fn, plain, abs_plain, depth, nnz, n, k, lib=None,
                 "gbps": nbytes / ms / 1e6, "plain_ms": plain_ms,
                 **bound(nbytes, 2 * nnz * k),
                 "library_ms": None if lib is None else time_ms(lib)})
-    if window is not None:
-        W = window.shape[2]
-        rec["format_bound_ms"] = (4 * window.numel() + 2 * 4 * n * k
-                                  + extra_bytes) / HBM_BYTES_PER_S * 1e3
-        rec["dense_ffma_ms"] = 2 * n * W * k / F32_FLOPS * 1e3
+    if fmt is not None:
+        rec.update(format_floor(fmt, n, k, extra_bytes))
     emit(rec)
     return rec
+
+
+def format_floor(fmt, n, k, extra_bytes=0) -> dict:
+    """A format's floor: its stored values, X and Y (and ``extra_bytes``)
+    at the HBM rate, and the product of the stored values of n output
+    rows (fmt.numel() over fmt.shape[0] * fmt.shape[-2] rows) at the f32
+    peak."""
+    per_row = fmt.numel() / (fmt.shape[0] * fmt.shape[-2])
+    return {"format_bound_ms": (4 * fmt.numel() + 2 * 4 * n * k + extra_bytes)
+            / HBM_BYTES_PER_S * 1e3,
+            "dense_ffma_ms": 2 * n * per_row * k / F32_FLOPS * 1e3}
 
 
 def ell_checks(name, cols, blocks, X, A_csr, nnz, extra=None):
@@ -578,7 +597,33 @@ def ell_checks(name, cols, blocks, X, A_csr, nnz, extra=None):
         lambda: kb.bsr_matmat_reference(cols, blocks, X),
         lambda: kb.bsr_matmat_reference(cols, absb, X.abs()),
         R * bs, nnz, X.shape[0], X.shape[1],
-        lib=lambda: torch.sparse.mm(A_csr, X), extra=extra)
+        lib=lambda: torch.sparse.mm(A_csr, X), extra=extra, fmt=blocks)
+
+
+def nonfinite_checks(X, kernels) -> None:
+    """Each (name, kernel, plain) on X with a NaN and +-Inf placed where,
+    in most row tiles, only stored zeros (and padding) meet them: the
+    kernel's isnan / isinf pattern must be its plain version's (which is
+    the Pallas kernels', tests/test_torch_sparse.py)."""
+    Z = X.clone()
+    n, k = Z.shape
+    Z[0, k // 2] = float("nan")
+    Z[n // 2, 0] = float("inf")
+    Z[n - 1, k - 1] = -float("inf")
+    for name, fn, plain in kernels:
+        y, want = fn(Z), plain(Z)
+        torch.cuda.synchronize()
+        same = (torch.equal(y.isnan(), want.isnan())
+                and torch.equal(y.isinf(), want.isinf()))
+        emit({"phase": "nonfinite", "name": name, "n": n, "k": k,
+              "nan_outputs": int(want.isnan().sum()),
+              "inf_outputs": int(want.isinf().sum()), "pattern_equal": same})
+        if not same:
+            raise AssertionError(f"{name}: non-finite pattern differs from the "
+                                 "plain version's")
+        del y, want
+    del Z
+    free()
 
 
 def laplacian_host_phase(dev):
@@ -718,6 +763,9 @@ def band_phase(dev) -> dict:
     X = (torch.rand((BAND_N, BAND_K), device=dev,
                     generator=torch.Generator(device=dev).manual_seed(3)) - 0.5)
     lib = lambda: torch.sparse.mm(A_csr, X)
+    # K4's and K5's times include the non-finite flag's pass over X; its
+    # own time beside them.
+    flag_info = {"nonfinite_flag_ms": timed_untracked(lambda: kb.nonfinite_flag(X))}
     ell_ref = kb.bsr_matmat_reference(cols_d, vals_d, X)
     out["bsr_ell"] = ell_checks("bsr_ell", cols_d, vals_d, X, A_csr, nnz)
     svabs, wvabs = sv_d.abs(), wv_d.abs()
@@ -726,17 +774,24 @@ def band_phase(dev) -> dict:
         lambda: kb.bsr_strip_matmat_reference(sc_d, sv_d, X, bs=BAND_BS),
         lambda: kb.bsr_strip_matmat_reference(sc_d, svabs, X.abs(), bs=BAND_BS),
         sv_d.shape[2], nnz, BAND_N, BAND_K, lib=lib,
-        extra={"max_abs_err_vs_ell": ell_ref})
+        extra={"max_abs_err_vs_ell": ell_ref}, fmt=sv_d, info=flag_info)
     out["bsr_window"] = spmm_check(
         "bsr_window", lambda: kb.bsr_window_matmat(lo_d, wv_d, X, bs=BAND_BS),
         lambda: kb.bsr_window_matmat_reference(lo_d, wv_d, X, bs=BAND_BS),
         lambda: kb.bsr_window_matmat_reference(lo_d, wvabs, X.abs(), bs=BAND_BS),
         wv_d.shape[2], nnz, BAND_N, BAND_K, lib=lib,
-        extra={"max_abs_err_vs_ell": ell_ref}, window=wv_d)
+        extra={"max_abs_err_vs_ell": ell_ref}, fmt=wv_d, info=flag_info)
     for rec in out.values():
         rec["matrix"] = "band"
     del svabs, wvabs, ell_ref
     free()
+    nonfinite_checks(X, [
+        ("bsr_ell", lambda Z: kb.bsr_matmat(cols_d, vals_d, Z),
+         lambda Z: kb.bsr_matmat_reference(cols_d, vals_d, Z)),
+        ("bsr_strip", lambda Z: kb.bsr_strip_matmat(sc_d, sv_d, Z, bs=BAND_BS),
+         lambda Z: kb.bsr_strip_matmat_reference(sc_d, sv_d, Z, bs=BAND_BS)),
+        ("bsr_window", lambda Z: kb.bsr_window_matmat(lo_d, wv_d, Z, bs=BAND_BS),
+         lambda Z: kb.bsr_window_matmat_reference(lo_d, wv_d, Z, bs=BAND_BS))])
 
     # The SpMM path (benchmarks/bsr_spmm.py's sequence): one apply per
     # format through its wrapper, counted.
@@ -753,7 +808,8 @@ def band_phase(dev) -> dict:
     del cols_d, vals_d, sc_d, sv_d, lo_d, wv_d, A_csr, Y
     free()
 
-    # The symmetric SPD variant: windowable, so matmat must pick K5.
+    # The symmetric SPD variant: windowable; matmat picks by the rule
+    # (BSROperator.window_pays), which sends k 128 on this band to K3.
     t0 = time.perf_counter()
     S = M + M.T
     S = (S + sp.identity(BAND_N, format="csr")
@@ -772,15 +828,7 @@ def band_phase(dev) -> dict:
     if op.win_vals is None:
         raise AssertionError("the symmetric band should carry the window")
     S_csr = csr_tensor(S, dev)
-    zero_counts()
-    Y = op.matmat(X)
-    counts = read_counts()
-    torch.cuda.synchronize()
-    emit({"phase": "dispatch", "matrix": "band_spd", "k": BAND_K,
-          "launches": counts})
-    if counts["bsr_window"] != 1 or counts["bsr_ell"] != 0:
-        raise AssertionError(f"BSROperator.matmat dispatched {counts}")
-    out["dispatch_launches"] = counts
+    Y = dispatch_check(op, X, "band_spd")
     wvabs = op.win_vals.abs()
     out["bsr_window_spd"] = spmm_check(
         "bsr_window",
@@ -793,40 +841,80 @@ def band_phase(dev) -> dict:
         lib=lambda: torch.sparse.mm(S_csr, X),
         extra={"max_abs_err_vs_ell": kb.bsr_matmat_reference(
             op.block_cols, op.blocks, X),
-            "max_abs_err_of_matmat": Y}, window=op.win_vals)
+            "max_abs_err_of_matmat": Y}, fmt=op.win_vals, info=flag_info)
     out["bsr_window_spd"]["matrix"] = "band_spd"
-    del Y
-    free()
-
-    # Solver widths: K5 beside K3 and torch.sparse.mm on the same SPD band
-    # (does the window format pay at small k, where win_vals' bytes stay
-    # while the product shrinks?).
-    gen = torch.Generator(device=dev).manual_seed(5)
-    for k in SOLVER_KS:
-        Xk = torch.rand((BAND_N, k), generator=gen, device=dev) - 0.5
-        rec = spmm_check(
-            "bsr_window",
-            lambda: kb.bsr_window_matmat(op.win_lo, op.win_vals, Xk, bs=BAND_BS),
-            lambda: kb.bsr_window_matmat_reference(op.win_lo, op.win_vals, Xk,
-                                                   bs=BAND_BS),
-            lambda: kb.bsr_window_matmat_reference(op.win_lo, wvabs, Xk.abs(),
-                                                   bs=BAND_BS),
-            op.win_vals.shape[2], int(S.nnz), BAND_N, k,
-            lib=lambda: torch.sparse.mm(S_csr, Xk), window=op.win_vals,
-            info={"matrix": "band_spd"})
-        k3 = ell_checks("bsr_ell", op.block_cols, op.blocks, Xk, S_csr, int(S.nnz))
-        k3["matrix"] = "band_spd"
-        out[f"bsr_window_spd_k{k}"], out[f"bsr_ell_spd_k{k}"] = rec, k3
-        emit({"phase": "window_vs_ell", "matrix": "band_spd", "k": k,
-              "k5_ms": rec["ms"], "k3_ms": k3["ms"],
-              "sparse_mm_ms": rec["library_ms"],
-              "k5_format_bound_ms": rec["format_bound_ms"],
-              "k3_bound_ms": k3["bound_ms"]})
-        del Xk
-        free()
-    del S_csr, wvabs
+    del Y, S_csr, wvabs
     free()
     return out, op, S, X
+
+
+def dispatch_check(op, X, matrix):
+    """One BSROperator.matmat apply, counted: it must launch the kernel its
+    rule (window_pays) names, once, and no other.  Returns the output."""
+    want = "bsr_window" if op.window_pays(X.shape[1]) else "bsr_ell"
+    zero_counts()
+    Y = op.matmat(X)
+    counts = read_counts()
+    torch.cuda.synchronize()
+    emit({"phase": "dispatch", "matrix": matrix, "k": X.shape[1], "picks": want,
+          "launches": counts})
+    if counts[want] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"BSROperator.matmat dispatched {counts}, not {want}")
+    return Y
+
+
+def window_sweep_phase(dev, op, S) -> None:
+    """K5 beside K3 at SWEEP_KS on the SPD band (window 384 rows; S its
+    CSR, timed through torch.sparse.mm beside them) and on
+    benchmarks/bsr_spmm.py's matrix at band BAND_WIDE (window 512 rows):
+    the crossing behind BSROperator.matmat's rule.  Both kernels are held
+    against the window plain version at spmm_check's tolerance."""
+    t0 = time.perf_counter()
+    cols, vals = banded_bsr(BAND_N, BAND_BS, BAND_WIDE)
+    lo, wv = kb.ell_to_strip_window(cols, vals, strip=STRIP)
+    to = lambda a: torch.from_numpy(a).to(dev)
+    wide = lt.BSROperator(block_cols=to(cols), blocks=to(vals), win_lo=to(lo),
+                          win_vals=to(wv), n=BAND_N)
+    emit({"phase": "host", "what": f"band {BAND_WIDE} and its window",
+          "ell_R": int(cols.shape[1]), "window_W": int(wv.shape[2]),
+          "window_gib": wv.nbytes / 2**30, "build_s": time.perf_counter() - t0})
+    del cols, vals, lo, wv
+    gen = torch.Generator(device=dev).manual_seed(6)
+    eps = torch.finfo(torch.float32).eps
+    S_csr = csr_tensor(S, dev)
+    for name, A, A_csr in (("band_spd", op, S_csr), (f"band{BAND_WIDE}", wide, None)):
+        W = A.win_vals.shape[2]
+        wvabs = A.win_vals.abs()
+        for k in SWEEP_KS:
+            X = torch.rand((BAND_N, k), generator=gen, device=dev) - 0.5
+            k5 = lambda: kb.bsr_window_matmat(A.win_lo, A.win_vals, X, bs=BAND_BS)
+            k3 = lambda: kb.bsr_matmat(A.block_cols, A.blocks, X)
+            want = kb.bsr_window_matmat_reference(A.win_lo, A.win_vals, X, bs=BAND_BS)
+            tol = 2 * W * eps * float(kb.bsr_window_matmat_reference(
+                A.win_lo, wvabs, X.abs(), bs=BAND_BS).max())
+            y5, y3 = k5(), k3()
+            torch.cuda.synchronize()
+            rec = {"phase": "window_vs_ell", "matrix": name, "k": k, "W": W,
+                   "ell_R": int(A.blocks.shape[1]),
+                   "k5_err": max_abs(y5, want), "k3_err": max_abs(y3, want),
+                   "tol": tol}
+            del y5, y3, want
+            free()
+            if not max(rec["k5_err"], rec["k3_err"]) <= tol:
+                raise AssertionError(f"window sweep {name} k={k}: {rec}")
+            rec.update({
+                "k5_ms": timed_untracked(k5), "k3_ms": timed_untracked(k3),
+                "sparse_mm_ms": None if A_csr is None
+                else time_ms(lambda: torch.sparse.mm(A_csr, X)),
+                "k5_format_bound_ms": format_floor(A.win_vals, BAND_N, k)["format_bound_ms"],
+                "k3_format_bound_ms": format_floor(A.blocks, BAND_N, k)["format_bound_ms"]})
+            emit(rec)
+            dispatch_check(A, X, name)
+            del X
+            free()
+        del wvabs
+    del wide, S_csr
+    free()
 
 
 # --- K6 and the row-sharded layer ---------------------------------------------
@@ -908,6 +996,9 @@ def k6_phase(dev, op, S, X) -> list[dict]:
             info["cat_k5_ms"] = timed_untracked(
                 lambda: kb.bsr_window_matmat(lo, wv, torch.cat([up, xs, dn]),
                                              bs=bs, out_rows=n_loc))
+            # K6's time includes this pass over the frame's rows.
+            info["nonfinite_flag_ms"] = timed_untracked(
+                lambda: kb.nonfinite_flag(xs, up, dn))
         recs.append(spmm_check(
             "bsr_window_edges",
             lambda: kb.bsr_window_matmat_edges(lo, wv, xs, top, bot, bs=bs,
@@ -917,7 +1008,7 @@ def k6_phase(dev, op, S, X) -> list[dict]:
             lambda: kb.bsr_window_matmat_edges_reference(
                 lo, wvabs, xs_abs, top_abs, bot_abs, bs=bs, hrows=hrows),
             W, int(M.nnz), n_loc, k, lib=lib, timed=timed,
-            extra_bytes=4 * 2 * (hrows + W) * k, info=info, window=wv))
+            extra_bytes=4 * 2 * (hrows + W) * k, info=info, fmt=wv))
         lib = M_csr = None
         del lo, wv, wvabs, x_ext, top, bot, top_abs, bot_abs, up_abs, dn_abs
         free()
@@ -1070,6 +1161,7 @@ def main() -> None:
     del op3, X0
     free()
     band, op_spd, S_spd, X_band = band_phase(dev)
+    window_sweep_phase(dev, op_spd, S_spd)
     k6_recs = k6_phase(dev, op_spd, S_spd, X_band)
     sharded_rec = sharded_phase(dev, main_rec, op_spd, X_band)
     del op_spd, S_spd, X_band
@@ -1089,10 +1181,11 @@ def main() -> None:
         # K4 on the SpMM path's band x 128 (no operator dispatches it).
         kernel_entry("bsr_strip", band["spmm_path_launches"]["bsr_strip"],
                      [band["bsr_strip"]], band["bsr_strip"]),
-        # K5 at the dispatch path's symmetric band x 128.
-        kernel_entry("bsr_window", band["dispatch_launches"]["bsr_window"],
+        # K5 on the SpMM path's band x 128 (BSROperator.matmat sends k 128
+        # on the bands of width 24 to K3, on the band-72 matrix to K5).
+        kernel_entry("bsr_window", band["spmm_path_launches"]["bsr_window"],
                      [band["bsr_window"], band["bsr_window_spd"]],
-                     band["bsr_window_spd"]),
+                     band["bsr_window"]),
         # K6 at an interior shard of the symmetric band x 128 cut in four,
         # launched on the world-size-1 sharded BSR apply.
         kernel_entry("bsr_window_edges",

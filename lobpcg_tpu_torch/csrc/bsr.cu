@@ -18,54 +18,59 @@
 // Precision.HIGHEST because bf16 passes cost 3.6e-3 relative error.  Each
 // output sums its terms in index order (r, then j; or w), one FFMA each.
 //
-// Bound: on this card device-memory bytes for K3 at solver widths; the
-// formats' stored zeros (ELL padding blocks, the zeros inside a block,
-// the window's padding columns) are read all the same, so the kernels
-// move more bytes than the nonzeros need.  The count the bound uses
-// (PERF.md) is the matrix's nonzeros, X once and Y once.
+// Bound: device-memory bytes.  The formats' stored zeros (ELL padding
+// blocks, the zeros inside a block, the strip formats' padding columns)
+// are read all the same, so each kernel's floor is its format's bytes,
+// above the nonzero count the bound of PERF.md uses.
 //
-// K3 and K4: one thread per output row x 16-byte column vector (4 f32)
-// when k % 4 == 0 and the pointers are 16-byte aligned, else one thread
-// per output element.  Neighbouring threads walk along k, so the X row
-// loads of a warp are coalesced and the matrix value each needs is one
-// broadcast load.  K4 gathers strip_cols[s, w / bs] * bs + w % bs.
-//
-// K5 and K6: one register-tiled shared-memory tile kernel.
-// - The format's own floor.  win_vals is dense [strip, W] per strip (the
-//   JAX package's format, byte-identical): on the banded SPD test matrix
-//   (n 1M, bs 8, strip 256, W 384) it holds 6.9x the nonzeros, 1.61 GB,
-//   so win_vals + X + Y at k 128 cannot move in less than 0.80 ms at 3.35
-//   TB/s, and the dense window product (103 GFLOP) takes 1.54 ms at the
-//   67 TFLOP/s FFMA peak.  The nonzero bound of PERF.md (0.39 ms) is out
-//   of reach for this format; reading win_vals bounds the kernel.
+// K4, K5 and K6: one register-tiled shared-memory tile kernel
+// (strip_tile_kernel), which differs between them only in where row w of
+// a strip's columns lies in X (the row map): lo[s]*bs + w of the frame
+// for K5/K6, strip_cols[s, w / bs]*bs + w % bs for K4.
+// - The format's own floor.  win_vals / strip_vals are dense [strip, W]
+//   per strip (the JAX package's formats, byte-identical): on the banded
+//   test matrix (n 1M, bs 8, strip 256) the window is W 384 and holds
+//   6.9x the nonzeros (1.61 GB), the strip-ELL union W 304 (1.27 GB), so
+//   values + X + Y at k 128 cannot move in less than 0.80 / 0.70 ms at
+//   3.35 TB/s; reading the values bounds the kernel.
 // - Tiles.  One CTA computes BM rows of one strip (a strip of 256 is
-//   several row tiles sharing lo[s]; a ragged strip such as 264 at bs 24
-//   is masked) times BN columns, BN in {16, 32, 64, 128} picked from k
-//   alone, so a solver block of 16-48 columns does not fill a 128-wide
-//   tile with padding.  The grid is one-dimensional with the column tile
-//   fastest, so for k > 128 the CTAs that share a win_vals tile run
-//   together and re-read it from L2.  Each thread holds a TM x TN tile of
-//   Y in registers (4 x 8 at BN 128): one float4 of win_vals and two of X
-//   feed 32 FFMAs, where the one-thread-per-row body this replaces fed one
-//   16-byte X load to 4 FFMAs and was load-bound (6.7 TFLOP/s, 15.4 ms).
-// - The window in chunks of BK rows.  Each thread loads its part of the
-//   chunk's [BM, BK] win_vals slice into registers PREFETCH chunks ahead
+//   several row tiles; a ragged strip such as 264 at bs 24 is masked)
+//   times BN columns, BN in {16, 32, 64, 128} picked from k alone, so a
+//   solver block of 16-48 columns does not fill a 128-wide tile with
+//   padding.  The grid is one-dimensional with the column tile fastest, so
+//   for k > 128 the CTAs that share a values tile run together and re-read
+//   it from L2.  Each thread holds a TM x TN tile of Y in registers (4 x 8
+//   at BN 128): one float4 of values and two of X feed 32 FFMAs.
+// - The columns in chunks of BK.  Each thread loads its part of the
+//   chunk's [BM, BK] values slice into registers PREFETCH chunks ahead
 //   (16-byte loads when W % 4 == 0); __syncthreads_or decides whether any
 //   of it is nonzero.  Only then is the slice stored to shared memory
 //   (transposed and padded, so each thread reads its rows as float4
-//   without bank conflicts) and the [BK, BN] slab of X rows lo[s]*bs + w0
-//   requested with cp.async; the product of the chunk runs LAG chunks
-//   later, when the slab has landed (LAG + 1 buffers).  A ragged W is
-//   zero-filled; no [W, k] slab is ever held, so any W works.
-// - Zero chunks cost their win_vals loads and one barrier: a 32-row tile
-//   of a +-3-block band touches 80 of the 384 window columns, so the X
-//   loads and FFMAs of 19 of its 24 chunks are skipped.  Each output
-//   still sums its terms in order w = 0 .. W-1, one FFMA each, and adding
-//   an exact zero product changes an f32 sum at most in the sign of a
-//   zero, so for finite X the skip changes no value.  A NaN or Inf of X meets a
-//   stored zero only in a skipped chunk and is then not carried (the
-//   one-thread-per-row body and the Pallas dot made it NaN); the solver
-//   never feeds non-finite blocks.
+//   without bank conflicts) and the [BK, BN] slab of X rows requested with
+//   cp.async, row by row through the row map (at bs 8 a K4 chunk of 16 is
+//   two contiguous 8-row runs; K4 reads each row from a table of the
+//   strip's X rows that the CTA builds in shared memory at its start, W
+//   ints, so no division or index load sits before a copy); the product
+//   of the chunk runs LAG chunks later, when the slab has landed (LAG + 1
+//   buffers).  A ragged W is zero-filled; no [W, k] slab is ever held, so
+//   any W works (up to kStripUnionMax for K4's table).
+// - Zero chunks cost their values loads and one barrier: a 32-row tile of
+//   a +-3-block band touches 80 of the 384 window columns (of the 304
+//   union columns for K4), so the X loads and FFMAs of most chunks are
+//   skipped.  Each output still sums its terms in order w = 0 .. W-1, one
+//   FFMA each, and adding an exact zero product changes an f32 sum at most
+//   in the sign of a zero, so for finite X the skip changes no value.
+// - Non-finite X.  0 * NaN and 0 * Inf are NaN, so the Pallas dot (and
+//   the plain version) carry a NaN or Inf of X into every output whose
+//   row meets it, through stored zeros too.  One pass over X (and K6's
+//   halos) first sets a device flag when any element is NaN or Inf
+//   (nonfinite_kernel: X's bytes once, no host
+//   sync; lobpcg_nonfinite_f32, which the wrappers call just before the
+//   kernel); the tile kernel reads the flag and, when it is set, skips no
+//   chunk.  Then every product of the plain version is formed, and the
+//   non-finite pattern of Y equals the plain version's whatever the
+//   order of the sums.  For finite X the flag is clear and nothing else
+//   changes.
 // - Why FFMA, not tensor cores.  The reference pins the product to full
 //   f32; 3xTF32 would triple the tensor-core work to reach it, and after
 //   the skip the FFMA time (~0.3 ms at peak) is below the bytes'.
@@ -78,96 +83,47 @@
 // - Tile shapes (WinShape), chosen by timing variants on the H100
 //   (PERF.md, PR 5): BN <= 64: BM 64, BK 32, PREFETCH 2, LAG 2; BN 128:
 //   BM 32, BK 16, PREFETCH 4, LAG 3.  Narrow tiles favour long chunks
-//   (fewer barriers per byte of win_vals); the 128-wide tile favours short
-//   row tiles (fewer window columns per tile, so more chunks skipped).
+//   (fewer barriers per byte of values); the 128-wide tile favours short
+//   row tiles (fewer columns per tile, so more chunks skipped).
+//
+// K3: a block-row tile kernel (ell_tile_kernel).
+// - The floor.  On the 160^3 Laplacian (nb 512,000, R 7, bs 8) 87% of the
+//   stored block values are zeros (tridiagonal diagonal blocks, diagonal
+//   neighbour blocks), and blocks (0.92 GB) + X + Y at k 16 take 0.43 ms
+//   at 3.35 TB/s, while the FFMAs of all stored values take 0.11 ms at 67
+//   TFLOP/s: bytes bound it.
+// - Tiles.  One CTA computes BR block rows (from the thread and shared-
+//   memory budget, 16 at bs 8 and k <= 16) times BN columns (BN from k as
+//   for K5).  Thread (block row il, row group rg, column thread tx) holds
+//   a 4 x TN tile of its block row's outputs: rows rg*4 .. rg*4+3 (those
+//   below bs), columns tx*4 + g*CT*4 + 0..3.  Four rows a thread rather
+//   than eight: twice the warps for the same shared memory, 10-18% faster
+//   on the H100 at every shape timed (PERF.md, Findings); a fourth stage
+//   and L1-cached X copies were slower.
+// - What bounds it.  Each block row gathers its R X slabs, so the SMs take
+//   in R x X's bytes (through L2) besides the blocks: 3.0 GB at 160^3 x 16,
+//   11.4 GB on the band-72 matrix x 128.  The kernel runs at ~4.4 TB/s of
+//   that traffic at every shape measured, above the DRAM floor of the
+//   bytes it must move; only reusing X slabs across the block rows of a
+//   tile would cut it.
+// - Staging.  For each r in turn, the tile's [bs, bs] blocks (contiguous
+//   in blocks, R*bs*bs apart) and their gathered X slabs (rows
+//   cols[i, r]*bs .. +bs, BN columns) are copied to shared memory with
+//   cp.async, STAGES r-steps in flight (three, ~14 KB a stage at bs 8 and
+//   BN 16).  Each block row's copies are made by its own threads, so the
+//   X rows of one slab are read as contiguous 64-512 byte runs.
+// - Order.  Each output sums r, then j, one FFMA each, as the one-thread-
+//   per-row body it replaces did, so the result is the same bit for bit.
+//   K3 skips nothing: a padding block (zero, at column 0) carries a NaN of
+//   X rows 0 .. bs-1 as the Pallas dot does.
 
 #include <climits>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
-
-template <int V>
-struct alignas(4 * V) Vec {
-  float v[V];
-};
-
-// K3.  One thread per (row of block i, V columns).  kv = k / V.
-template <int V>
-__global__ void bsr_ell_kernel(const int32_t* __restrict__ cols,
-                               const float* __restrict__ blocks,
-                               const float* __restrict__ X, float* __restrict__ Y,
-                               int64_t nb, int64_t R, int64_t bs, int64_t kv) {
-  using VT = Vec<V>;
-  const int64_t total = nb * bs * kv;
-  const VT* Xv = reinterpret_cast<const VT*>(X);
-  VT* Yv = reinterpret_cast<VT*>(Y);
-  for (int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; idx < total;
-       idx += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t row = idx / kv;
-    const int64_t cv = idx - row * kv;
-    const int64_t i = row / bs;
-    const int64_t ri = row - i * bs;
-    float acc[V];
-#pragma unroll
-    for (int c = 0; c < V; ++c) acc[c] = 0.0f;
-    for (int64_t r = 0; r < R; ++r) {
-      const int64_t col = cols[i * R + r];
-      const float* a = blocks + ((i * R + r) * bs + ri) * bs;
-      const VT* xb = Xv + col * bs * kv + cv;
-      for (int64_t j = 0; j < bs; ++j) {
-        const float aj = a[j];
-        const VT x = xb[j * kv];
-#pragma unroll
-        for (int c = 0; c < V; ++c) acc[c] = fmaf(aj, x.v[c], acc[c]);
-      }
-    }
-    VT y;
-#pragma unroll
-    for (int c = 0; c < V; ++c) y.v[c] = acc[c];
-    Yv[idx] = y;
-  }
-}
-
-// K4.  One thread per (output row, V columns); vals is [ns * strip, W];
-// strip_cols is [ns, Rs].
-template <int V>
-__global__ void bsr_strip_kernel(const int32_t* __restrict__ idx_arr, int64_t Rs,
-                                 const float* __restrict__ vals,
-                                 const float* __restrict__ X, float* __restrict__ Y,
-                                 int64_t n_out, int64_t strip, int64_t W,
-                                 int64_t bs, int64_t kv) {
-  using VT = Vec<V>;
-  const int64_t total = n_out * kv;
-  const VT* Xv = reinterpret_cast<const VT*>(X);
-  VT* Yv = reinterpret_cast<VT*>(Y);
-  for (int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x; t < total;
-       t += (int64_t)gridDim.x * blockDim.x) {
-    const int64_t row = t / kv;
-    const int64_t cv = t - row * kv;
-    const int64_t s = row / strip;
-    const float* a = vals + row * W;  // row s*strip + rr of [ns*strip, W]
-    float acc[V];
-#pragma unroll
-    for (int c = 0; c < V; ++c) acc[c] = 0.0f;
-    for (int64_t u = 0; u < Rs; ++u) {
-      const VT* xb = Xv + (int64_t)idx_arr[s * Rs + u] * bs * kv + cv;
-      const float* au = a + u * bs;
-      for (int64_t j = 0; j < bs; ++j) {
-        const float aj = au[j];
-        const VT x = xb[j * kv];
-#pragma unroll
-        for (int c = 0; c < V; ++c) acc[c] = fmaf(aj, x.v[c], acc[c]);
-      }
-    }
-    VT y;
-#pragma unroll
-    for (int c = 0; c < V; ++c) y.v[c] = acc[c];
-    Yv[t] = y;
-  }
-}
-
-// --- K5 / K6: the register-tiled strip-window product -----------------------
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
   return static_cast<unsigned>(__cvta_generic_to_shared(p));
@@ -197,12 +153,133 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
+
+constexpr int64_t kSmemMax = 227 * 1024;  // dynamic shared memory a CTA can have
+constexpr int64_t kStripUnionMax = 32768;  // K4's union columns (its row table)
+
+// --- The non-finite flag ------------------------------------------------------
+
+__device__ __forceinline__ bool nonfinite(float v) {
+  return (__float_as_uint(v) & 0x7f800000u) == 0x7f800000u;  // NaN or +-Inf
+}
+
+// Sets *flag = 1 when any of the n floats at x is NaN or +-Inf; never
+// clears it.  vec: x 16-byte aligned (float4 loads, then the tail).
+__global__ void __launch_bounds__(256) nonfinite_kernel(const float* __restrict__ x,
+                                                        int64_t n, int vec,
+                                                        int* __restrict__ flag) {
+  bool bad = false;
+  const int64_t stride = (int64_t)gridDim.x * blockDim.x;
+  const int64_t t = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  int64_t done = 0;
+  if (vec) {
+    const float4* x4 = reinterpret_cast<const float4*>(x);
+    const int64_t n4 = n / 4;
+    for (int64_t i = t; i < n4; i += stride) {
+      const float4 v = x4[i];
+      bad |= nonfinite(v.x) | nonfinite(v.y) | nonfinite(v.z) | nonfinite(v.w);
+    }
+    done = 4 * n4;
+  }
+  for (int64_t i = done + t; i < n; i += stride) bad |= nonfinite(x[i]);
+  if (__syncthreads_or(bad) && threadIdx.x == 0) *flag = 1;
+}
+
+cudaError_t mark_nonfinite(const float* x, int64_t n, int* flag, cudaStream_t s) {
+  if (n <= 0) return cudaSuccess;
+  const int threads = 256;
+  int64_t blocks = (n / 4 + threads - 1) / threads;
+  if (blocks < 1) blocks = 1;
+  if (blocks > 132 * 8) blocks = 132 * 8;  // a grid-stride loop covers the rest
+  nonfinite_kernel<<<(unsigned)blocks, threads, 0, s>>>(x, n, aligned16(x), flag);
+  return cudaGetLastError();
+}
+
+// --- K4 / K5 / K6: the register-tiled strip product ---------------------------
+
+// The row maps.  Each gives, per strip s, an object whose row(w) points at
+// the first element of the X row holding column w of the strip's values,
+// and whose any() is a valid address for zero-filled copies.
+// K5 / K6: row lo[s]*bs + w of the frame [top rows hrows | X | bot].
+struct WindowRows {
+  const int32_t* lo;
+  const float* X;
+  const float* top;
+  const float* bot;
+  int64_t bs, k, hrows, body_hi;
+};
+
+// K4: row strip_cols[s, w / bs]*bs + w % bs of X.
+struct StripRows {
+  const int32_t* cols;
+  const float* X;
+  int64_t Rs, bs, k;
+};
+
+// The shared memory a row map needs beyond the tiles: K4's row table,
+// padded by 32 entries so that no address a ragged chunk forms past W
+// lies outside it.
+template <class Map>
+constexpr int64_t map_smem(int64_t W) {
+  return std::is_same<Map, StripRows>::value ? (W + 32) * (int64_t)sizeof(int) : 0;
+}
+
+struct ContiguousAt {
+  const float* src;
+  int64_t k;
+  __device__ const float* row(int64_t w) const { return src + w * k; }
+  __device__ const float* any() const { return src; }
+};
+
+struct GatheredAt {  // tab: the strip's X row of each column, in shared memory
+  const int* tab;
+  const float* X;
+  int64_t k;
+  __device__ const float* row(int64_t w) const { return X + (int64_t)tab[w] * k; }
+  __device__ const float* any() const { return X; }
+};
+
+// The window of strip s starts at row start = lo[s]*bs of the frame
+// [top rows hrows | X | bot]; with body_hi = hrows + n_loc - W it lies
+// whole in
+//   top at start                 when start <  hrows,
+//   bot at start - body_hi       when start >  body_hi,
+//   X   at start - hrows         otherwise.
+// K5 passes hrows 0 and body_hi INT64_MAX: always X at start.
+__device__ __forceinline__ ContiguousAt rows_of(const WindowRows& m, int64_t s, int*,
+                                                int64_t) {
+  const int64_t start = (int64_t)m.lo[s] * m.bs;
+  const float* src;
+  if (start < m.hrows)
+    src = m.top + start * m.k;
+  else if (start > m.body_hi)
+    src = m.bot + (start - m.body_hi) * m.k;
+  else
+    src = m.X + (start - m.hrows) * m.k;
+  return {src, m.k};
+}
+
+// K4's row table, built by the CTA's threads before the first barrier:
+// tab[w] = strip_cols[s, w / bs]*bs + w % bs for w < W (32-bit: W <=
+// kStripUnionMax, rows < 2^31).
+__device__ __forceinline__ GatheredAt rows_of(const StripRows& m, int64_t s, int* tab,
+                                              int64_t W) {
+  const int32_t* const cols = m.cols + s * m.Rs;
+  const int bs = (int)m.bs;
+  for (int w = threadIdx.x; w < W; w += blockDim.x) {
+    const int u = w / bs;
+    tab[w] = cols[u] * bs + (w - u * bs);
+  }
+  return {tab, m.X, m.k};
+}
+
 // The tile of a BN-column launch.  RT row threads, each with TM rows;
 // CT = BN / TN column threads, each with TN columns.  A thread's rows and
 // columns are float4 groups strided across the tile, so the threads of a
 // quarter warp read neighbouring 16-byte words of shared memory and store
 // neighbouring 16-byte words of Y.  Each thread loads AV float4s of a
-// chunk's [BM, BK] win_vals slice.  __launch_bounds__ asks for 512 / NT
+// chunk's [BM, BK] values slice.  __launch_bounds__ asks for 512 / NT
 // CTAs an SM, at most 128 registers a thread.
 template <int BN>
 struct WinShape {
@@ -227,30 +304,23 @@ struct WinTile {
 };
 
 // One CTA: row tile (blockIdx / ctiles) of the strips, column tile
-// (blockIdx % ctiles).  The window of strip s starts at row
-// start = lo[s]*bs of the frame [top rows hrows | X | bot]; with
-// body_hi = hrows + n_loc - W it lies whole in
-//   top at start                 when start <  hrows,
-//   bot at start - body_hi       when start >  body_hi,
-//   X   at start - hrows         otherwise.
-// K5 passes hrows 0 and body_hi INT64_MAX: always X at start.  va: W % 4
-// == 0 and win_vals 16-byte aligned (float4 loads of win_vals).
+// (blockIdx % ctiles).  va: W % 4 == 0 and vals 16-byte aligned (float4
+// loads of the values).  nonfinite: the flag of nonfinite_kernel (set:
+// no chunk is skipped).
 //
-// Chunk j of the window: its win_vals slice reaches registers P chunks
-// ahead (plain loads); at step j every thread tests its part,
+// Chunk j of the strip's columns: its values slice reaches registers P
+// chunks ahead (plain loads); at step j every thread tests its part,
 // __syncthreads_or decides for the CTA, and a nonzero chunk is stored to
 // shared memory (transposed) and its X slab requested with cp.async.
 // The product of chunk j runs at step j + E, when the slab has had E
 // steps to land; E + 1 buffers hold the chunks in flight.  An all-zero
-// chunk costs its win_vals loads and one barrier, nothing else.
-template <int BN, bool VB>
+// chunk costs its values loads and one barrier, nothing else.
+template <int BN, bool VB, class Map>
 __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
-    bsr_window_tile_kernel(const int32_t* __restrict__ lo, const float* __restrict__ vals,
-                           const float* __restrict__ X, const float* __restrict__ top,
-                           const float* __restrict__ bot, float* __restrict__ Y,
-                           int64_t n_out, int64_t strip, int64_t W, int64_t bs,
-                           int64_t k, int64_t hrows, int64_t body_hi, int64_t rtiles,
-                           int64_t ctiles, int va) {
+    strip_tile_kernel(Map map, const float* __restrict__ vals, float* __restrict__ Y,
+                      int64_t n_out, int64_t strip, int64_t W, int64_t k,
+                      int64_t rtiles, int64_t ctiles, int va,
+                      const int* __restrict__ nonfinite) {
   using T = WinTile<BN>;
   constexpr int BM = T::BM, BK = T::BK, P = T::P, E = T::E, TM = T::TM, TN = T::TN;
   constexpr int RT = T::RT, CT = T::CT, NT = T::NT, AV = T::AV, AP = T::APITCH;
@@ -269,18 +339,13 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
   if (n_out - row0 < nrows) nrows = n_out - row0;
   if (nrows <= 0) return;  // the whole CTA: rows past n_out
 
-  const int64_t start = (int64_t)lo[s] * bs;
-  const float* src;
-  if (start < hrows)
-    src = top + start * k;
-  else if (start > body_hi)
-    src = bot + (start - body_hi) * k;
-  else
-    src = X + (start - hrows) * k;
-  const float* const arow = vals + row0 * W;  // win_vals row row0
+  // (K4's row table follows the tiles; the barrier of step 0 publishes it.)
+  const auto rows = rows_of(map, s, reinterpret_cast<int*>(Bs + (E + 1) * T::B_ELEMS), W);
+  const bool keep_all = *nonfinite != 0;
+  const float* const arow = vals + row0 * W;  // values row row0
   const int64_t nchunks = (W + BK - 1) / BK;
 
-  // Chunk ch's win_vals: float4 group f = tid + i * NT is row f / (BK / 4),
+  // Chunk ch's values: float4 group f = tid + i * NT is row f / (BK / 4),
   // columns 4 * (f % (BK / 4)) + 0..3 of the [BM, BK] slice.
   auto load_a = [&](int64_t ch, float4 (&dst)[AV]) {
 #pragma unroll
@@ -304,7 +369,7 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
     }
   };
 
-  // Store chunk j's win_vals (transposed) and request its X slab, buffer b.
+  // Store chunk j's values (transposed) and request its X slab, buffer b.
   auto stage = [&](int64_t ch, const float4 (&av)[AV], int b) {
     float* const as = As + b * T::A_ELEMS;
     float* const bsm = Bs + b * T::B_ELEMS;
@@ -326,7 +391,8 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
         if (NV % NT != 0 && i >= NV) break;
         const int r = i / (BN / 4), v = i - (i / (BN / 4)) * (BN / 4);
         const bool ok = w0 + r < W && c0 + 4 * v < k;
-        cp_async16(bsm + r * BN + 4 * v, ok ? src + (w0 + r) * k + c0 + 4 * v : src, ok);
+        cp_async16(bsm + r * BN + 4 * v, ok ? rows.row(w0 + r) + c0 + 4 * v : rows.any(),
+                   ok);
       }
     } else {
       constexpr int NE = BK * BN;
@@ -336,7 +402,7 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
         if (NE % NT != 0 && i >= NE) break;
         const int r = i / BN, c = i - (i / BN) * BN;
         const bool ok = w0 + r < W && c0 + c < k;
-        cp_async4(bsm + r * BN + c, ok ? src + (w0 + r) * k + c0 + c : src, ok);
+        cp_async4(bsm + r * BN + c, ok ? rows.row(w0 + r) + c0 + c : rows.any(), ok);
       }
     }
   };
@@ -361,6 +427,7 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
       cp_async_wait<E - 1>();  // this thread's X slab of chunk j - E landed
       bool nz = false;
       if (j < nchunks) {
+        nz = keep_all;
 #pragma unroll
         for (int i = 0; i < AV; ++i)
           nz |= areg[u][i].x != 0.0f || areg[u][i].y != 0.0f ||
@@ -421,75 +488,241 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
   }
 }
 
-bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
-
-int64_t grid_for(int64_t total, int threads) {
-  // A grid-stride loop covers whatever the grid cap leaves.
-  int64_t blocks = (total + threads - 1) / threads;
-  if (blocks < 1) blocks = 1;
-  if (blocks > (int64_t)1 << 30) blocks = (int64_t)1 << 30;
-  return blocks;
-}
-
-template <int V>
-int launch_ell(const int32_t* cols, const float* blocks, const float* X, float* Y,
-               int64_t nb, int64_t R, int64_t bs, int64_t k, cudaStream_t s) {
-  const int threads = 256;
-  const int64_t total = nb * bs * (k / V);
-  bsr_ell_kernel<V><<<(unsigned)grid_for(total, threads), threads, 0, s>>>(
-      cols, blocks, X, Y, nb, R, bs, k / V);
-  return (int)cudaGetLastError();
-}
-
-template <int V>
-int launch_strip(const int32_t* idx, int64_t Rs, const float* vals, const float* X,
-                 float* Y, int64_t n_out, int64_t strip, int64_t W, int64_t bs,
-                 int64_t k, cudaStream_t s) {
-  const int threads = 256;
-  const int64_t total = n_out * (k / V);
-  bsr_strip_kernel<V><<<(unsigned)grid_for(total, threads), threads, 0, s>>>(
-      idx, Rs, vals, X, Y, n_out, strip, W, bs, k / V);
-  return (int)cudaGetLastError();
-}
-
-template <int BN, bool VB>
-int launch_window_tile(const int32_t* lo, const float* vals, const float* X,
-                       const float* top, const float* bot, float* Y, int64_t n_out,
-                       int64_t strip, int64_t W, int64_t bs, int64_t k, int64_t hrows,
-                       int64_t body_hi, cudaStream_t s) {
+template <int BN, bool VB, class Map>
+cudaError_t launch_strip_tile(const Map& map, const float* vals, float* Y, int64_t n_out,
+                              int64_t strip, int64_t W, int64_t k, const int* flag,
+                              cudaStream_t s) {
   using T = WinTile<BN>;
   const int64_t rtiles = (strip + T::BM - 1) / T::BM;
   const int64_t ctiles = (k + BN - 1) / BN;
   const int64_t blocks = (n_out + strip - 1) / strip * rtiles * ctiles;
-  if (blocks > INT_MAX) return (int)cudaErrorInvalidConfiguration;
-  auto kernel = bsr_window_tile_kernel<BN, VB>;
-  cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, T::SMEM);
-  if (e != cudaSuccess) return (int)e;
+  if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
+  const int64_t smem = T::SMEM + map_smem<Map>(W);
+  if (smem > kSmemMax) return cudaErrorInvalidValue;
+  auto kernel = strip_tile_kernel<BN, VB, Map>;
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (e != cudaSuccess) return e;
   const int va = W % 4 == 0 && aligned16(vals);
-  kernel<<<(unsigned)blocks, T::NT, T::SMEM, s>>>(lo, vals, X, top, bot, Y, n_out,
-                                                    strip, W, bs, k, hrows, body_hi,
-                                                    rtiles, ctiles, va);
-  return (int)cudaGetLastError();
+  kernel<<<(unsigned)blocks, T::NT, (size_t)smem, s>>>(map, vals, Y, n_out, strip, W, k,
+                                                        rtiles, ctiles, va, flag);
+  return cudaGetLastError();
 }
 
 // The tile width from k alone, so K5 and K6 pick the same tiles.
+template <bool VB, class Map>
+cudaError_t launch_strip(const Map& map, const float* vals, float* Y, int64_t n_out,
+                         int64_t strip, int64_t W, int64_t k, const int* flag,
+                         cudaStream_t s) {
+  if (k <= 16) return launch_strip_tile<16, VB>(map, vals, Y, n_out, strip, W, k, flag, s);
+  if (k <= 32) return launch_strip_tile<32, VB>(map, vals, Y, n_out, strip, W, k, flag, s);
+  if (k <= 64) return launch_strip_tile<64, VB>(map, vals, Y, n_out, strip, W, k, flag, s);
+  return launch_strip_tile<128, VB>(map, vals, Y, n_out, strip, W, k, flag, s);
+}
+
+// --- K3: the block-row tile product -------------------------------------------
+
+// Thread (il, rg, tx) of a BN-column launch: TM = 4 rows of block row il,
+// CT column threads with TN columns each (float4 groups strided by CT*4).
+// STAGES r-steps of blocks and X slabs are in flight.  Shared memory per
+// block row and stage: SA floats of blocks (bs*bs rounded up to 4, plus 4
+// so that the blocks of neighbouring block rows fall in other banks) and
+// SX floats of X (bs*BN; plus 16 at BN 16, where two block rows share a
+// quarter warp).
+template <int BN>
+struct EllTile {
+  static constexpr int TM = 4, TN = BN >= 64 ? 8 : 4, CT = BN / TN, STAGES = 3;
+  static constexpr int XPAD = BN == 16 ? 16 : 0;
+};
+
+struct EllShape {
+  int BR, RG, SA, SX;
+  int64_t smem;
+};
+
+constexpr int64_t kEllSmemTarget = 110 * 1024;  // two CTAs an SM
+
+template <int BN>
+EllShape ell_shape(int64_t bs);
+
+// Whether a BN-column tile of one block row fits a CTA.
+template <int BN>
+bool ell_fits(int64_t bs) {
+  const EllShape sh = ell_shape<BN>(bs);
+  return sh.smem <= kSmemMax && sh.RG * EllTile<BN>::CT <= 256;
+}
+
+template <int BN>
+EllShape ell_shape(int64_t bs) {
+  using T = EllTile<BN>;
+  EllShape sh;
+  sh.RG = (int)((bs + T::TM - 1) / T::TM);
+  sh.SA = (int)((bs * bs + 3) / 4 * 4 + 4);
+  sh.SX = (int)(bs * BN + T::XPAD);
+  const int64_t row_bytes = (int64_t)T::STAGES * (sh.SA + sh.SX) * (int64_t)sizeof(float);
+  int64_t br = 128 / ((int64_t)sh.RG * T::CT);
+  if (br * row_bytes > kEllSmemTarget) br = kEllSmemTarget / row_bytes;
+  sh.BR = br < 1 ? 1 : (int)br;
+  sh.smem = sh.BR * row_bytes;
+  return sh;
+}
+
+// One CTA: block rows tile * BR .. + BR (blockIdx / ctiles), column tile
+// blockIdx % ctiles.  av: bs*bs % 4 == 0 and blocks 16-byte aligned
+// (16-byte copies of the blocks).
+template <int BN, bool VB>
+__global__ void __launch_bounds__(256, 2)
+    ell_tile_kernel(const int32_t* __restrict__ cols, const float* __restrict__ blocks,
+                    const float* __restrict__ X, float* __restrict__ Y, int64_t nb,
+                    int64_t R, int64_t bs, int64_t k, int BR, int RG, int SA, int SX,
+                    int64_t ctiles, int av) {
+  using T = EllTile<BN>;
+  constexpr int TM = T::TM, TN = T::TN, CT = T::CT, S = T::STAGES;
+  extern __shared__ float4 smem4[];
+  float* const sm = reinterpret_cast<float*>(smem4);  // [S][BR][SA] then [S][BR][SX]
+
+  const int tid = threadIdx.x;
+  const int tx = tid % CT, rest = tid / CT;
+  const int rg = rest % RG, il = rest / RG;
+  const int tpb = RG * CT, q0 = rg * CT + tx;  // the block row's threads, this one's rank
+  const int64_t tile = blockIdx.x / ctiles;
+  const int64_t c0 = (blockIdx.x - tile * ctiles) * BN;
+  const int64_t i = tile * BR + il;
+  const bool live = i < nb;
+  float* const as0 = sm + il * SA;
+  float* const xs0 = sm + (int64_t)S * BR * SA + il * SX;
+  const int64_t nA = bs * bs;
+
+  // Request block (i, r) and its X slab into stage st.
+  auto issue = [&](int64_t r, int st) {
+    if (!live) return;
+    float* const as = as0 + (int64_t)st * BR * SA;
+    float* const xs = xs0 + (int64_t)st * BR * SX;
+    const float* const a = blocks + (i * R + r) * nA;
+    if (av) {
+      for (int64_t q = q0; q < nA / 4; q += tpb) cp_async16(as + 4 * q, a + 4 * q, true);
+    } else {
+      for (int64_t q = q0; q < nA; q += tpb) cp_async4(as + q, a + q, true);
+    }
+    const float* const xb = X + (int64_t)__ldg(cols + i * R + r) * bs * k + c0;
+    if (VB) {
+      const int64_t nv = bs * (BN / 4);
+      for (int64_t q = q0; q < nv; q += tpb) {
+        const int64_t j = q / (BN / 4), v = q - j * (BN / 4);
+        const bool ok = c0 + 4 * v < k;
+        cp_async16(xs + j * BN + 4 * v, ok ? xb + j * k + 4 * v : xb, ok);
+      }
+    } else {
+      const int64_t ne = bs * BN;
+      for (int64_t q = q0; q < ne; q += tpb) {
+        const int64_t j = q / BN, c = q - j * BN;
+        const bool ok = c0 + c < k;
+        cp_async4(xs + j * BN + c, ok ? xb + j * k + c : xb, ok);
+      }
+    }
+  };
+
+  // Row t of this thread within its block (rows past bs read row bs - 1
+  // and are not stored).
+  int offa[TM];
+#pragma unroll
+  for (int t = 0; t < TM; ++t) {
+    const int ri = rg * TM + t;
+    offa[t] = (ri < bs ? ri : (int)bs - 1) * (int)bs;
+  }
+
+  float acc[TM][TN];
+#pragma unroll
+  for (int m = 0; m < TM; ++m)
+#pragma unroll
+    for (int n = 0; n < TN; ++n) acc[m][n] = 0.0f;
+
+#pragma unroll
+  for (int st = 0; st < S - 1; ++st) {
+    if (st < R) issue(st, st);
+    cp_async_commit();
+  }
+  for (int64_t r = 0; r < R; ++r) {
+    cp_async_wait<S - 2>();  // this thread's copies of step r landed
+    __syncthreads();         // everyone's; and step r - 1's stage is free
+    if (r + S - 1 < R) issue(r + S - 1, (int)((r + S - 1) % S));
+    cp_async_commit();
+    const int st = (int)(r % S);
+    const float* const as = as0 + (int64_t)st * BR * SA;
+    const float* const xs = xs0 + (int64_t)st * BR * SX;
+#pragma unroll 4
+    for (int64_t j = 0; j < bs; ++j) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int t = 0; t < TM; ++t) a[t] = as[offa[t] + j];
+#pragma unroll
+      for (int g = 0; g < TN / 4; ++g)
+        *reinterpret_cast<float4*>(&b[4 * g]) =
+            *reinterpret_cast<const float4*>(&xs[j * BN + g * CT * 4 + tx * 4]);
+#pragma unroll
+      for (int m = 0; m < TM; ++m)
+#pragma unroll
+        for (int n = 0; n < TN; ++n) acc[m][n] = fmaf(a[m], b[n], acc[m][n]);
+    }
+  }
+  cp_async_wait<0>();
+  if (!live) return;
+
+#pragma unroll
+  for (int t = 0; t < TM; ++t) {
+    const int64_t ri = rg * TM + t;
+    if (ri >= bs) continue;
+    float* const yrow = Y + (i * bs + ri) * k;
+#pragma unroll
+    for (int g = 0; g < TN / 4; ++g) {
+      const int64_t col = c0 + g * CT * 4 + tx * 4;
+      if (VB) {
+        if (col < k)
+          *reinterpret_cast<float4*>(yrow + col) =
+              make_float4(acc[t][4 * g], acc[t][4 * g + 1], acc[t][4 * g + 2],
+                          acc[t][4 * g + 3]);
+      } else {
+#pragma unroll
+        for (int c = 0; c < 4; ++c)
+          if (col + c < k) yrow[col + c] = acc[t][4 * g + c];
+      }
+    }
+  }
+}
+
+template <int BN, bool VB>
+cudaError_t launch_ell_tile(const int32_t* cols, const float* blocks, const float* X,
+                            float* Y, int64_t nb, int64_t R, int64_t bs, int64_t k,
+                            cudaStream_t s) {
+  const EllShape sh = ell_shape<BN>(bs);
+  const int nt = sh.BR * sh.RG * EllTile<BN>::CT;
+  if (sh.smem > kSmemMax || nt > 256) return cudaErrorInvalidValue;
+  const int64_t ctiles = (k + BN - 1) / BN;
+  const int64_t blocks_n = (nb + sh.BR - 1) / sh.BR * ctiles;
+  if (blocks_n > INT_MAX) return cudaErrorInvalidConfiguration;
+  auto kernel = ell_tile_kernel<BN, VB>;
+  cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)sh.smem);
+  if (e != cudaSuccess) return e;
+  const int av = nb > 0 && (bs * bs) % 4 == 0 && aligned16(blocks);
+  kernel<<<(unsigned)blocks_n, nt, (size_t)sh.smem, s>>>(cols, blocks, X, Y, nb, R, bs, k,
+                                                        sh.BR, sh.RG, sh.SA, sh.SX, ctiles,
+                                                        av);
+  return cudaGetLastError();
+}
+
+// BN from k, as for K5; narrower where a wide tile of one block row does
+// not fit a CTA (bs above 64).
 template <bool VB>
-int launch_window(const int32_t* lo, const float* vals, const float* X,
-                  const float* top, const float* bot, float* Y, int64_t n_out,
-                  int64_t strip, int64_t W, int64_t bs, int64_t k, int64_t hrows,
-                  int64_t body_hi, cudaStream_t s) {
-  if (k <= 16)
-    return launch_window_tile<16, VB>(lo, vals, X, top, bot, Y, n_out, strip, W, bs, k,
-                                      hrows, body_hi, s);
-  if (k <= 32)
-    return launch_window_tile<32, VB>(lo, vals, X, top, bot, Y, n_out, strip, W, bs, k,
-                                      hrows, body_hi, s);
-  if (k <= 64)
-    return launch_window_tile<64, VB>(lo, vals, X, top, bot, Y, n_out, strip, W, bs, k,
-                                      hrows, body_hi, s);
-  return launch_window_tile<128, VB>(lo, vals, X, top, bot, Y, n_out, strip, W, bs, k,
-                                     hrows, body_hi, s);
+cudaError_t launch_ell(const int32_t* cols, const float* blocks, const float* X, float* Y,
+                       int64_t nb, int64_t R, int64_t bs, int64_t k, cudaStream_t s) {
+  if (k > 64 && ell_fits<128>(bs))
+    return launch_ell_tile<128, VB>(cols, blocks, X, Y, nb, R, bs, k, s);
+  if (k > 32 && ell_fits<64>(bs))
+    return launch_ell_tile<64, VB>(cols, blocks, X, Y, nb, R, bs, k, s);
+  if (k > 16 && ell_fits<32>(bs))
+    return launch_ell_tile<32, VB>(cols, blocks, X, Y, nb, R, bs, k, s);
+  return launch_ell_tile<16, VB>(cols, blocks, X, Y, nb, R, bs, k, s);
 }
 
 }  // namespace
@@ -509,44 +742,61 @@ int lobpcg_bsr_ell_f32(const void* cols, const void* blocks, const void* X,
   const float* xp = static_cast<const float*>(X);
   float* yp = static_cast<float*>(Y);
   if (k % 4 == 0 && aligned16(X) && aligned16(Y))
-    return launch_ell<4>(cp, bp, xp, yp, nb, R, bs, k, s);
-  return launch_ell<1>(cp, bp, xp, yp, nb, R, bs, k, s);
+    return (int)launch_ell<true>(cp, bp, xp, yp, nb, R, bs, k, s);
+  return (int)launch_ell<false>(cp, bp, xp, yp, nb, R, bs, k, s);
+}
+
+// The non-finite flag of K4/K5/K6: *flag = 1 if any of the na, nb, nc
+// floats at a, b, c is NaN or Inf, else 0 (n 0: the span is skipped).
+int lobpcg_nonfinite_f32(const void* a, int64_t na, const void* b, int64_t nb,
+                         const void* c, int64_t nc, void* flag, void* stream) {
+  if (na < 0 || nb < 0 || nc < 0) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  int* fp = static_cast<int*>(flag);
+  cudaError_t e = cudaMemsetAsync(fp, 0, sizeof(int), s);
+  if (e == cudaSuccess) e = mark_nonfinite(static_cast<const float*>(a), na, fp, s);
+  if (e == cudaSuccess) e = mark_nonfinite(static_cast<const float*>(b), nb, fp, s);
+  if (e == cudaSuccess) e = mark_nonfinite(static_cast<const float*>(c), nc, fp, s);
+  return (int)e;
 }
 
 // K4.  strip_cols: [ns, Rs] int32; strip_vals: [ns, strip, Rs*bs];
-// X: [rows, k]; Y: [n_out, k] with n_out <= ns*strip.
+// X: [rows, k]; Y: [n_out, k] with n_out <= ns*strip.  flag: the
+// non-finite flag of X (lobpcg_nonfinite_f32), one int32 on the device.
 int lobpcg_bsr_strip_f32(const void* strip_cols, int64_t Rs, const void* strip_vals,
                          const void* X, void* Y, int64_t n_out, int64_t strip,
-                         int64_t bs, int64_t k, void* stream) {
-  if (n_out <= 0 || strip <= 0 || bs <= 0 || k <= 0 || Rs <= 0)
+                         int64_t bs, int64_t k, const void* flag, void* stream) {
+  if (n_out <= 0 || strip <= 0 || bs <= 0 || k <= 0 || Rs <= 0 ||
+      Rs * bs > kStripUnionMax)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* ip = static_cast<const int32_t*>(strip_cols);
-  const float* vp = static_cast<const float*>(strip_vals);
   const float* xp = static_cast<const float*>(X);
   float* yp = static_cast<float*>(Y);
+  const int* fp = static_cast<const int*>(flag);
+  const StripRows map{static_cast<const int32_t*>(strip_cols), xp, Rs, bs, k};
+  const float* vp = static_cast<const float*>(strip_vals);
   if (k % 4 == 0 && aligned16(X) && aligned16(Y))
-    return launch_strip<4>(ip, Rs, vp, xp, yp, n_out, strip, Rs * bs, bs, k, s);
-  return launch_strip<1>(ip, Rs, vp, xp, yp, n_out, strip, Rs * bs, bs, k, s);
+    return (int)launch_strip<true>(map, vp, yp, n_out, strip, Rs * bs, k, fp, s);
+  return (int)launch_strip<false>(map, vp, yp, n_out, strip, Rs * bs, k, fp, s);
 }
 
 // K5.  lo: [ns] int32 window starts in blocks; win_vals: [ns, strip, W];
-// X: [rows, k] with lo[s]*bs + W <= rows; Y: [n_out, k], n_out <= ns*strip.
+// X: [rows, k] with lo[s]*bs + W <= rows; Y: [n_out, k], n_out <=
+// ns*strip.  flag: the non-finite flag of X.
 int lobpcg_bsr_window_f32(const void* lo, const void* win_vals, const void* X,
                           void* Y, int64_t n_out, int64_t strip, int64_t W,
-                          int64_t bs, int64_t k, void* stream) {
+                          int64_t bs, int64_t k, const void* flag, void* stream) {
   if (n_out <= 0 || strip <= 0 || W <= 0 || bs <= 0 || k <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* lp = static_cast<const int32_t*>(lo);
-  const float* vp = static_cast<const float*>(win_vals);
   const float* xp = static_cast<const float*>(X);
   float* yp = static_cast<float*>(Y);
+  const int* fp = static_cast<const int*>(flag);
+  const WindowRows map{static_cast<const int32_t*>(lo), xp, xp, xp, bs, k, 0, INT64_MAX};
+  const float* vp = static_cast<const float*>(win_vals);
   if (k % 4 == 0 && aligned16(X) && aligned16(Y))
-    return launch_window<true>(lp, vp, xp, xp, xp, yp, n_out, strip, W, bs, k, 0,
-                               INT64_MAX, s);
-  return launch_window<false>(lp, vp, xp, xp, xp, yp, n_out, strip, W, bs, k, 0,
-                              INT64_MAX, s);
+    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, fp, s);
+  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, fp, s);
 }
 
 // K6.  lo: [ns] int32 window starts in blocks of the extended frame
@@ -554,28 +804,28 @@ int lobpcg_bsr_window_f32(const void* lo, const void* win_vals, const void* X,
 // W <= n_loc; X: [n_loc, k]; edge_top = [halo_up | X[:W]] and
 // edge_bot = [X[-W:] | halo_dn]: [hrows + W, k] each; Y: [n_out, k],
 // n_out <= ns*strip.  The 16-byte path needs all four row pointers
-// aligned.
+// aligned.  flag: the non-finite flag of the frame (X and the halos).
 int lobpcg_bsr_window_edges_f32(const void* lo, const void* win_vals, const void* X,
                                 const void* edge_top, const void* edge_bot, void* Y,
                                 int64_t n_out, int64_t strip, int64_t W, int64_t bs,
-                                int64_t k, int64_t hrows, int64_t n_loc, void* stream) {
+                                int64_t k, int64_t hrows, int64_t n_loc,
+                                const void* flag, void* stream) {
   if (n_out <= 0 || strip <= 0 || W <= 0 || bs <= 0 || k <= 0 || hrows < 0 ||
       W > n_loc)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int32_t* lp = static_cast<const int32_t*>(lo);
-  const float* vp = static_cast<const float*>(win_vals);
   const float* xp = static_cast<const float*>(X);
   const float* tp = static_cast<const float*>(edge_top);
   const float* bp = static_cast<const float*>(edge_bot);
   float* yp = static_cast<float*>(Y);
-  const int64_t body_hi = hrows + n_loc - W;
+  const int* fp = static_cast<const int*>(flag);
+  const WindowRows map{static_cast<const int32_t*>(lo), xp, tp, bp, bs, k, hrows,
+                       hrows + n_loc - W};
+  const float* vp = static_cast<const float*>(win_vals);
   if (k % 4 == 0 && aligned16(X) && aligned16(edge_top) && aligned16(edge_bot) &&
       aligned16(Y))
-    return launch_window<true>(lp, vp, xp, tp, bp, yp, n_out, strip, W, bs, k, hrows,
-                               body_hi, s);
-  return launch_window<false>(lp, vp, xp, tp, bp, yp, n_out, strip, W, bs, k, hrows,
-                              body_hi, s);
+    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, fp, s);
+  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, fp, s);
 }
 
 const char* lobpcg_cuda_error_string(int code) {

@@ -5,7 +5,8 @@ The host prepares the matrix with the repository's native library
 (``utils/native.py``: COO -> CSR -> BSR), pads it to block-ELL, and for
 windowable (banded, RCM-reordered) matrices also builds the strip-window
 format.  On the card an f32 block goes through the strip-window kernel
-(K5) when the window exists, else the block-ELL kernel (K3); a CPU
+(K5) when the window exists and pays at the block's width
+(``BSROperator.window_pays``), else the block-ELL kernel (K3); a CPU
 tensor, or a dtype the kernels do not take (f64, complex), runs the
 plain gather + einsum.
 """
@@ -51,6 +52,21 @@ def _numpy_dtype(dtype: torch.dtype):
     return torch.empty((), dtype=dtype).numpy().dtype
 
 
+# K5 against K3 for an f32 block of k columns.  K3 streams the block-ELL
+# values and gathers R*bs X rows per output row, at a cost that grows
+# with R*bs and with its column tile (16, 32, 64 or 128 wide, from k);
+# K5 streams W window values per output row and skips the X rows of
+# all-zero chunks.  So the window pays when R*bs > theta * W, theta by
+# K3's column tile: the ratio of the two kernels' times per unit of
+# width (t5 / W over t3 / (R*bs)), measured on the symmetric banded
+# matrix (R*bs 56, W 384) of chip_smoke.py's window sweep (NVIDIA H100
+# 80GB HBM3, 700.00 W; PERF.md, Findings): K3 wins there at every k from 16
+# to 128, and on the band-72 matrix (R*bs 152, W 512) the rule picks the
+# faster kernel at each of the seven widths measured (K3 up to k 32, K5
+# from 48, by 1-3% at 48 and 64 and by about 20% from 96).
+_WINDOW_THETA = ((16, 0.55), (32, 0.34), (64, 0.27), (None, 0.19))
+
+
 @dataclasses.dataclass
 class BSROperator(LinearOperator):
     """Block-ELL sparse operator with a strip-window fast path.
@@ -68,11 +84,20 @@ class BSROperator(LinearOperator):
     win_vals: Optional[torch.Tensor] = None
     n: int = 0
 
+    def window_pays(self, k: int) -> bool:
+        """Whether an f32 block of k columns goes to K5 rather than K3
+        (``_WINDOW_THETA``): the window exists and R*bs > theta(k) * W."""
+        if self.win_vals is None:
+            return False
+        _, R, bs, _ = self.blocks.shape
+        theta = next(t for k_max, t in _WINDOW_THETA if k_max is None or k <= k_max)
+        return R * bs > theta * self.win_vals.shape[2]
+
     def matmat(self, X):
         bs = self.blocks.shape[2]
         if X.dtype == torch.float32 and self.blocks.dtype == torch.float32:
             X = X.contiguous()
-            if self.win_vals is not None:
+            if self.window_pays(X.shape[1]):
                 return bsr_window_matmat(self.win_lo, self.win_vals, X, bs=bs)
             return bsr_matmat(self.block_cols, self.blocks, X)
         return bsr_matmat_reference(self.block_cols, self.blocks, X)

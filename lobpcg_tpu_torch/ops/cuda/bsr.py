@@ -22,7 +22,10 @@ k >= 1, int32 indices; full f32 FFMA, no TF32) and runs its plain
 version only for a CPU tensor; each counts its launches in
 ``.launches``.  Index arrays are not range-checked on the card (that
 would cost a host sync): they must address rows of X, as the formats
-built here do.
+built here do.  K4, K5 and K6 skip column chunks whose values are all
+zero unless X holds a NaN or Inf (``nonfinite_flag``: a device-side
+flag, set by one pass over X just before the kernel), so their
+non-finite pattern is the plain version's.
 
 The host formats (``ell_to_strip_ell``, ``ell_to_strip_window``,
 ``bsr_window_widths``) are the JAX package's numpy code, so the same
@@ -44,6 +47,12 @@ import torch
 from lobpcg_tpu_torch.ops.cuda.build import build_record, check, load_library
 
 STRIP = 128  # the JAX package's default strip (its MXU height)
+# K3's largest block size: three stages of one block row's [bs, bs] block
+# and [bs, 16] X slab must fit the 227 KB of shared memory a CTA can use.
+K3_MAX_BS = 128
+# K4's widest strip union (Rs * bs columns): its CTAs keep a table of the
+# union's X rows in shared memory (csrc/bsr.cu kStripUnionMax).
+K4_MAX_UNION = 32768
 
 
 _P, _I64 = ctypes.c_void_p, ctypes.c_int64
@@ -52,10 +61,13 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # returns an int cudaError_t).
 SIGNATURES = {
     "lobpcg_bsr_ell_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
-    "lobpcg_bsr_strip_f32": [_P, _I64, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
-    "lobpcg_bsr_window_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P],
+    "lobpcg_nonfinite_f32": [_P, _I64, _P, _I64, _P, _I64, _P, _P],
+    "lobpcg_bsr_strip_f32": [_P, _I64, _P, _P, _P, _I64, _I64, _I64, _I64, _P,
+                             _P],
+    "lobpcg_bsr_window_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
+                              _P],
     "lobpcg_bsr_window_edges_f32": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                                    _I64, _I64, _I64, _I64, _P],
+                                    _I64, _I64, _I64, _I64, _P, _P],
 }
 
 
@@ -401,19 +413,42 @@ def _empty_out(X, rows):
     return torch.empty((rows, X.shape[1]), dtype=X.dtype, device=X.device)
 
 
+def nonfinite_flag(*bufs: torch.Tensor) -> torch.Tensor:
+    """The non-finite flag that K4/K5/K6 take: a one-element int32 tensor
+    on the card, 1 if any of the (one to three, contiguous f32 CUDA)
+    buffers holds a NaN or Inf, else 0.  One pass over their bytes
+    (``csrc/bsr.cu:lobpcg_nonfinite_f32``) on the current stream; nothing
+    waits for it on the host."""
+    lib = _lib()
+    flag = torch.empty(1, dtype=torch.int32, device=bufs[0].device)
+    spans = [(b.data_ptr(), b.numel()) for b in bufs]
+    spans += [(bufs[0].data_ptr(), 0)] * (3 - len(spans))
+    with torch.cuda.device(flag.device):
+        code = lib.lobpcg_nonfinite_f32(
+            *(v for span in spans for v in span), flag.data_ptr(),
+            torch.cuda.current_stream().cuda_stream)
+    check(lib, code, "nonfinite_flag launch")
+    return flag
+
+
 def bsr_matmat(block_cols: torch.Tensor, blocks: torch.Tensor,
                X: torch.Tensor) -> torch.Tensor:
     """K3: Y = block-ELL(block_cols, blocks) @ X, [nb*bs, k].
 
     CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_ell_f32`` on the
     current stream without synchronising and counts it in
-    ``bsr_matmat.launches``.  CPU tensor: the plain version."""
+    ``bsr_matmat.launches``; it stages a block row's blocks and X slabs in
+    shared memory, so it takes block sizes up to ``K3_MAX_BS``.  CPU
+    tensor: the plain version."""
     _check_ell(block_cols, blocks, X)
     if X.device.type == "cpu":
         return bsr_matmat_reference(block_cols, blocks, X)
     _kernel_operands("bsr_matmat", blocks, X, block_cols)
     lib = _lib()
     nb, R, bs, _ = blocks.shape
+    if bs > K3_MAX_BS:
+        raise ValueError(f"bsr_matmat: the kernel takes block sizes up to "
+                         f"{K3_MAX_BS}, got {bs}")
     Y = _empty_out(X, X.shape[0])
     with torch.cuda.device(X.device):
         code = lib.lobpcg_bsr_ell_f32(
@@ -431,9 +466,11 @@ def bsr_strip_matmat(strip_cols: torch.Tensor, strip_vals: torch.Tensor,
                      out_rows: Optional[int] = None) -> torch.Tensor:
     """K4: strip-ELL SpMM, [out_rows (default X's rows), k].
 
-    CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_strip_f32`` and counts
-    it in ``bsr_strip_matmat.launches``.  CPU tensor: the plain
-    version."""
+    CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_strip_f32`` (K5's tile
+    kernel with the union's rows gathered through a table in shared
+    memory, so unions up to ``K4_MAX_UNION`` columns, skipping all-zero
+    chunks as K5 does) and counts it in ``bsr_strip_matmat.launches``.
+    CPU tensor: the plain version."""
     _check_strip(strip_cols, strip_vals, X, bs, out_rows)
     if X.device.type == "cpu":
         return bsr_strip_matmat_reference(strip_cols, strip_vals, X, bs=bs,
@@ -441,13 +478,17 @@ def bsr_strip_matmat(strip_cols: torch.Tensor, strip_vals: torch.Tensor,
     _kernel_operands("bsr_strip_matmat", strip_vals, X, strip_cols)
     lib = _lib()
     ns, Rs = strip_cols.shape
+    if Rs * bs > K4_MAX_UNION:
+        raise ValueError(f"bsr_strip_matmat: the kernel takes unions up to "
+                         f"{K4_MAX_UNION} columns, got {Rs * bs}")
     strip = strip_vals.shape[1]
     nr = _out_rows(X, out_rows)
     Y = _empty_out(X, nr)
+    flag = nonfinite_flag(X)
     with torch.cuda.device(X.device):
         code = lib.lobpcg_bsr_strip_f32(
             strip_cols.data_ptr(), Rs, strip_vals.data_ptr(), X.data_ptr(),
-            Y.data_ptr(), nr, strip, bs, X.shape[1],
+            Y.data_ptr(), nr, strip, bs, X.shape[1], flag.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     bsr_strip_matmat.launches += 1
@@ -462,11 +503,10 @@ def bsr_window_matmat(lo: torch.Tensor, win_vals: torch.Tensor,
 
     CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_window_f32`` and
     counts it in ``bsr_window_matmat.launches``.  CPU tensor: the plain
-    version.  The kernel skips window chunks whose values are all zero:
-    for finite X it gives the full sum (at most a zero's sign differs),
-    but a NaN or Inf of X
-    that only stored zeros multiply does not reach Y (the plain version
-    makes it NaN)."""
+    version.  The kernel skips window chunks whose values are all zero
+    when X is finite (the full sum; at most a zero's sign differs) and
+    none when X holds a NaN or Inf, so a non-finite value of X that only
+    stored zeros multiply reaches Y as in the plain version."""
     _check_window(lo, win_vals, X, bs, out_rows)
     if X.device.type == "cpu":
         return bsr_window_matmat_reference(lo, win_vals, X, bs=bs,
@@ -476,10 +516,11 @@ def bsr_window_matmat(lo: torch.Tensor, win_vals: torch.Tensor,
     _, strip, W = win_vals.shape
     nr = _out_rows(X, out_rows)
     Y = _empty_out(X, nr)
+    flag = nonfinite_flag(X)
     with torch.cuda.device(X.device):
         code = lib.lobpcg_bsr_window_f32(
             lo.data_ptr(), win_vals.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            nr, strip, W, bs, X.shape[1],
+            nr, strip, W, bs, X.shape[1], flag.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     bsr_window_matmat.launches += 1
@@ -501,8 +542,8 @@ def bsr_window_matmat_edges(lo: torch.Tensor, win_vals: torch.Tensor,
     CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_window_edges_f32`` and
     counts it in ``bsr_window_matmat_edges.launches``: K5's kernel on
     another base pointer, so equal to K5 on the concatenated frame bit for
-    bit (and skipping all-zero chunks as K5 does).  CPU tensor: the plain
-    version."""
+    bit (and skipping all-zero chunks when and as K5 does).  CPU tensor:
+    the plain version."""
     _check_edges(lo, win_vals, X, edge_top, edge_bot, hrows, out_rows)
     if X.device.type == "cpu":
         return bsr_window_matmat_edges_reference(
@@ -517,11 +558,12 @@ def bsr_window_matmat_edges(lo: torch.Tensor, win_vals: torch.Tensor,
     n_loc, k = X.shape
     nr = _out_rows(X, out_rows)
     Y = _empty_out(X, nr)
+    flag = nonfinite_flag(X, edge_top[:hrows], edge_bot[W:])  # the frame's rows
     with torch.cuda.device(X.device):
         code = lib.lobpcg_bsr_window_edges_f32(
             lo.data_ptr(), win_vals.data_ptr(), X.data_ptr(),
             edge_top.data_ptr(), edge_bot.data_ptr(), Y.data_ptr(),
-            nr, strip, W, bs, k, hrows, n_loc,
+            nr, strip, W, bs, k, hrows, n_loc, flag.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     bsr_window_matmat_edges.launches += 1

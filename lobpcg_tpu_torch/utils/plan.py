@@ -7,8 +7,9 @@ ilobpcg solves of the 4M x 64 f32 BdG well for each memory knob
 combination and reads ``torch.cuda.max_memory_allocated``.  The JAX
 package's anchors are TPU-compiled peaks, where XLA counted both
 branches of every ``lax.cond``; eager torch allocates only the branch
-that runs, so the dual-basis branch costs memory only in the iterations
-where it fires (never in the well solves the anchors measure).
+that runs.  The well never trips the quality-5 test, so the tool also
+forces the dual-basis branch on every iteration, and with dual_basis on
+each anchor is the larger of the two peaks.
 """
 
 from __future__ import annotations
@@ -20,25 +21,34 @@ import numpy as np
 import torch
 
 # Peak in units of one [n, size_sub] operator-dtype block, keyed by
-# (use_b_cache, use_ax_cache): tools/plan_anchors.py at n 4M, size_sub 64,
-# f32, 5 iterations (NVIDIA H100 80GB HBM3, 700.00 W).  dual_basis on and
-# off measured the same (its branch allocates only in the iterations where
-# it fires), and pack_applies does not enter: the port never packs two
-# applies into one (ops/gram.py), so it cannot change the allocations.
+# (dual_basis, use_b_cache, use_ax_cache): tools/plan_anchors.py at n 4M,
+# size_sub 64, f32, 5 iterations (NVIDIA H100 80GB HBM3, 700.00 W).  The
+# dual-basis branch (quality 5 forced) holds the accurate basis, the
+# stable one and the residual's A X at once: one block above the peak
+# with the b-cache off and the ax-cache on (13.056 against 12.057); in the
+# other three combinations the peak lies elsewhere and does not move.
+# pack_applies does not enter: the port never packs two applies into one
+# (ops/gram.py), so it cannot change the allocations.
 PEAK_BLOCKS_H100 = {
-    (True, True): 14.057,
-    (True, False): 13.057,
-    (False, True): 12.057,
-    (False, False): 11.057,
+    (True, True, True): 14.057,
+    (True, True, False): 13.057,
+    (True, False, True): 13.056,
+    (True, False, False): 11.057,
+    (False, True, True): 14.057,
+    (False, True, False): 13.057,
+    (False, False, True): 12.057,
+    (False, False, False): 11.057,
 }
 
 # Knob combinations from the fastest to the leanest, the JAX package's
-# order without its dual-basis and packing rungs (they save no memory
-# here); each entry overrides SolverConfig fields.
+# order without its packing rungs (they save no memory here) and without
+# its dual-off-only rung (dual off alone saves nothing at the full
+# configuration here); each entry overrides SolverConfig fields.
 _LADDER = (
     {},
     {"use_b_cache": False},
-    {"use_b_cache": False, "use_ax_cache": False},
+    {"use_b_cache": False, "dual_basis": False},
+    {"use_b_cache": False, "dual_basis": False, "use_ax_cache": False},
 )
 
 
@@ -57,7 +67,8 @@ def estimate_peak_gb(n: int, size_sub: int, dtype, config,
     measured corner, proportional elsewhere: keep a margin.
     """
     del pad_lanes
-    key = (bool(config.use_b_cache), bool(config.use_ax_cache))
+    key = (bool(config.dual_basis), bool(config.use_b_cache),
+           bool(config.use_ax_cache))
     block_gb = n * size_sub * _itemsize(dtype) / (1 << 30)
     return PEAK_BLOCKS_H100[key] * block_gb
 
@@ -80,8 +91,8 @@ def plan_config(
     margin: float = 0.95,
 ):
     """The first variant of ``config`` along the ladder (full -> b-cache
-    off -> both caches off) whose estimated peak
-    fits ``margin * hbm_gb``; ``hbm_gb`` None means the card's free
+    off -> b-cache and dual basis off -> all three off) whose estimated
+    peak fits ``margin * hbm_gb``; ``hbm_gb`` None means the card's free
     memory now (``probe_hbm_gb``).
 
     Knobs the caller already disabled stay disabled.  Raises
@@ -90,7 +101,7 @@ def plan_config(
     budget = margin * (probe_hbm_gb() if hbm_gb is None else hbm_gb)
     for rung in _LADDER:
         kw = dict(rung)
-        for field in ("use_b_cache", "use_ax_cache"):
+        for field in ("use_b_cache", "dual_basis", "use_ax_cache"):
             if not getattr(config, field):
                 kw[field] = False  # never re-enable a knob the caller turned off
         cand = dataclasses.replace(config, **kw)

@@ -126,14 +126,23 @@ def _banded(n, band, seed):
     return A
 
 
+# K3's tiles (csrc/bsr.cu ell_tile_kernel): 32/16/16/8 block rows at
+# BN 16/32/64/128 for bs 8 (fewer at bs 24, whose 24 rows are three
+# 8-row groups); (360, 8) leaves a ragged last tile, (99, 3) a block of 3
+# rows in an 8-row group.  k fills a column tile (16, 128), leaves ragged
+# ones (1, 5, 8, 48, 127) and exceeds 128 (130); offset 1 starts X off a
+# 16-byte boundary (the 4-byte path).
+K3_KS = [1, 5, 8, 16, 48, 127, 128, 130]
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,bs", [(96, 8), (99, 3), (192, 24)])
-@pytest.mark.parametrize("k", [1, 5, 8, 128])
-def test_bsr_ell_kernel_matches_plain_on_card(cuda_device, n, bs, k):
+@pytest.mark.parametrize("n,bs", [(96, 8), (99, 3), (192, 24), (360, 8)])
+@pytest.mark.parametrize("k", K3_KS)
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bsr_ell_kernel_matches_plain_on_card(cuda_device, n, bs, k, offset):
     A = _banded(n, 2 * bs, n)
     op = tl.BSROperator.from_dense(A, block_size=bs, device=cuda_device)
-    X = torch.from_numpy(np.random.default_rng(k).uniform(-1, 1, (n, k))
-                         ).to(cuda_device, torch.float32)
+    X = _offset_X(n, k, offset, k, cuda_device)
     before = kb.bsr_matmat.launches
     y = kb.bsr_matmat(op.block_cols, op.blocks, X)
     assert kb.bsr_matmat.launches == before + 1
@@ -145,14 +154,35 @@ def test_bsr_ell_kernel_matches_plain_on_card(cuda_device, n, bs, k):
     assert float((y - want).abs().max()) <= tol
 
 
+@pytest.mark.gpu
+def test_bsr_ell_and_strip_kernels_reject_what_they_do_not_take(cuda_device):
+    cols = torch.zeros((2, 1), dtype=torch.int32, device=cuda_device)
+    bs = kb.K3_MAX_BS + 1
+    blocks = torch.zeros((2, 1, bs, bs), device=cuda_device)
+    with pytest.raises(ValueError):
+        kb.bsr_matmat(cols, blocks, torch.zeros((2 * bs, 4), device=cuda_device))
+    with pytest.raises(TypeError):
+        kb.bsr_matmat(cols.long(), blocks[:, :, :8, :8],
+                      torch.zeros((16, 4), device=cuda_device))
+    Rs = kb.K4_MAX_UNION // 8 + 1  # K4's union past its row table
+    with pytest.raises(ValueError):
+        kb.bsr_strip_matmat(torch.zeros((1, Rs), dtype=torch.int32, device=cuda_device),
+                            torch.zeros((1, 8, Rs * 8), device=cuda_device),
+                            torch.zeros((16, 4), device=cuda_device), bs=8)
+
+
 # The window tile kernel's edges (csrc/bsr.cu: 32- or 64-row tiles, 16-
 # or 32-row window chunks, 16/32/64/128-column tiles from k): (256, 8, 8) and
 # (200, 8, 16) have all-zero chunks in every row tile; (384, 24, 30) a
 # strip of 264 rows (whole tiles and 8 rows); (99, 3, 6) a window of
 # 99 rows (ragged chunk) on a strip of 258; (128, 8, 127) a dense matrix,
-# no zero chunk.  k fills each column tile (16, 32, 64, 128), leaves
-# ragged ones (1, 3, 5, 24, 48) and exceeds 128 (130).
-WINDOW_KS = [1, 3, 5, 16, 24, 32, 48, 64, 128, 130]
+# no zero chunk; (384, 8, 24) two strips, the last of 128 rows.  k fills
+# each column tile (16, 32, 64, 128), leaves ragged ones (1, 3, 5, 24, 48,
+# 127) and exceeds 128 (130).  K4 runs the same tiles on the strip-ELL
+# union (W = Rs * bs).
+WINDOW_KS = [1, 3, 5, 16, 24, 32, 48, 64, 127, 128, 130]
+STRIP_CASES = [(256, 8, 8), (200, 8, 16), (384, 24, 30), (99, 3, 6),
+               (128, 8, 127), (384, 8, 24)]
 
 
 def _offset_X(n, k, offset, seed, device):
@@ -164,8 +194,7 @@ def _offset_X(n, k, offset, seed, device):
 
 
 @pytest.mark.gpu
-@pytest.mark.parametrize("n,bs,band", [(256, 8, 8), (200, 8, 16), (384, 24, 30),
-                                       (99, 3, 6), (128, 8, 127)])
+@pytest.mark.parametrize("n,bs,band", STRIP_CASES)
 @pytest.mark.parametrize("k", WINDOW_KS)
 @pytest.mark.parametrize("offset", [0, 1])
 def test_bsr_strip_and_window_kernels_match_plain_on_card(cuda_device, n, bs,
@@ -198,6 +227,86 @@ def test_bsr_strip_and_window_kernels_match_plain_on_card(cuda_device, n, bs,
         assert float((y - ell).abs().max()) <= tol
 
 
+def _poison(X):
+    """NaN and +-Inf in rows that stored zeros, padding blocks (row 0) and
+    padding union entries meet, and +Inf over -Inf in one column."""
+    n, k = X.shape
+    X[0, k // 2] = float("nan")
+    X[n // 2, 0] = float("inf")
+    X[n - 1, k - 1] = -float("inf")
+    X[n // 3, (k - 1) // 3] = float("inf")
+    X[n // 3 + 1, (k - 1) // 3] = -float("inf")
+    return X
+
+
+def _same_nonfinite(y, want, tol):
+    """The plain version's isnan / isinf pattern, the finite outputs
+    within tol."""
+    assert torch.equal(y.isnan(), want.isnan())
+    assert torch.equal(y.isinf(), want.isinf())
+    fin = want.isfinite()
+    assert float((y[fin] - want[fin]).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,bs,band", STRIP_CASES)
+@pytest.mark.parametrize("k", [5, 16, 128, 130])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_bsr_kernels_carry_nonfinite_like_plain_on_card(cuda_device, n, bs, band,
+                                                         k, offset):
+    """K3, K4 and K5 on an X with NaN and +-Inf that in most row tiles
+    only stored zeros (skipped chunks) meet: the non-finite pattern of
+    each equals its plain version's (tests/test_torch_sparse.py holds the
+    plain versions to the Pallas kernels' pattern)."""
+    A = _banded(n, band, band)
+    op = tl.BSROperator.from_dense(A, block_size=bs, device="cpu")
+    strip = bs * (-(-256 // bs))
+    cols, blocks = op.block_cols.numpy(), op.blocks.numpy()
+    dev = lambda a: torch.from_numpy(a).to(cuda_device)
+    fmts = [(kb.bsr_strip_matmat, kb.bsr_strip_matmat_reference,
+             *map(dev, kb.ell_to_strip_ell(cols, blocks, strip=strip))),
+            (kb.bsr_window_matmat, kb.bsr_window_matmat_reference,
+             *map(dev, kb.ell_to_strip_window(cols, blocks, strip=strip)))]
+    X = _offset_X(n, k, offset, k, cuda_device)
+    Xabs = X.abs()
+    _poison(X)
+    cols_d, blocks_d = dev(cols), dev(blocks)
+    y = kb.bsr_matmat(cols_d, blocks_d, X)
+    want = kb.bsr_matmat_reference(cols_d, blocks_d, X)
+    torch.cuda.synchronize()
+    _same_nonfinite(y, want, _bsr_tol(
+        lambda B, Z: kb.bsr_matmat_reference(cols_d, B, Z), blocks_d.abs(), Xabs,
+        blocks.shape[1] * bs))
+    for fn, ref, idx, vals in fmts:
+        y = fn(idx, vals, X, bs=bs)
+        want = ref(idx, vals, X, bs=bs)
+        torch.cuda.synchronize()
+        assert want.isnan().any()
+        _same_nonfinite(y, want, _bsr_tol(lambda V, Z: ref(idx, V, Z, bs=bs),
+                                          vals.abs(), Xabs, vals.shape[2]))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("value", [float("nan"), float("inf"), -float("inf"), 1.0])
+@pytest.mark.parametrize("offset", [0, 1])
+def test_nonfinite_flag_on_card(cuda_device, value, offset):
+    """The flag K4/K5/K6 read: 1 exactly when one of the buffers holds a
+    NaN or Inf, wherever it sits (the float4 body, the tail, an unaligned
+    buffer, the second or third span)."""
+    X = _offset_X(1027, 3, offset, 0, cuda_device)
+    halo = torch.zeros((5, 3), device=cuda_device)
+    assert int(kb.nonfinite_flag(X)) == 0
+    assert int(kb.nonfinite_flag(X, halo[:0], halo)) == 0
+    bad = value != 1.0
+    for where in (0, 1500, X.numel() - 1):
+        Z = X.clone().view(-1)
+        Z[where] = value
+        assert int(kb.nonfinite_flag(Z.view(X.shape))) == bad
+    H = halo.clone()
+    H[4, 2] = value
+    assert int(kb.nonfinite_flag(X, halo, H)) == bad
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("W,strip,k", [(4196, 96, 5), (8200, 70, 16), (4099, 64, 48)])
 def test_window_kernel_wide_and_scattered_windows_on_card(cuda_device, W, strip, k):
@@ -226,20 +335,24 @@ def test_window_kernel_wide_and_scattered_windows_on_card(cuda_device, W, strip,
 
 @pytest.mark.gpu
 def test_bsr_operator_dispatch_on_card(cuda_device):
-    """A banded matrix carries the window and goes to K5; the 3-D
-    Laplacian's CSR does not and goes to K3."""
-    A = _banded(512, 16, 1)
-    banded = tl.BSROperator.from_dense(A, block_size=8, device=cuda_device)
-    assert banded.win_vals is not None
+    """A dense matrix carries a window that pays (R*bs = W) and goes to
+    K5; a narrow band carries one that does not (R*bs 40 against W 384)
+    and goes to K3, as does the 3-D Laplacian's CSR, which has none."""
+    rng = np.random.RandomState(1)
+    for A, pays in ((rng.randn(128, 128), True), (_banded(512, 16, 1), False)):
+        op = tl.BSROperator.from_dense(A, block_size=8, device=cuda_device)
+        assert op.win_vals is not None and op.window_pays(4) == pays
+        X = torch.ones((A.shape[0], 4), device=cuda_device)
+        b5, b3 = kb.bsr_window_matmat.launches, kb.bsr_matmat.launches
+        y = op.matmat(X)
+        assert (kb.bsr_window_matmat.launches - b5, kb.bsr_matmat.launches - b3) \
+            == ((1, 0) if pays else (0, 1))
+        np.testing.assert_allclose(y.cpu().numpy(), A.sum(axis=1)[:, None]
+                                   * np.ones((1, 4)), rtol=1e-5, atol=1e-4)
     lap = tl.BSROperator.from_csr(*tl.laplacian_3d_csr(16, 16, 16),
                                   block_size=8, device=cuda_device)
     assert lap.win_vals is None
-    X = torch.ones((512, 4), device=cuda_device)
-    b5, b3 = kb.bsr_window_matmat.launches, kb.bsr_matmat.launches
-    y = banded.matmat(X)
-    assert (kb.bsr_window_matmat.launches, kb.bsr_matmat.launches) == (b5 + 1, b3)
-    np.testing.assert_allclose(y.cpu().numpy(), A.sum(axis=1)[:, None]
-                               * np.ones((1, 4)), rtol=1e-5, atol=1e-4)
+    b3 = kb.bsr_matmat.launches
     lap.matmat(torch.ones((4096, 4), device=cuda_device))
     assert kb.bsr_matmat.launches == b3 + 1
 
@@ -318,6 +431,44 @@ def test_k6_matches_k5_and_plain_on_card(cuda_device, case, k, offset):
             lo, V, torch.cat([up.abs(), Z, dn.abs()]), bs=bs, out_rows=n_loc),
             wv.abs(), xs, W)
         assert float((y6 - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["band4", "ragged264"])
+@pytest.mark.parametrize("k", [5, 16, 130])
+def test_k6_carries_nonfinite_like_plain_on_card(cuda_device, case, k):
+    """K6 on shards of an X with NaN and +-Inf (in the halos too): each
+    shard's non-finite pattern equals its plain version's, and K5's on
+    the concatenated frame."""
+    bs, hrows, n_loc, W, shards, n = _k6_shards(case)
+    X = _offset_X(n, k, 0, k, cuda_device)
+    Xabs = X.abs()
+    _poison(X)
+    X[n_loc - 1, k - 1] = float("nan")  # the last row of shard 0: a halo row
+    zeros = torch.zeros((hrows, k), device=cuda_device)
+    nd = len(shards)
+    for d, (lo, wv) in enumerate(shards):
+        if lo is None:
+            continue
+        rows = slice(d * n_loc - hrows if d else 0,
+                     (d + 1) * n_loc + hrows if d < nd - 1 else n)
+        frame_abs = torch.cat([zeros] * (d == 0) + [Xabs[rows]]
+                              + [zeros] * (d == nd - 1))
+        xs = X[d * n_loc : (d + 1) * n_loc]
+        up = X[d * n_loc - hrows : d * n_loc] if d else zeros
+        dn = X[(d + 1) * n_loc : (d + 1) * n_loc + hrows] if d < nd - 1 else zeros
+        top, bot = torch.cat([up, xs[:W]]), torch.cat([xs[-W:], dn])
+        lo, wv = torch.from_numpy(lo).to(cuda_device), torch.from_numpy(wv).to(cuda_device)
+        y6 = kb.bsr_window_matmat_edges(lo, wv, xs, top, bot, bs=bs, hrows=hrows)
+        y5 = kb.bsr_window_matmat(lo, wv, torch.cat([up, xs, dn]), bs=bs,
+                                  out_rows=n_loc)
+        want = kb.bsr_window_matmat_edges_reference(lo, wv, xs, top, bot, bs=bs,
+                                                    hrows=hrows)
+        torch.cuda.synchronize()
+        tol = _bsr_tol(lambda V, Z: kb.bsr_window_matmat_reference(
+            lo, V, Z, bs=bs, out_rows=n_loc), wv.abs(), frame_abs, W)
+        _same_nonfinite(y6, want, tol)
+        _same_nonfinite(y6, y5, 0.0)
 
 
 @pytest.mark.gpu

@@ -202,6 +202,53 @@ def test_plain_window_out_rows_cuts_the_result():
     assert torch.equal(cut, full[:120])
 
 
+# --- non-finite X: the oracle of the kernels' NaN/Inf pattern ---------------
+
+def _poisoned(n, k, seed):
+    """_X with a NaN and +-Inf in rows that padding blocks, padding union
+    entries and stored zeros meet (row 0 is column 0's block: every
+    padding block multiplies it), and +Inf over -Inf in one column."""
+    X = _X(n, k, seed)
+    X[0, 1] = np.nan
+    X[n // 2, 0] = np.inf
+    X[n - 1, k - 1] = -np.inf
+    X[n // 3, 2], X[n // 3 + 1, 2] = np.inf, -np.inf
+    return X
+
+
+@pytest.mark.parametrize("kernel", ["ell", "strip", "window"])
+def test_plain_nonfinite_pattern_matches_pallas_interpret(kernel):
+    """The Pallas kernels (interpret) and the port's plain versions give
+    the same isnan / isinf pattern for an X poisoned with NaN and +-Inf:
+    each forms every product of its format, 0 * NaN and 0 * Inf
+    included.  The card kernels K3-K6 are held to this pattern
+    (tests/test_torch_gpu.py)."""
+    n, bs, k = 384, 8, 12
+    cols, blocks = _ell(n, bs, seed=8, banded=16 if kernel == "window" else None)
+    X = _poisoned(n, k, 9)
+    if kernel == "ell":
+        want = jbsr.bsr_matmat_pallas(jnp.asarray(cols), jnp.asarray(blocks),
+                                      jnp.asarray(X), interpret=True)
+        y = kb.bsr_matmat(torch.from_numpy(cols), torch.from_numpy(blocks),
+                          torch.from_numpy(X))
+    else:
+        conv = kb.ell_to_strip_ell if kernel == "strip" else kb.ell_to_strip_window
+        pallas = (jbsr.bsr_strip_matmat_pallas if kernel == "strip"
+                  else jbsr.bsr_window_matmat_pallas)
+        fn = kb.bsr_strip_matmat if kernel == "strip" else kb.bsr_window_matmat
+        idx, vals = conv(cols, blocks)
+        want = pallas(jnp.asarray(idx), jnp.asarray(vals), jnp.asarray(X), bs=bs,
+                      interpret=True)
+        y = fn(torch.from_numpy(idx), torch.from_numpy(vals), torch.from_numpy(X),
+               bs=bs)
+    want, y = np.asarray(want), y.numpy()
+    assert np.isnan(want).any() and np.isinf(want).any() and np.isfinite(want).any()
+    np.testing.assert_array_equal(np.isnan(y), np.isnan(want))
+    np.testing.assert_array_equal(np.isinf(y), np.isinf(want))
+    fin = np.isfinite(want)
+    np.testing.assert_allclose(y[fin], want[fin], rtol=1e-5, atol=1e-4)
+
+
 # --- BSROperator -------------------------------------------------------------
 
 def _operators(A, bs, jdt, tdt):
@@ -273,8 +320,10 @@ def test_bsr_operator_block_sizes_match_dense(bs):
 
 
 def test_bsr_operator_f32_dispatch_on_cpu(monkeypatch):
-    """f32 goes to the window wrapper when the window exists, else to the
-    block-ELL wrapper (each runs its plain version on a CPU tensor);
+    """f32 goes to the window wrapper when the window pays at the block's
+    width (R*bs > theta(k) * W: a dense matrix, R*bs = W), else to the
+    block-ELL wrapper (a narrow band, R*bs 40 against W 256; the 3-D
+    Laplacian, no window); each runs its plain version on a CPU tensor.
     f64 goes straight to the plain gather + einsum."""
     seen = []
     for name in ("bsr_window_matmat", "bsr_matmat"):
@@ -284,15 +333,35 @@ def test_bsr_operator_f32_dispatch_on_cpu(monkeypatch):
                             (seen.append(_n), _r(*a, **kw))[1])
     rng = np.random.RandomState(2)
     A = _banded(256, 10, rng)
-    _, windowed = _operators(A, 8, jnp.float32, torch.float32)
+    _, banded = _operators(A, 8, jnp.float32, torch.float32)
+    _, dense = _operators(rng.randn(64, 64), 8, jnp.float32, torch.float32)
+    assert banded.win_vals is not None and dense.win_vals is not None
     lap = tl.BSROperator.from_csr(*tl.laplacian_3d_csr(16, 16, 16),
                                   block_size=8, device="cpu")
-    windowed.matmat(torch.ones((256, 3)))
+    dense.matmat(torch.ones((64, 3)))
+    banded.matmat(torch.ones((256, 3)))
     lap.matmat(torch.ones((4096, 3)))
     tl.BSROperator.from_dense(A, block_size=8, dtype=torch.float64,
                               device="cpu").matmat(torch.ones((256, 3),
                                                               dtype=torch.float64))
-    assert seen == ["bsr_window_matmat", "bsr_matmat"]
+    assert seen == ["bsr_window_matmat", "bsr_matmat", "bsr_matmat"]
+
+
+@pytest.mark.parametrize("rbs,W,k,pays", [
+    (56, 384, 16, False), (56, 384, 128, False),    # the SPD band of chip_smoke.py
+    (152, 512, 32, False), (152, 512, 48, True),    # band 72: K3 to k 32, K5 from 48
+    (152, 512, 128, True), (64, 64, 1, True)])
+def test_window_pays_follows_the_measured_crossing(rbs, W, k, pays):
+    """BSROperator.window_pays on the shapes chip_smoke.py's sweep
+    measured (R*bs, W) at widths on either side of the crossing."""
+    R, bs = rbs // 8, 8
+    op = tl.BSROperator(block_cols=torch.zeros((1, R), dtype=torch.int32),
+                        blocks=torch.zeros((1, R, bs, bs)),
+                        win_lo=torch.zeros(1, dtype=torch.int32),
+                        win_vals=torch.zeros((1, 8, W)), n=8)
+    assert op.window_pays(k) == pays
+    op.win_vals = None
+    assert not op.window_pays(k)
 
 
 def test_constructors_default_to_the_card(monkeypatch):

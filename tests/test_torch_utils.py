@@ -163,11 +163,16 @@ def _cfg(**kw):
 
 
 def test_peak_estimate_is_the_anchor_table():
+    """The H100 anchors (tools/plan_anchors.py): with the dual basis on,
+    the forced quality-5 branch lifts the b-cache-off, ax-cache-on peak
+    by one block; pack_applies never enters."""
+    assert plan.PEAK_BLOCKS_H100[(True, False, True)] == pytest.approx(
+        plan.PEAK_BLOCKS_H100[(False, False, True)] + 1.0, abs=0.01)
     block = 4_000_000 * 64 * 4 / 2**30
-    for (b_cache, ax_cache), blocks in plan.PEAK_BLOCKS_H100.items():
-        for dual in (True, False):
+    for (dual, b_cache, ax_cache), blocks in plan.PEAK_BLOCKS_H100.items():
+        for pack in (True, False):
             cfg = _cfg(use_b_cache=b_cache, use_ax_cache=ax_cache,
-                       dual_basis=dual, pack_applies=dual)
+                       dual_basis=dual, pack_applies=pack)
             for dt in (torch.float32, np.float32):
                 assert plan.estimate_peak_gb(4_000_000, 64, dt, cfg) == \
                     pytest.approx(blocks * block, rel=1e-12)
@@ -188,9 +193,12 @@ def test_plan_walks_the_ladder_in_order():
     assert full == _cfg()
     lean = plan.plan_config(_cfg(), 4_000_000, hbm_gb=peak() / 0.95 - 0.01)
     assert not lean.use_b_cache and lean.use_ax_cache and lean.dual_basis
+    leaner = plan.plan_config(
+        _cfg(), 4_000_000, hbm_gb=peak(use_b_cache=False) / 0.95 - 0.01)
+    assert not leaner.use_b_cache and not leaner.dual_basis and leaner.use_ax_cache
     leanest = plan.plan_config(
         _cfg(), 4_000_000,
-        hbm_gb=peak(use_b_cache=False) / 0.95 - 0.01)
+        hbm_gb=peak(use_b_cache=False, dual_basis=False) / 0.95 - 0.01)
     assert not leanest.use_b_cache and not leanest.use_ax_cache
     kept = plan.plan_config(_cfg(use_ax_cache=False), 1_000_000, hbm_gb=80.0)
     assert not kept.use_ax_cache and kept.use_b_cache  # never re-enabled
