@@ -10,7 +10,8 @@ non-zero; there is no CPU fallback):
                 bsr.cu, copy.cu) with nvcc, one process per source, all at
                 once.
 3. kernel K1  — the 1-D stencil against its plain version at the BdG
-                solve's shapes; error, ms and GB/s of both.
+                solve's shapes and the headline gates' widths (160 and
+                320 columns); error, ms and GB/s of both.
 4. kernel K7  — the streaming copy against its plain version (clone) at
                 [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
                 GB/s, bound, and Tensor.copy_ as the library time.
@@ -39,6 +40,10 @@ non-zero; there is no CPU fallback):
                 X0: through
                 LaplacianND (K2) and through BSROperator.from_csr (K3),
                 against laplacian_nd_eigs.
+    k3_frame  — that BSROperator sharded at world size 1 (no window plan):
+                one apply must launch K3 once, on its halo frame; timed
+                beside the gather + einsum it replaced and the unsharded
+                apply.
 13. band       — benchmarks/bsr_spmm.py's banded matrix (n 1,048,576,
                 bs 8, band 24, k 128) in its three formats: K3, K4, K5
                 against their plain versions, the time of K4's and K5's
@@ -70,6 +75,28 @@ non-zero; there is no CPU fallback):
                 beside the unsharded flagship's numbers; then one apply of
                 the sharded SPD band, which must launch K6 once and K5
                 never.
+16. graft_entry — lobpcg_tpu_torch.graft_entry: entry() (the m 64 BdG
+                step, through K1), dryrun_multichip(1) (one sharded
+                ilobpcg and lobpcg step and the sharded tridiagonal SpMM,
+                K3 on its halo frame), dryrun_headline() (the reference's
+                dim-4M BdG pencil, nev 150, size_sub 160, f32, 2
+                iterations) and dryrun_headline_complex() (that pencil in
+                complex64 at n_complex 2M, cut from 4M to fit one card,
+                split-real [4M, 320] f32 with float64 RR, 2 iterations),
+                one line each with iterations, max residual, wall time,
+                the peak beside estimate_peak_gb, K1's launches (> 0 on
+                both gates) and the resolved RR dtype.  K1 alone at the
+                gates' widths, [4M, 160] and [4M, 320], is timed in phase 3.
+17. examples  — each lobpcg_tpu_torch.examples module's main(device=
+                "cuda") against its script's oracle, with the kernels it
+                launched (the f64 examples run the plain stencil and the
+                plain block-ELL product: K1 and K3 take f32, as the Pallas
+                kernels do).
+18. wide_pencil — benchmarks.solve_bdg.solve at n 20,000, nev 150,
+                size_sub 256 (projected width 768), Jacobi, tol 1e-5, f32,
+                with rr_dtype float32 (the reference CPU run's setting)
+                and with the default (float64 at this width): each must
+                reach 150/150 within 1e-5 of the oracle.
 
 Every kernel wrapper counts its launches; each path runs with every
 count set to 0 just before it and read just after.  The second-to-last
@@ -79,6 +106,7 @@ power limit; the last line is the ok record.  Imports nothing of JAX.
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import subprocess
@@ -89,8 +117,17 @@ import scipy.sparse as sp
 import torch
 
 import lobpcg_tpu_torch as lt
-from lobpcg_tpu_torch import bench, parallel
+from lobpcg_tpu_torch import bench, graft_entry, parallel
 from lobpcg_tpu_torch.benchmarks import solve_bdg
+from lobpcg_tpu_torch.examples import (
+    bdg_indefinite,
+    checkpoint_resume,
+    complex_on_gpu,
+    fft_matrix_free,
+    laplacian_1d,
+    sharded_solve,
+    sparse_3d_laplacian,
+)
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import build as cuda_build
 from lobpcg_tpu_torch.ops.cuda import copy as k7
@@ -119,6 +156,9 @@ STRIP = 256  # BSROperator's strip for bs 8
 SWEEP_KS = (16, 24, 32, 48, 64, 96, 128)
 BAND_WIDE = 72
 K6_SHARDS = 4  # virtual row shards of the band for K6 (one card)
+# The wide pencil of ROADMAP queue 3 (benchmarks/trace_cpu_postfix.log:
+# 150/150 in 10 iterations on the reference's CPU run).
+N_WIDE, NEV_WIDE, SS_WIDE = 20_000, 150, 256
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32
 # operations/s outside the tensor cores.
@@ -237,8 +277,9 @@ def conv1d_stencil(X, scale, seg):
 
 
 def kernel_phase(dev) -> list[dict]:
-    """K1 against its plain version at the main path's shapes, and the
-    library yardstick at the BdG solve's [4M, 64] f32."""
+    """K1 against its plain version at the main path's shapes and at the
+    headline gates' widths, and the library yardstick at the BdG solve's
+    [4M, 64] f32 and the gates' [4M, 160] and [4M, 320]."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [
         # (n, k, dtype, segments, edge_rows?)
@@ -248,6 +289,10 @@ def kernel_phase(dev) -> list[dict]:
         (N_MAIN, 256, torch.float32, 2, True),
         (N_MAIN, 64, torch.bfloat16, 2, False),
         (N_MAIN, 78, torch.float32, 2, True),
+        # The headline gates' widths: the real gate's [4M, 160] over 2
+        # segments, the split-real gate's [4M, 320] over 4.
+        (N_MAIN, 160, torch.float32, 2, False),
+        (N_MAIN, 320, torch.float32, 4, False),
     ]
     scale = 1.0
     out = []
@@ -286,7 +331,7 @@ def kernel_phase(dev) -> list[dict]:
             # 2x, two subtractions, one scale: 4 operations per element.
             **bound(nbytes, 4 * n * k), "library_ms": None,
         }
-        if dt == torch.float32 and k == 64 and not with_edges:
+        if dt == torch.float32 and k in (64, 160, 320) and not with_edges:
             lib = conv1d_stencil(X, scale, seg)
             tf32 = torch.backends.cudnn.allow_tf32
             torch.backends.cudnn.allow_tf32 = False
@@ -701,6 +746,45 @@ def laplacian3d_phase(dev, name, A, X0, kernel) -> dict:
     return rec
 
 
+def k3_frame_phase(dev, op) -> dict:
+    """K3 on a shard's frame: the 160^3 block-ELL through
+    ShardedBSROperator at world size 1 (halo 3,200 block rows, zeros from
+    the missing neighbours; no window plan), once counted (K3 once, on
+    the frame), held against and timed beside its gather + einsum
+    (pallas "off", the path it replaced) and the unsharded K3 apply."""
+    mesh = parallel.row_mesh(1)
+    t0 = time.perf_counter()
+    sop = parallel.ShardedBSROperator.shard(op, mesh)
+    t_plan = time.perf_counter() - t0
+    plain = dataclasses.replace(sop, pallas="off")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    X = torch.rand((op.n, SS3), generator=gen, device=dev) - 0.5
+    zero_counts()
+    Y = sop.matmat(X)
+    counts = read_counts()
+    Yp = plain.matmat(X)
+    Yabs = kb.bsr_matmat_reference(op.block_cols, op.blocks.abs(), X.abs())
+    torch.cuda.synchronize()
+    R, bs = op.blocks.shape[1], op.blocks.shape[2]
+    tol = 2 * R * bs * torch.finfo(torch.float32).eps * float(Yabs.max())
+    err = max_abs(Y, Yp)
+    del Y, Yp, Yabs
+    rec = {"phase": "k3_frame", "grid": list(GRID3), "k": SS3,
+           "halo_blocks": sop.halo, "window": sop.win_vals is not None,
+           "plan_s": t_plan, "launches": counts, "max_abs_err": err, "tol": tol,
+           "sharded_k3_ms": timed_untracked(lambda: sop.matmat(X)),
+           "sharded_plain_ms": time_ms(lambda: plain.matmat(X)),
+           "unsharded_k3_ms": timed_untracked(lambda: op.matmat(X))}
+    emit(rec)
+    del sop, plain, X
+    torch.distributed.destroy_process_group()
+    if counts["bsr_ell"] != 1 or sum(counts.values()) != 1:
+        raise AssertionError(f"sharded 160^3 apply launched {counts}")
+    if not err <= tol:
+        raise AssertionError(f"K3 on the frame: {err} > {tol}")
+    return rec
+
+
 def banded_bsr(n: int, bs: int, band: int, seed: int = 0):
     """benchmarks/bsr_spmm.py's banded matrix in block-ELL form: block row
     i couples to block columns i-w..i+w, w = ceil(band/bs), random
@@ -1103,6 +1187,146 @@ def sharded_phase(dev, main_rec, op, X) -> dict:
     return rec
 
 
+# --- graft_entry, the examples and the wide pencil ------------------------------
+
+
+def gate_phase(name, run) -> dict:
+    """One function of lobpcg_tpu_torch.graft_entry, counted and timed: its
+    record with the wall time, the launches, and the peak over
+    estimate_peak_gb where it gives both."""
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    rec = run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, coll = read_counts(), read_collectives()
+    rec = {"phase": "graft_entry", "function": name, **rec, "wall_s": wall,
+           "launches": counts, "collectives": coll}
+    if rec.get("estimate_peak_gib") and rec.get("max_memory_allocated_gib"):
+        rec["peak_over_estimate"] = (rec["max_memory_allocated_gib"]
+                                     / rec["estimate_peak_gib"])
+    emit(rec)
+    if counts["stencil1d"] < 1:
+        raise AssertionError(f"{name}: K1 never launched: {counts}")
+    return rec
+
+
+def graft_entry_phase(dev) -> list[dict]:
+    """entry(), dryrun_multichip(1), dryrun_headline() and
+    dryrun_headline_complex() on the card (world size 1 on NCCL)."""
+    fn, (X0,) = graft_entry.entry(dev)
+
+    def run_entry():
+        lam, res = fn(X0)
+        r = fn.result
+        cfg = lt.SolverConfig(nev=3, size_sub=5, tol=1e-3, max_iter=25)
+        return {"eigenvalues": lam.double().cpu().tolist(),
+                "max_residual": float(res.max()), "iterations": r.iterations,
+                "converged": r.converged,
+                "rr_dtype": str(cfg.resolved_rr_dtype(torch.float32)
+                                or torch.float32).replace("torch.", ""),
+                "estimate_peak_gib": lt.estimate_peak_gb(128, 5, torch.float32, cfg),
+                "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30}
+
+    recs = [gate_phase("entry", run_entry)]
+    exact = (np.arange(1, 4) * np.pi) ** 2
+    lam = np.asarray(recs[0]["eigenvalues"])
+    if not (np.all(np.isfinite(lam)) and np.abs(lam - exact).max() / exact.min() < 0.03):
+        raise AssertionError(f"entry(): eigenvalues off: {lam}")
+    recs.append(gate_phase("dryrun_multichip",
+                           lambda: graft_entry.dryrun_multichip(1)))
+    if recs[-1]["launches"]["bsr_ell"] < 1:
+        raise AssertionError("dryrun_multichip: the sharded SpMM did not "
+                             f"launch K3: {recs[-1]['launches']}")
+    recs.append(gate_phase("dryrun_headline", graft_entry.dryrun_headline))
+    recs.append(gate_phase("dryrun_headline_complex",
+                           graft_entry.dryrun_headline_complex))
+    torch.distributed.destroy_process_group()
+    free()
+    return recs
+
+
+def _rel(lam, exact) -> float:
+    lam, exact = np.asarray(lam, np.float64), np.asarray(exact, np.float64)
+    return float(np.max(np.abs(lam - exact) / np.abs(exact)))
+
+
+def _discrete_laplacian(n, nev):
+    h = 1.0 / (n + 1)
+    return 4.0 / h**2 * np.sin(np.arange(1, nev + 1) * np.pi * h / 2) ** 2
+
+
+# Each example: its module, and its script's oracle as (check, tolerance).
+EXAMPLES = {
+    "laplacian_1d": (laplacian_1d, lambda o: (
+        o["converged"] == 3, _rel(o["eigenvalues"], o["analytic"]), 0.03)),
+    "bdg_indefinite": (bdg_indefinite, lambda o: (
+        o["converged"] == 3 and o["signatures"] == [1, 1, 1],
+        _rel(o["eigenvalues"], _discrete_laplacian(400, 3)), 1e-5)),
+    "checkpoint_resume": (checkpoint_resume, lambda o: (
+        o["converged"] == 3 and o["snapshot_iterations"] == 10,
+        _rel(o["eigenvalues"], _discrete_laplacian(400, 3)), 1e-8)),
+    "sparse_3d_laplacian": (sparse_3d_laplacian, lambda o: (
+        o["converged"] == 5, _rel(o["eigenvalues"], o["exact"]), 1e-8)),
+    "complex_on_gpu": (complex_on_gpu, lambda o: (
+        o["converged"] == 6 and o["eigenvector_dtype"] == "complex64",
+        _rel(o["eigenvalues"], o["analytic"]), 0.03)),
+    "fft_matrix_free": (fft_matrix_free, lambda o: (
+        o["converged"] == 8 and o["rr_dtype"] == "complex128",
+        _rel(o["eigenvalues"], o["exact"]), 1e-5)),
+    "sharded_solve": (sharded_solve, lambda o: (
+        o["converged"] == 3, _rel(o["eigenvalues"], o["dense_oracle"]), 1e-9)),
+}
+
+
+def examples_phase(dev) -> None:
+    """Each example's main on the card against its script's oracle, with
+    the kernels it launched."""
+    for name, (module, oracle) in EXAMPLES.items():
+        free()
+        zero_counts()
+        t0 = time.perf_counter()
+        out = module.main(device=dev)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        counts = read_counts()
+        ok, err, tol = oracle(out)
+        emit({"phase": "examples", "example": name, **out, "wall_s": wall,
+              "max_rel_err_vs_oracle": err, "tol": tol,
+              "launched": {k: v for k, v in counts.items() if v}})
+        if torch.distributed.is_initialized():  # sharded_solve's group
+            torch.distributed.destroy_process_group()
+        if not (ok and err <= tol):
+            raise AssertionError(f"example {name}: {out}, error {err} > {tol}")
+
+
+def wide_pencil_phase(dev) -> list[dict]:
+    """The wide pencil (projected width 768) under rr_dtype float32 and the
+    default (float64 at this width): 150/150 within 1e-5 each."""
+    recs = []
+    for rr in ("float32", None):
+        free()
+        zero_counts()
+        rec = solve_bdg.solve(N_WIDE, NEV_WIDE, SS_WIDE, tol=TOL,
+                              dtype="float32", precond=True, check=True,
+                              warmup=False, reps=1, rr_dtype=rr, device=dev)
+        counts = read_counts()
+        rec = {"phase": "wide_pencil", "rr_dtype_arg": rr, **rec,
+               "launches": counts}
+        emit(rec)
+        if rec["converged"] != NEV_WIDE or not rec["max_rel_err"] <= ORACLE_RTOL:
+            raise AssertionError(f"wide pencil (rr_dtype {rr}): "
+                                 f"{rec['converged']}/{NEV_WIDE}, max rel err "
+                                 f"{rec['max_rel_err']}")
+        if counts["stencil1d"] < rec["iterations"]:
+            raise AssertionError(f"wide pencil: K1 launched {counts['stencil1d']} "
+                                 f"times in {rec['iterations']} iterations")
+        recs.append(rec)
+    return recs
+
+
 def kernel_entry(name, launches, recs, at) -> dict:
     """One kernel's record in the kernels line: its launches on its path,
     the largest error over its checks, and the numbers at `at`, the
@@ -1158,13 +1382,20 @@ def main() -> None:
                                X0, "stencil3d")
     free()
     bsr_rec = laplacian3d_phase(dev, "BSROperator", op3, X0, "bsr_ell")
-    del op3, X0
+    del X0
+    free()
+    k3_frame_phase(dev, op3)
+    del op3
     free()
     band, op_spd, S_spd, X_band = band_phase(dev)
     window_sweep_phase(dev, op_spd, S_spd)
     k6_recs = k6_phase(dev, op_spd, S_spd, X_band)
     sharded_rec = sharded_phase(dev, main_rec, op_spd, X_band)
     del op_spd, S_spd, X_band
+    free()
+    graft_entry_phase(dev)
+    examples_phase(dev)
+    wide_pencil_phase(dev)
     free()
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

@@ -268,11 +268,11 @@ def bsr_matmat_reference(
     """Block-ELL SpMM as gather + einsum (``lobpcg_tpu/ops/pallas/bsr.py:
     bsr_matmat_reference``)."""
     nb, R, bs, _ = blocks.shape
-    n, k = X.shape
+    k = X.shape[1]
     dt = _result_dtype(blocks, X)
-    Xg = X.to(dt).reshape(nb, bs, k)[block_cols.long()]  # [nb, R, bs, k]
+    Xg = X.to(dt).reshape(-1, bs, k)[block_cols.long()]  # [nb, R, bs, k]
     Y = torch.einsum("nrij,nrjk->nik", blocks.to(dt), Xg)
-    return Y.reshape(n, k).to(X.dtype)
+    return Y.reshape(nb * bs, k).to(X.dtype)
 
 
 def _strip_product(rows, vals, X, out_rows):
@@ -332,7 +332,7 @@ def _check_common(what, vals, X, idx):
         raise ValueError(f"{what}: operands on different devices")
 
 
-def _check_ell(block_cols, blocks, X):
+def _check_ell(block_cols, blocks, X, frame=False):
     _check_common("bsr_matmat", blocks, X, block_cols)
     if blocks.dim() != 4 or blocks.shape[2] != blocks.shape[3]:
         raise ValueError(f"bsr_matmat: blocks must be [nb, R, bs, bs], got "
@@ -341,7 +341,11 @@ def _check_ell(block_cols, blocks, X):
     if tuple(block_cols.shape) != (nb, R):
         raise ValueError(f"bsr_matmat: block_cols must be [{nb}, {R}], got "
                          f"{tuple(block_cols.shape)}")
-    if X.shape[0] != nb * bs:
+    if frame:
+        if X.shape[0] < bs or X.shape[0] % bs:
+            raise ValueError(f"bsr_matmat: a frame X has whole block rows, "
+                             f"got {X.shape[0]} rows at bs={bs}")
+    elif X.shape[0] != nb * bs:
         raise ValueError(f"bsr_matmat: X has {X.shape[0]} rows, expected "
                          f"{nb * bs}")
 
@@ -432,15 +436,19 @@ def nonfinite_flag(*bufs: torch.Tensor) -> torch.Tensor:
 
 
 def bsr_matmat(block_cols: torch.Tensor, blocks: torch.Tensor,
-               X: torch.Tensor) -> torch.Tensor:
+               X: torch.Tensor, *, frame: bool = False) -> torch.Tensor:
     """K3: Y = block-ELL(block_cols, blocks) @ X, [nb*bs, k].
 
-    CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_ell_f32`` on the
+    X has nb*bs rows, or with ``frame`` any whole number of block rows
+    that ``block_cols`` index into (a shard's halo-extended frame,
+    ``parallel/spmd_bsr.py``): the kernel reads X only through the
+    column indices.  CUDA tensor: launches
+    ``csrc/bsr.cu:lobpcg_bsr_ell_f32`` on the
     current stream without synchronising and counts it in
     ``bsr_matmat.launches``; it stages a block row's blocks and X slabs in
     shared memory, so it takes block sizes up to ``K3_MAX_BS``.  CPU
     tensor: the plain version."""
-    _check_ell(block_cols, blocks, X)
+    _check_ell(block_cols, blocks, X, frame)
     if X.device.type == "cpu":
         return bsr_matmat_reference(block_cols, blocks, X)
     _kernel_operands("bsr_matmat", blocks, X, block_cols)
@@ -449,7 +457,7 @@ def bsr_matmat(block_cols: torch.Tensor, blocks: torch.Tensor,
     if bs > K3_MAX_BS:
         raise ValueError(f"bsr_matmat: the kernel takes block sizes up to "
                          f"{K3_MAX_BS}, got {bs}")
-    Y = _empty_out(X, X.shape[0])
+    Y = _empty_out(X, nb * bs)
     with torch.cuda.device(X.device):
         code = lib.lobpcg_bsr_ell_f32(
             block_cols.data_ptr(), blocks.data_ptr(), X.data_ptr(),

@@ -15,7 +15,10 @@ rank's rows and keeps the global ``shape``:
 | Sum/Scaled/Shifted/Composed, ChebyshevFilter | the same node over sharded children |
 | DenseOperator | ``RowPanelOperator``: row panel times all-gathered X |
 | BlockAntiDiagOperator | ``ShardedBlockAntiDiagOperator``: a swap with rank (r + nd/2) % nd |
-| BSROperator | ``ShardedBSROperator`` (edge-band halo + K6/K5) |
+| BlockDiagOperator of BlockAntiDiagOperator (realified B) | ``ShardedBlockAntiDiagOperator`` with ``copies``: one half swap inside each copy |
+| RealEmbeddedDiagonalOperator | ``LocalRows`` of [dr; dr] plus ``ShardedBlockAntiDiagOperator`` of [-di; di] |
+| RealEmbeddedDenseOperator | ``RowPanelOperator``: this rank's rows of [[Ar, -Ai], [Ai, Ar]] |
+| BSROperator | ``ShardedBSROperator`` (edge-band halo + K6/K5, else K3 on the frame) |
 
 Any other class raises ``NotImplementedError``: no operator computes a
 wrong product in silence.
@@ -41,6 +44,10 @@ from lobpcg_tpu_torch.operators.linop import (
     ScaledOperator,
     ShiftedOperator,
     SumOperator,
+)
+from lobpcg_tpu_torch.operators.realify import (
+    RealEmbeddedDenseOperator,
+    RealEmbeddedDiagonalOperator,
 )
 from lobpcg_tpu_torch.operators.sparse import BSROperator
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
@@ -124,32 +131,66 @@ class RowPanelOperator(LinearOperator):
         return self.A.dtype
 
 
+def _ranks_per_copy(nd: int, copies: int, what: str) -> int:
+    """p, the ranks one of ``copies`` half-swapped copies spans over nd
+    ranks (1 when a rank holds whole copies); raises unless p is 1 or
+    even."""
+    if nd % copies == 0:
+        p = nd // copies
+    elif copies % nd == 0:
+        p = 1
+    else:
+        raise NotImplementedError(
+            f"{what}: {copies} copies over {nd} ranks; one of the two must "
+            "divide the other")
+    if p > 1 and p % 2:
+        raise NotImplementedError(
+            f"{what} over {nd} ranks: the half swap pairs rank r with the "
+            f"rank {p}/2 away inside its copy, so the ranks a copy spans "
+            f"({p}) must be even in number")
+    return p
+
+
 @dataclasses.dataclass
 class ShardedBlockAntiDiagOperator(LinearOperator):
-    """B = {{0, D}, {D, 0}} over a row mesh: the half swap sends rank r's
-    rows to rank (r + nd/2) % nd and back (one batch of a send and a
-    receive), then scales by this rank's rows of [d; d].  World size 1
-    swaps locally; an odd number of ranks above 1 raises."""
+    """diag(B, ..., B), ``copies`` copies of B = {{0, D}, {D, 0}}, over a
+    row mesh (one copy is BlockAntiDiagOperator, two are its split-real
+    form).  Each copy's half swap, then a scale by this rank's rows ``d``
+    of the row scales ([d; d] per copy).  A copy spans p = nd / copies
+    ranks: at p = 1 every rank holds whole copies and swaps them
+    locally; at an even p rank r swaps with the rank p/2 away inside its
+    copy (one batch of a send and a receive); anything else raises."""
 
     d: torch.Tensor
     n: int = 0
     mesh: RowMesh = None
+    copies: int = 1
 
     @classmethod
-    def shard(cls, op: BlockAntiDiagOperator, mesh: RowMesh):
-        m, nd = op.d.shape[0], mesh.size
-        if nd > 1 and nd % 2:
-            raise NotImplementedError(
-                f"BlockAntiDiagOperator over {nd} ranks: the half swap pairs "
-                "rank r with r + nd/2, so the ranks must be even in number")
-        return cls(d=_rows_of(torch.cat([op.d, op.d]), mesh), n=2 * m,
-                   mesh=mesh)
+    def shard(cls, op: BlockAntiDiagOperator, mesh: RowMesh, copies: int = 1):
+        c = int(copies)
+        return cls.place(torch.cat([op.d, op.d]).repeat(c), mesh, c,
+                         type(op).__name__)
+
+    @classmethod
+    def place(cls, scale: torch.Tensor, mesh: RowMesh, copies: int = 1,
+              what: str = "BlockAntiDiagOperator"):
+        """From the global row scales ``scale`` [n] (applied after the
+        swap)."""
+        _ranks_per_copy(mesh.size, int(copies), what)
+        return cls(d=_rows_of(scale, mesh), n=scale.shape[0], mesh=mesh,
+                   copies=int(copies))
 
     def matmat(self, X):
-        if self.mesh.size == 1:
-            m = self.n // 2
-            return self.d[:, None] * torch.cat([X[m:], X[:m]], dim=0)
-        partner = (self.mesh.rank + self.mesh.size // 2) % self.mesh.size
+        nd, c = self.mesh.size, self.copies
+        p = _ranks_per_copy(nd, c, "BlockAntiDiagOperator")
+        if p == 1:
+            m = self.n // (2 * c)
+            k = X.shape[1]
+            Xs = X.reshape(-1, 2, m, k).flip(1).reshape(X.shape)
+            return self.d[:, None] * Xs
+        r = self.mesh.rank
+        partner = r - r % p + (r % p + p // 2) % p
         return self.d[:, None] * swap(self.mesh, X, partner)
 
     @property
@@ -163,6 +204,26 @@ class ShardedBlockAntiDiagOperator(LinearOperator):
 
 _SHARDED = (SpmdLaplacian1D, SpmdLaplacianND, ShardedBSROperator, LocalRows,
             RowPanelOperator, ShardedBlockAntiDiagOperator)
+
+
+def _embedded_rows(Ar: torch.Tensor, Ai: torch.Tensor,
+                   mesh: RowMesh) -> torch.Tensor:
+    """This rank's rows of [[Ar, -Ai], [Ai, Ar]], built from the rows of
+    Ar and Ai it needs (the [2n, 2n] embedding is never formed)."""
+    nr = Ar.shape[0]
+    if (2 * nr) % mesh.size:
+        raise ValueError(f"{2 * nr} operator rows do not divide over "
+                         f"{mesh.size} ranks")
+    n_loc = 2 * nr // mesh.size
+    r0, r1 = mesh.rank * n_loc, (mesh.rank + 1) * n_loc
+    parts = []
+    if r0 < nr:
+        top = slice(r0, min(r1, nr))
+        parts.append(torch.cat([Ar[top], -Ai[top]], dim=1))
+    if r1 > nr:
+        bot = slice(max(r0, nr) - nr, r1 - nr)
+        parts.append(torch.cat([Ai[bot], Ar[bot]], dim=1))
+    return torch.cat(parts).to(mesh.device)
 
 
 def shard_operator(op, mesh: RowMesh):
@@ -180,9 +241,25 @@ def shard_operator(op, mesh: RowMesh):
         return ShardedBlockAntiDiagOperator.shard(op, mesh)
     if isinstance(op, DenseOperator):
         return RowPanelOperator(_rows_of(op.A, mesh), mesh=mesh)
+    if isinstance(op, RealEmbeddedDenseOperator):
+        return RowPanelOperator(_embedded_rows(op.Ar, op.Ai, mesh), mesh=mesh)
+    if isinstance(op, RealEmbeddedDiagonalOperator):
+        # [[dr, -di], [di, dr]] = diag([dr; dr]) + diag([-di; di]) times
+        # the half swap of the stacked [re; im] rows.
+        dr, di = op.dr, op.di
+        return SumOperator(
+            LocalRows(DiagonalOperator(_rows_of(torch.cat([dr, dr]), mesh)),
+                      n=2 * dr.shape[0], mesh=mesh),
+            ShardedBlockAntiDiagOperator.place(
+                torch.cat([-di, di]), mesh, 1, type(op).__name__))
     if isinstance(op, BSROperator):
         return ShardedBSROperator.shard(op, mesh)
     if isinstance(op, BlockDiagOperator):
+        if isinstance(op.inner, BlockAntiDiagOperator):
+            # Caught here, before unroll_block_diag: the copies' half swaps
+            # have no unsharded single operator to unroll into.
+            return ShardedBlockAntiDiagOperator.shard(op.inner, mesh,
+                                                      copies=op.copies)
         return shard_operator(unroll_block_diag(op), mesh)
     if type(op) in (SumOperator, ScaledOperator, ShiftedOperator,
                     ComposedOperator, ChebyshevFilter):

@@ -19,10 +19,12 @@ On the card, an f32 apply with a window plan runs K6
 halo is non-empty and the window fits the local rows, else K5
 (``bsr_window_matmat``) on the concatenated frame (on the H100 the edge
 buffers and K6 take less time than building the frame and running K5:
-PERF.md); without a window plan
-(or for f64) the plain gather + einsum runs on the remapped columns, as
-in the JAX package.  The JAX package's TPU gates (k % 128, the VMEM
-budget) do not apply: the kernels take any k.
+PERF.md).  Without a window plan an f32 apply runs K3
+(``bsr_matmat(..., frame=True)``) on the block columns remapped into the
+extended frame, where the JAX package runs its plain gather + einsum;
+f64 (or ``pallas="off"``) runs that gather + einsum.  The JAX package's
+TPU gates (k % 128, the VMEM budget) do not apply: the kernels take any
+k.
 """
 
 from __future__ import annotations
@@ -36,6 +38,7 @@ import torch
 
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops.cuda.bsr import (
+    bsr_matmat,
     bsr_window_matmat,
     bsr_window_matmat_edges,
     bsr_window_widths,
@@ -134,8 +137,8 @@ class ShardedBSROperator(LinearOperator):
     (``win_lo`` [ns] i32, ``win_vals`` [ns, strip, W]; None when the
     matrix is not windowed).  ``pallas`` (the JAX package's name): "auto"
     and "interpret" run the window kernels (K6/K5 on the card, their
-    plain versions on the CPU) when a plan exists; "off" always runs the
-    gather + einsum.
+    plain versions on the CPU) when a plan exists, else K3 on the
+    extended frame; "off" always runs the gather + einsum.
     """
 
     block_cols: torch.Tensor
@@ -197,12 +200,17 @@ class ShardedBSROperator(LinearOperator):
             x_ext = torch.cat([halo_up, X, halo_dn], dim=0) if H > 0 else X
             return bsr_window_matmat(self.win_lo, self.win_vals, x_ext, bs=bs,
                                      out_rows=n_loc)
-        # Gather + einsum on the global block columns remapped into the
-        # extended local frame; padding blocks are zero, so a clamped
-        # index is harmless.
+        # The global block columns remapped into the extended local frame;
+        # padding blocks are zero, so a clamped index is harmless.
         x_ext = torch.cat([halo_up, X, halo_dn], dim=0) if H > 0 else X
         first = self.mesh.rank * nb_loc - H
-        loc = torch.clamp(self.block_cols.long() - first, 0, nb_loc + 2 * H - 1)
+        loc = torch.clamp(self.block_cols - first, 0, nb_loc + 2 * H - 1)
+        if (self.pallas != "off" and self.dtype == torch.float32
+                and X.dtype == torch.float32):
+            # K3 on the frame (its plain version for a CPU tensor).
+            return bsr_matmat(loc.to(torch.int32), self.blocks,
+                              x_ext.contiguous(), frame=True)
+        loc = loc.long()
         dt = torch.promote_types(self.blocks.dtype, X.dtype)
         xg = x_ext.to(dt).reshape(nb_loc + 2 * H, bs, k)[loc]
         Y = torch.einsum("nrij,nrjk->nik", self.blocks.to(dt), xg)

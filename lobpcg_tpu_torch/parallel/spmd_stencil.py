@@ -35,6 +35,7 @@ from lobpcg_tpu_torch.operators.linop import (
     ShiftedOperator,
     SumOperator,
 )
+from lobpcg_tpu_torch.operators.realify import RealEmbeddedDiagonalOperator
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
 from lobpcg_tpu_torch.ops.cuda.stencil import (
     KERNEL_DTYPES,
@@ -168,7 +169,9 @@ def unroll_block_diag(op: BlockDiagOperator) -> LinearOperator:
     ``benchmarks/solve_bdg.py:well_problem`` builds it: each Laplacian1D
     of K becomes one with ``copies`` times its segments, each diagonal is
     tiled.  K may be built of Laplacian1D, DiagonalOperator,
-    JacobiPreconditioner and Sum/Scaled/Shifted of them."""
+    JacobiPreconditioner, BlockDiagOperator, a RealEmbeddedDiagonalOperator
+    of real values and Sum/Scaled/Shifted of them (what
+    ``realify_operator`` makes of a real-valued K)."""
     c = int(op.copies)
 
     def unroll(o):
@@ -184,6 +187,12 @@ def unroll_block_diag(op: BlockDiagOperator) -> LinearOperator:
             return ScaledOperator(unroll(o.op), o.alpha)
         if isinstance(o, ShiftedOperator):
             return ShiftedOperator(unroll(o.op), o.sigma)
+        if isinstance(o, BlockDiagOperator):  # c copies of diag(J x c2)
+            return unroll_block_diag(
+                BlockDiagOperator(inner=o.inner, copies=c * int(o.copies)))
+        if isinstance(o, RealEmbeddedDiagonalOperator) and not bool(
+                torch.any(o.di != 0)):  # real data: diag([dr; dr])
+            return DiagonalOperator(torch.cat([o.dr, o.dr]).repeat(c))
         raise NotImplementedError(
             f"no sharded form of BlockDiagOperator over {type(o).__name__}")
 

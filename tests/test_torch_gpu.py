@@ -773,3 +773,89 @@ def test_native_complex_solve_matches_realify_on_card(cuda_device, dtype, tol,
     np.testing.assert_allclose(native.eigenvalues.double().cpu().numpy(),
                                exact, rtol=rtol)
     np.testing.assert_allclose(lam, exact, rtol=rtol)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k,segments", [(160, 2), (320, 4)])
+def test_kernel_at_the_headline_widths(cuda_device, k, segments):
+    """K1 at the widths of the two headline gates (the real gate's 160
+    columns over 2 segments, the split-real gate's 320 over 4), with and
+    without edge rows, against its plain version; tolerance as
+    test_kernel_matches_plain_on_card."""
+    rng = np.random.default_rng(k)
+    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (8192, k))).to(cuda_device,
+                                                               torch.float32)
+    E = torch.from_numpy(rng.uniform(-0.5, 0.5, (2, k))).to(cuda_device,
+                                                            torch.float32)
+    tol = 2 * torch.finfo(torch.float32).eps * SCALE * float(X.abs().max())
+    for edges in (None, E):
+        before = k1.stencil_matmat.launches
+        y = k1.stencil_matmat(X, SCALE, edges, num_segments=segments)
+        assert k1.stencil_matmat.launches == before + 1
+        want = k1.stencil_matmat_reference(X, SCALE, edges, num_segments=segments)
+        torch.cuda.synchronize()
+        assert float((y - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_k3_on_a_frame_matches_plain_on_card(cuda_device):
+    """K3 with ``frame=True``: X larger than the block rows (a shard's
+    halo-extended frame) read only through the column indices, against
+    the plain version on the same frame."""
+    rng = np.random.default_rng(3)
+    nb, R, bs, k, nb_ext = 40, 3, 8, 48, 44
+    cols = torch.from_numpy(np.sort(rng.integers(0, nb_ext, (nb, R)), axis=1)
+                            .astype(np.int32)).to(cuda_device)
+    blocks = torch.from_numpy(rng.uniform(-1, 1, (nb, R, bs, bs))).to(
+        cuda_device, torch.float32)
+    X = torch.from_numpy(rng.uniform(-1, 1, (nb_ext * bs, k))).to(
+        cuda_device, torch.float32)
+    before = kb.bsr_matmat.launches
+    y = kb.bsr_matmat(cols, blocks, X, frame=True)
+    assert kb.bsr_matmat.launches == before + 1
+    assert y.shape == (nb * bs, k)
+    want = kb.bsr_matmat_reference(cols, blocks, X)
+    torch.cuda.synchronize()
+    tol = _bsr_tol(lambda B, Z: kb.bsr_matmat_reference(cols, B, Z),
+                   blocks.abs(), X, R * bs)
+    assert float((y - want).abs().max()) <= tol
+    with pytest.raises(ValueError):
+        kb.bsr_matmat(cols, blocks, X)  # not a frame: rows must be nb * bs
+
+
+@pytest.mark.gpu
+def test_sharded_realified_b_and_k3_frame_at_world_size_one(cuda_device):
+    """row_mesh(1) on NCCL: realified B (two copies, swapped locally) and
+    the embedded complex diagonal against their unsharded products, and
+    a sharded BSR apply without a window plan launching K3 on its frame
+    (the dry run's tridiagonal)."""
+    import torch.distributed as dist
+
+    from lobpcg_tpu_torch import graft_entry, parallel
+
+    mesh = parallel.row_mesh(1)
+    try:
+        m = 1024
+        rng = np.random.default_rng(5)
+        d = torch.from_numpy(rng.uniform(1, 2, m)).to(cuda_device, torch.complex64)
+        dc = torch.from_numpy(rng.uniform(1, 2, 2 * m) + 1j * rng.uniform(-1, 1, 2 * m)
+                              ).to(cuda_device, torch.complex64)
+        X = torch.from_numpy(rng.uniform(-1, 1, (4 * m, 8))).to(cuda_device,
+                                                               torch.float32)
+        for op in (tl.realify_operator(tl.BlockAntiDiagOperator(d)),
+                   tl.realify_operator(tl.DiagonalOperator(dc))):
+            sop = parallel.shard_operator(op, mesh)
+            assert torch.equal(sop.matmat(X), op.matmat(X))
+        rec = graft_entry.dryrun_multichip(1)
+        assert not rec["bsr_window"] and rec["bsr_max_abs_err"] <= 1e-4
+        tri = tl.BSROperator.from_dense(
+            np.diag(2.0 * np.ones(16)) - np.diag(np.ones(15), 1)
+            - np.diag(np.ones(15), -1), block_size=8, device=cuda_device)
+        sop = parallel.ShardedBSROperator.shard(tri, mesh)
+        before = kb.bsr_matmat.launches
+        y = sop.matmat(X[:16])
+        assert kb.bsr_matmat.launches == before + 1
+        torch.cuda.synchronize()
+        assert float((y - tri.matmat(X[:16])).abs().max()) <= 1e-5
+    finally:
+        dist.destroy_process_group()

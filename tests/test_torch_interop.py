@@ -50,6 +50,15 @@ def test_import_pulls_in_no_jax():
         "import lobpcg_tpu_torch.parallel.sharding\n"
         "import lobpcg_tpu_torch.parallel.spmd_stencil\n"
         "import lobpcg_tpu_torch.parallel.spmd_bsr\n"
+        "import lobpcg_tpu_torch.graft_entry\n"
+        "import lobpcg_tpu_torch.examples\n"
+        "import lobpcg_tpu_torch.examples.laplacian_1d\n"
+        "import lobpcg_tpu_torch.examples.bdg_indefinite\n"
+        "import lobpcg_tpu_torch.examples.checkpoint_resume\n"
+        "import lobpcg_tpu_torch.examples.sparse_3d_laplacian\n"
+        "import lobpcg_tpu_torch.examples.complex_on_gpu\n"
+        "import lobpcg_tpu_torch.examples.fft_matrix_free\n"
+        "import lobpcg_tpu_torch.examples.sharded_solve\n"
         "import chip_smoke\n"
         "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')"
         " or m.startswith('jaxlib') or m == 'lobpcg_tpu'"
