@@ -75,6 +75,16 @@ non-zero; there is no CPU fallback):
                 beside the unsharded flagship's numbers; then one apply of
                 the sharded SPD band, which must launch K6 once and K5
                 never.
+    blockdiag2 — the flagship well pencil with A written as
+                physics.bdg.BlockDiag2Operator(top=L + diag V, bottom=L +
+                diag V) through shard_problem on row_mesh(1): it must
+                unroll into the well's own A (one two-segment stencil
+                plus [V; V]) and take the sharded phase's trajectory (56/56
+                within 1e-5, the same iterations, error and K1 launches);
+                then one apply of a sharded CallableOperator and two of
+                the SPD band gathered at world size 1 (the whole matrix,
+                and its block rows through K3 on the gathered block),
+                equal to their unsharded products.
 16. graft_entry — lobpcg_tpu_torch.graft_entry: entry() (the m 64 BdG
                 step, through K1), dryrun_multichip(1) (one sharded
                 ilobpcg and lobpcg step and the sharded tridiagonal SpMM,
@@ -85,8 +95,10 @@ non-zero; there is no CPU fallback):
                 split-real [4M, 320] f32 with float64 RR, 2 iterations),
                 one line each with iterations, max residual, wall time,
                 the peak beside estimate_peak_gb, K1's launches (> 0 on
-                both gates) and the resolved RR dtype.  K1 alone at the
-                gates' widths, [4M, 160] and [4M, 320], is timed in phase 3.
+                both gates) and the resolved RR dtype; peak over estimate
+                within 0.5-1.5 on the two toy solves and within 1% under
+                1.0 on the gates.  K1 alone at the gates' widths, [4M, 160]
+                and [4M, 320], is timed in phase 3.
 17. examples  — each lobpcg_tpu_torch.examples module's main(device=
                 "cuda") against its script's oracle, with the kernels it
                 launched (the f64 examples run the plain stencil and the
@@ -97,6 +109,13 @@ non-zero; there is no CPU fallback):
                 with rr_dtype float32 (the reference CPU run's setting)
                 and with the default (float64 at this width): each must
                 reach 150/150 within 1e-5 of the oracle.
+19. batched   — lobpcg_tpu_torch.batched over 8 barrier heights of the well
+                (benchmarks.solve_bdg.well_problem(..., barrier=)) at n
+                1,000,000, nev 16, size_sub 30, Chebyshev degree 3, tol
+                1e-5, f32, one X0: 16/16 within 1e-5 of each barrier's
+                oracle, K1 launched, and two of the eight equal to their
+                lone solves (eigenvalues bit for bit, iterations equal);
+                per-problem iterations and wall, the batch's wall and peak.
 
 Every kernel wrapper counts its launches; each path runs with every
 count set to 0 just before it and read just after.  The second-to-last
@@ -134,6 +153,11 @@ from lobpcg_tpu_torch.ops.cuda import copy as k7
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 from lobpcg_tpu_torch.parallel import mesh as pmesh
+from lobpcg_tpu_torch.parallel.sharding import (
+    BSRRowPanelOperator,
+    GatheredOperator,
+)
+from lobpcg_tpu_torch.physics.bdg import BlockDiag2Operator
 from lobpcg_tpu_torch.utils import native
 
 N_MAIN = 4_000_000
@@ -159,6 +183,11 @@ K6_SHARDS = 4  # virtual row shards of the band for K6 (one card)
 # The wide pencil of ROADMAP queue 3 (benchmarks/trace_cpu_postfix.log:
 # 150/150 in 10 iterations on the reference's CPU run).
 N_WIDE, NEV_WIDE, SS_WIDE = 20_000, 150, 256
+# The batched sweep: barrier heights (CHEB_LO 2.0 stays at or under the
+# continuum's bottom, SHIFT + barrier) of the well at 1M x 16.
+BATCH_BARRIERS = (1.0, 1.25, 1.5, 1.75, 2.0, 2.5, 3.0, 4.0)
+N_BATCH, NEV_BATCH, SS_BATCH = 1_000_000, 16, 30
+BATCH_LONE = (0, 7)  # the problems also solved alone
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32
 # operations/s outside the tensor cores.
@@ -185,7 +214,8 @@ KERNELS = {
 
 # The collectives of the row-sharded layer, counted as the kernels are.
 COLLECTIVES = {"all_reduce": pmesh.all_reduce,
-               "halo_exchange": pmesh.halo_exchange, "swap": pmesh.swap,
+               "halo_exchange": pmesh.halo_exchange,
+               "permute_rows": pmesh.permute_rows,
                "all_gather_rows": pmesh.all_gather_rows}
 
 
@@ -1187,6 +1217,92 @@ def sharded_phase(dev, main_rec, op, X) -> dict:
     return rec
 
 
+def blockdiag2_phase(dev, sharded_rec, op, X) -> dict:
+    """The flagship well with A = BlockDiag2Operator(L + diag V, L + diag
+    V) through shard_problem on row_mesh(1): the unrolled operator is the
+    well's own A, so the solve must repeat the sharded phase's trajectory.
+    Then one apply of a sharded CallableOperator and two of the SPD band
+    gathered (a GatheredOperator, and a BSRRowPanelOperator: K3 on the
+    gathered block), against their unsharded products."""
+    mesh = parallel.row_mesh(1)
+    A, B, T, X0, m, _ = solve_bdg.well_problem(
+        N_MAIN, NEV, SIZE_SUB, dtype=torch.float32, cheb=CHEB_DEGREE,
+        precond=True, device=dev, cheb_chunk=0)
+    half = lt.Laplacian1D(scale=1.0, n=m, dtype=torch.float32) \
+        + lt.DiagonalOperator(A.right.d[:m])
+    A2 = BlockDiag2Operator(top=half, bottom=half)
+    T2 = dataclasses.replace(T, op=A2)
+    As, X0s, Bs, Ts = parallel.shard_problem(mesh, A2, X0, B, T2)
+    if not (isinstance(As.left, parallel.SpmdLaplacian1D)
+            and (As.left.n, As.left.segments) == (N_MAIN, 2)
+            and torch.equal(As.right.op.d, A.right.d)):
+        raise AssertionError(f"BlockDiag2Operator did not unroll into the "
+                             f"well's A: {type(As).__name__}")
+    cfg = lt.SolverConfig(nev=NEV, size_sub=SIZE_SUB, tol=TOL, max_iter=MAX_ITER,
+                          gram_precision="highest", use_ax_cache=True,
+                          use_b_cache=True, dual_basis=True)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with mesh:
+        r = lt.ilobpcg(As, X0s, Bs, Ts, config=cfg, generator=gen)
+    lam = r.eigenvalues.double().cpu().numpy()
+    wall = time.perf_counter() - t0
+    counts, coll = read_counts(), read_collectives()
+    exact = solve_bdg.well_eigs_oracle(solve_bdg.WELL, NEV, solve_bdg.BARRIER)
+    rel = np.abs(lam - exact) / np.abs(exact)
+    rec = {"phase": "blockdiag2", "world_size": mesh.size, "n": N_MAIN,
+           "nev": NEV, "size_sub": SIZE_SUB, "a_form": "SumOperator("
+           "SpmdLaplacian1D(segments 2), LocalRows)",
+           "converged": r.converged, "iterations": r.iterations, "wall_s": wall,
+           "max_rel_err": float(rel.max()), "launches": counts,
+           "collectives": coll,
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "sharded": {key: sharded_rec[key] for key in (
+               "iterations", "max_rel_err", "wall_s")}
+           | {"stencil1d": sharded_rec["launches"]["stencil1d"]}}
+    emit(rec)
+    del As, X0s, Bs, Ts, A, B, T, X0, A2, T2, half, r
+    free()
+    if rec["converged"] != NEV or not rel.max() <= ORACLE_RTOL:
+        raise AssertionError(f"blockdiag2: {rec['converged']}/{NEV}, "
+                             f"max rel err {rel.max()}")
+    if (rec["iterations"], rec["max_rel_err"], counts["stencil1d"]) != (
+            sharded_rec["iterations"], sharded_rec["max_rel_err"],
+            sharded_rec["launches"]["stencil1d"]):
+        raise AssertionError(f"blockdiag2 left the sharded phase's "
+                             f"trajectory: {rec}")
+
+    d = torch.linspace(1.0, 2.0, X.shape[0], device=dev)
+    call = lt.CallableOperator(args=(d,), fn=lambda Y, s: s[:, None] * Y.flip(0),
+                               n=X.shape[0])
+    gathered = parallel.shard_operator(call, mesh)
+    band = GatheredOperator.place(op, mesh)
+    panel = BSRRowPanelOperator.shard(op, mesh)
+    zero_counts()
+    Yc, Yb, Yp = gathered.matmat(X), band.matmat(X), panel.matmat(X)
+    counts, coll = read_counts(), read_collectives()
+    # At world size 1 the panel holds every block row, so K3 on the whole
+    # matrix is its unsharded product, bit for bit.
+    ok = (torch.equal(Yc, call.matmat(X)) and torch.equal(Yb, op.matmat(X))
+          and torch.equal(Yp, kb.bsr_matmat(op.block_cols, op.blocks, X)))
+    grec = {"phase": "gathered", "world_size": mesh.size,
+            "forms": [type(gathered).__name__, type(band).__name__,
+                      type(panel).__name__],
+            "launches": counts, "collectives": coll, "equal_unsharded": ok}
+    emit(grec)
+    del Yc, Yb, Yp, gathered, band, panel, call, d
+    torch.distributed.destroy_process_group()
+    free()
+    if not ok or coll["all_gather_rows"] != 3 or counts["bsr_ell"] < 1 or \
+            counts["bsr_ell"] + counts["bsr_window"] != 2:
+        raise AssertionError(f"gathered applies: {grec}")
+    rec["gathered"] = grec
+    return rec
+
+
 # --- graft_entry, the examples and the wide pencil ------------------------------
 
 
@@ -1204,12 +1320,17 @@ def gate_phase(name, run) -> dict:
     counts, coll = read_counts(), read_collectives()
     rec = {"phase": "graft_entry", "function": name, **rec, "wall_s": wall,
            "launches": counts, "collectives": coll}
+    ratio = None
     if rec.get("estimate_peak_gib") and rec.get("max_memory_allocated_gib"):
-        rec["peak_over_estimate"] = (rec["max_memory_allocated_gib"]
-                                     / rec["estimate_peak_gib"])
+        ratio = rec["max_memory_allocated_gib"] / rec["estimate_peak_gib"]
+        rec["peak_over_estimate"] = ratio
     emit(rec)
     if counts["stencil1d"] < 1:
         raise AssertionError(f"{name}: K1 never launched: {counts}")
+    lo, hi = (0.99, 1.0) if name.startswith("dryrun_headline") else (0.5, 1.5)
+    if ratio is not None and not lo <= ratio <= hi:
+        raise AssertionError(f"{name}: peak over estimate_peak_gb {ratio} "
+                             f"outside [{lo}, {hi}]")
     return rec
 
 
@@ -1327,6 +1448,74 @@ def wide_pencil_phase(dev) -> list[dict]:
     return recs
 
 
+def batched_phase(dev) -> dict:
+    """lt.batched over BATCH_BARRIERS of the well at 1M x 16 (one X0):
+    each problem against its barrier's oracle, two against their lone
+    solves; K1 launched; per-problem iterations and wall, the batch's wall
+    and peak."""
+    cfg = lt.SolverConfig(nev=NEV_BATCH, size_sub=SS_BATCH, tol=TOL,
+                          max_iter=MAX_ITER, gram_precision="highest")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    walls = []
+
+    def solve(barrier):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        A, B, T, X0, _, _ = solve_bdg.well_problem(
+            N_BATCH, NEV_BATCH, SS_BATCH, dtype=torch.float32,
+            cheb=CHEB_DEGREE, precond=True, device=dev, barrier=float(barrier))
+        r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        return r.eigenvalues, r.converged, r.iterations
+
+    barriers = torch.tensor(BATCH_BARRIERS, dtype=torch.float64)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    lam, conv, it = lt.batched(solve, generators=[gen])(barriers)
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    batch_walls = list(walls)
+
+    t0 = time.perf_counter()
+    exact = [solve_bdg.well_eigs_oracle(solve_bdg.WELL, NEV_BATCH, b)
+             for b in BATCH_BARRIERS]
+    emit({"phase": "host", "what": "the 8 barriers' dense well oracles",
+          "seconds": time.perf_counter() - t0})
+    lam64 = lam.double().cpu().numpy()
+    rel = [float(np.max(np.abs(lam64[i] - e) / np.abs(e)))
+           for i, e in enumerate(exact)]
+    lone = {}
+    for i in BATCH_LONE:
+        gen.manual_seed(0)
+        lam_i, _, it_i = solve(barriers[i])
+        lone[i] = {"equal_eigenvalues": bool(torch.equal(lam_i, lam[i])),
+                   "iterations": it_i, "wall_s": walls[-1]}
+    rec = {"phase": "batched", "n": N_BATCH, "nev": NEV_BATCH,
+           "size_sub": SS_BATCH, "cheb_degree": CHEB_DEGREE, "tol": TOL,
+           "barriers": list(BATCH_BARRIERS), "converged": conv.tolist(),
+           "iterations": it.tolist(), "wall_s_per_problem": batch_walls,
+           "max_rel_err": rel, "wall_s": wall, "launches": counts,
+           "max_memory_allocated_gib": peak,
+           "lone": {str(i): v for i, v in lone.items()}}
+    emit(rec)
+    if conv.tolist() != [NEV_BATCH] * len(BATCH_BARRIERS) or \
+            not max(rel) <= ORACLE_RTOL:
+        raise AssertionError(f"batched: converged {conv.tolist()}, max rel "
+                             f"err {rel}")
+    if counts["stencil1d"] < 2 * sum(it.tolist()):
+        raise AssertionError(f"batched: K1 launched {counts['stencil1d']} "
+                             f"times in {sum(it.tolist())} iterations")
+    for i, v in lone.items():
+        if not (v["equal_eigenvalues"] and v["iterations"] == int(it[i])):
+            raise AssertionError(f"batched problem {i} is not its lone "
+                                 f"solve: {v}, {int(it[i])} iterations")
+    return rec
+
+
 def kernel_entry(name, launches, recs, at) -> dict:
     """One kernel's record in the kernels line: its launches on its path,
     the largest error over its checks, and the numbers at `at`, the
@@ -1391,11 +1580,14 @@ def main() -> None:
     window_sweep_phase(dev, op_spd, S_spd)
     k6_recs = k6_phase(dev, op_spd, S_spd, X_band)
     sharded_rec = sharded_phase(dev, main_rec, op_spd, X_band)
+    blockdiag2_phase(dev, sharded_rec, op_spd, X_band)
     del op_spd, S_spd, X_band
     free()
     graft_entry_phase(dev)
     examples_phase(dev)
     wide_pencil_phase(dev)
+    free()
+    batched_phase(dev)
     free()
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

@@ -31,6 +31,7 @@ from lobpcg_tpu_torch.operators.realify import (
 )
 from lobpcg_tpu_torch.operators.sparse import BSROperator, laplacian_3d_csr
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND, laplacian_nd_eigs
+from lobpcg_tpu_torch.solvers.batched import batched
 from lobpcg_tpu_torch.solvers.ilobpcg import ilobpcg
 from lobpcg_tpu_torch.solvers.lobpcg import lobpcg
 from lobpcg_tpu_torch.solvers.state import (
@@ -74,6 +75,8 @@ __all__ = [
     "lobpcg",
     "ilobpcg",
     "klobpcg",
+    # The counterpart of jax.vmap over the solvers (tests/test_vmap.py).
+    "batched",
     "LOBPCGResult",
     "ILOBPCGResult",
     "SolveHistory",

@@ -45,7 +45,14 @@ WELL = 1024  # well width in sites
 BARRIER = 1.0  # barrier height (lattice units)
 SHIFT = 1.0  # target eigenvalues 1 + (k pi / w)^2, all O(1)
 CHEB_LO = 2.0  # the continuum's lower edge
-CHEB_HI = 4.0 + BARRIER + SHIFT + 0.1  # >= ||A|| for the lattice operator
+
+
+def cheb_hi(barrier: float) -> float:
+    """The Chebyshev filter's upper end: >= ||A|| for the lattice operator."""
+    return 4.0 + barrier + SHIFT + 0.1
+
+
+CHEB_HI = cheb_hi(BARRIER)
 
 
 def well_eigs_oracle(w: int, nev: int, barrier: float, margin: int = 2048):
@@ -67,9 +74,9 @@ def cheb_chunk_rule(n: int, size_sub: int) -> int:
     return max(8, size_sub // 4) if n >= 2_000_000 else 0
 
 
-def _well_potential(m: int):
+def _well_potential(m: int, barrier: float = BARRIER):
     lo = (m - WELL) // 2
-    V = np.full(m, BARRIER + SHIFT, np.float64)
+    V = np.full(m, barrier + SHIFT, np.float64)
     V[lo : lo + WELL] = SHIFT
     return V, lo
 
@@ -84,18 +91,21 @@ def _well_start(m: int, size_sub: int, lo: int) -> np.ndarray:
 
 
 def well_problem(n: int, nev: int, size_sub: int, *, dtype, cheb: int,
-                 precond: bool, device, cheb_chunk=None):
-    """(A, B, T, X0, m, lo) of the well pencil at dimension n.
+                 precond: bool, device, cheb_chunk=None,
+                 barrier: float = BARRIER):
+    """(A, B, T, X0, m, lo) of the well pencil at dimension n with the
+    given ``barrier`` height.
 
     ``size_sub`` 0 means nev + 14.  T: a ChebyshevFilter of degree
-    ``cheb`` on [CHEB_LO, CHEB_HI] with column chunk ``cheb_chunk``
-    (None: ``cheb_chunk_rule``), else the Jacobi inverse of diag(A) when
-    ``precond``, else None.  m = n // 2 and lo is the well's first site.
+    ``cheb`` on [CHEB_LO, cheb_hi(barrier)] with column chunk
+    ``cheb_chunk`` (None: ``cheb_chunk_rule``), else the Jacobi inverse
+    of diag(A) when ``precond``, else None.  m = n // 2 and lo is the
+    well's first site.
     """
     dtype = as_torch_dtype(dtype)
     m = n // 2
     ss = size_sub or nev + 14
-    V, lo = _well_potential(m)
+    V, lo = _well_potential(m, barrier)
     Vd = torch.as_tensor(V, dtype=dtype, device=device)
     # A = diag(K, K) as ONE segmented stencil + diagonal.
     A = Laplacian1D(scale=1.0, n=n, segments=2, dtype=dtype) \
@@ -104,8 +114,8 @@ def well_problem(n: int, nev: int, size_sub: int, *, dtype, cheb: int,
     T = None
     if cheb:
         chunk = cheb_chunk_rule(n, ss) if cheb_chunk is None else cheb_chunk
-        T = ChebyshevFilter(op=A, lo=CHEB_LO, hi=CHEB_HI, degree=cheb,
-                            chunk=chunk)
+        T = ChebyshevFilter(op=A, lo=CHEB_LO, hi=cheb_hi(barrier),
+                            degree=cheb, chunk=chunk)
     elif precond:
         T = JacobiPreconditioner(torch.cat([2.0 + Vd, 2.0 + Vd]))
     X0 = torch.as_tensor(_well_start(m, ss, lo), device=device).to(dtype)

@@ -206,6 +206,30 @@ class BlockDiagOperator(LinearOperator):
 
 
 @dataclasses.dataclass
+class BlockDiag2Operator(LinearOperator):
+    """diag(top, bottom) with distinct blocks (the BdG pencil's A =
+    diag(M, K), ``physics/bdg.py``)."""
+
+    top: LinearOperator
+    bottom: LinearOperator
+
+    def matmat(self, X):
+        m = self.top.shape[0]
+        return torch.cat(
+            [self.top.matmat(X[:m]), self.bottom.matmat(X[m:])], dim=0
+        )
+
+    @property
+    def shape(self):
+        n = self.top.shape[0] + self.bottom.shape[0]
+        return (n, n)
+
+    @property
+    def dtype(self):
+        return self.top.dtype
+
+
+@dataclasses.dataclass
 class BlockAntiDiagOperator(LinearOperator):
     """B = {{0, D}, {D, 0}} with D = diag(d): swaps halves and scales."""
 

@@ -9,8 +9,8 @@ every rank running the same host loop on its own row block.  Every
 reduction over rows is one ``all_reduce`` of the group (``ops/rows.py``);
 the k x k work is replicated, and since every rank gets bit-identical
 reduced values, every rank takes the same host decisions.  Operators
-that mix rows exchange them explicitly (``halo_exchange``, ``swap``,
-``all_gather_rows``).
+that mix rows exchange them explicitly (``halo_exchange``,
+``permute_rows``, ``all_gather_rows``).
 
 ``row_mesh`` returns a ``RowMesh`` over the current process group (it
 starts a world-size-1 group itself when there is none); ``spawn`` runs a
@@ -116,12 +116,78 @@ def halo_exchange(mesh: RowMesh, X: torch.Tensor, h: int):
     return halo_up, halo_dn
 
 
-def swap(mesh: RowMesh, X: torch.Tensor, peer: int) -> torch.Tensor:
-    """The block ``peer`` holds, for this rank's ``X`` (same shape)."""
-    out = torch.empty_like(X)
-    _p2p(mesh, [(X, peer)], [(out, peer)])
-    swap.launches += 1
-    return out
+@dataclasses.dataclass(frozen=True)
+class RowPlan:
+    """One rank's part of a global row permutation Y[i] = X[src(i)]:
+    ``sends`` (peer, local row ranges it needs, in its order), ``recvs``
+    (peer, rows it sends) and ``parts`` (source, lo, hi) in this rank's
+    output order, the source -1 for the local rows, else a peer's
+    buffer."""
+
+    sends: tuple
+    recvs: tuple
+    parts: tuple
+
+
+def row_plan(n: int, nd: int, rank: int, pieces) -> RowPlan:
+    """The exchange of a piecewise shift over ``nd`` ranks of n / nd rows
+    each, for rank ``rank``, worked out on the host.  ``pieces``: the
+    (out_lo, out_hi, src_lo) global row ranges that cover [0, n), where
+    Y[out_lo + t] = X[src_lo + t]."""
+    n_loc = n // nd
+
+    def runs(r):
+        """(source rank, src_lo, src_hi) of rank r's output rows, in order."""
+        o0, o1 = r * n_loc, (r + 1) * n_loc
+        out = []
+        for lo, hi, src in sorted(pieces):
+            a, b = max(lo, o0), min(hi, o1)
+            s, e = src + a - lo, src + b - lo
+            while s < e:
+                q = s // n_loc
+                out.append((q, s, min(e, (q + 1) * n_loc)))
+                s = out[-1][2]
+        return out
+
+    base = rank * n_loc
+    recvs, parts = {}, []
+    for q, s, e in runs(rank):
+        if q == rank:
+            parts.append((-1, s - base, e - base))
+        else:
+            off = recvs.get(q, 0)
+            parts.append((q, off, off + e - s))
+            recvs[q] = off + e - s
+    sends = {}
+    for r in range(nd):
+        for q, s, e in runs(r) if r != rank else ():
+            if q == rank:
+                sends.setdefault(r, []).append((s - base, e - base))
+    return RowPlan(sends=tuple((r, tuple(v)) for r, v in sends.items()),
+                   recvs=tuple(recvs.items()), parts=tuple(parts))
+
+
+def _rows(X: torch.Tensor, ranges) -> torch.Tensor:
+    """X's rows over ``ranges`` ((lo, hi) pairs): a view for one range."""
+    if len(ranges) == 1:
+        (a, b), = ranges
+        return X[a:b]
+    return torch.cat([X[a:b] for a, b in ranges])
+
+
+def permute_rows(mesh: RowMesh, X: torch.Tensor, plan: RowPlan) -> torch.Tensor:
+    """This rank's rows of the permuted global block (``row_plan``): one
+    batch of sends and receives, one message per peer.  A peer that
+    needs one range gets a view of X, and an output of one part is that
+    part itself, so a swap with a single partner copies nothing."""
+    bufs = {q: torch.empty((rows,) + tuple(X.shape[1:]), dtype=X.dtype,
+                           device=X.device) for q, rows in plan.recvs}
+    sends = [(_rows(X, ranges), q) for q, ranges in plan.sends]
+    if sends or bufs:
+        _p2p(mesh, sends, [(buf, q) for q, buf in bufs.items()])
+        permute_rows.launches += 1
+    parts = [((X if q < 0 else bufs[q])[a:b]) for q, a, b in plan.parts]
+    return parts[0] if len(parts) == 1 else torch.cat(parts)
 
 
 def all_gather_rows(mesh: RowMesh, X: torch.Tensor) -> torch.Tensor:
@@ -134,7 +200,7 @@ def all_gather_rows(mesh: RowMesh, X: torch.Tensor) -> torch.Tensor:
 
 all_reduce.launches = 0
 halo_exchange.launches = 0
-swap.launches = 0
+permute_rows.launches = 0
 all_gather_rows.launches = 0
 
 

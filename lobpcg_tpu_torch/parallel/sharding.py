@@ -8,20 +8,27 @@ rank's rows and keeps the global ``shape``:
 
 | Operator | Sharded form |
 |---|---|
+| any operator whose n does not divide over the ranks | the operator itself, whole on every rank: the solve runs replicated (``shard_array`` keeps X0 whole too) |
 | DiagonalOperator, JacobiPreconditioner | ``LocalRows``: the local slice |
 | Laplacian1D | ``SpmdLaplacian1D`` (halo exchange + K1) |
 | BlockDiagOperator of Laplacian1D (+ diagonals) | one segmented stencil, then as above |
-| LaplacianND | ``SpmdLaplacianND`` (plane exchange + the unsharded operator) |
+| LaplacianND | ``SpmdLaplacianND`` (plane exchange + the unsharded operator) when nx divides over the ranks, else ``GatheredOperator`` |
 | Sum/Scaled/Shifted/Composed, ChebyshevFilter | the same node over sharded children |
 | DenseOperator | ``RowPanelOperator``: row panel times all-gathered X |
-| BlockAntiDiagOperator | ``ShardedBlockAntiDiagOperator``: a swap with rank (r + nd/2) % nd |
+| BlockAntiDiagOperator | ``ShardedBlockAntiDiagOperator``: the half swap as the row exchange of ``mesh.row_plan`` (one partner at an even rank count, none at one rank) |
 | BlockDiagOperator of BlockAntiDiagOperator (realified B) | ``ShardedBlockAntiDiagOperator`` with ``copies``: one half swap inside each copy |
 | RealEmbeddedDiagonalOperator | ``LocalRows`` of [dr; dr] plus ``ShardedBlockAntiDiagOperator`` of [-di; di] |
 | RealEmbeddedDenseOperator | ``RowPanelOperator``: this rank's rows of [[Ar, -Ai], [Ai, Ar]] |
-| BSROperator | ``ShardedBSROperator`` (edge-band halo + K6/K5, else K3 on the frame) |
+| BSROperator | ``ShardedBSROperator`` (edge-band halo + K6/K5, else K3 on the frame) when its block rows divide and its bandwidth stays inside a shard; ``BSRRowPanelOperator`` (this rank's block rows, K3 on the all-gathered X) when only the rows divide; else ``GatheredOperator`` |
+| BlockDiag2Operator (the A of ``physics.bdg_operators``) | top and bottom each one same-shaped Laplacian1D (scaled or not) plus diagonals, with segments that align with the shards: one two-segment Laplacian1D plus [d_top; d_bottom], then as above; any other: ``GatheredOperator`` |
+| CallableOperator | ``GatheredOperator``, its ``args`` whole on every rank |
 
-Any other class raises ``NotImplementedError``: no operator computes a
-wrong product in silence.
+``GatheredOperator`` all-gathers X's rows, applies the unsharded
+operator to the whole block and keeps this rank's rows: what XLA's
+partitioner falls back to.  It is a route of this table only, never a
+retry after another form failed.  Any other class raises
+``NotImplementedError``: no operator computes a wrong product in
+silence.
 """
 
 from __future__ import annotations
@@ -34,7 +41,9 @@ import torch
 from lobpcg_tpu_torch.operators.chebyshev import ChebyshevFilter
 from lobpcg_tpu_torch.operators.linop import (
     BlockAntiDiagOperator,
+    BlockDiag2Operator,
     BlockDiagOperator,
+    CallableOperator,
     ComposedOperator,
     DenseOperator,
     DiagonalOperator,
@@ -51,18 +60,23 @@ from lobpcg_tpu_torch.operators.realify import (
 )
 from lobpcg_tpu_torch.operators.sparse import BSROperator
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
+from lobpcg_tpu_torch.ops.cuda.bsr import bsr_matmat, bsr_matmat_reference
 from lobpcg_tpu_torch.parallel.mesh import (
     RowMesh,
+    RowPlan,
     all_gather_rows,
+    permute_rows,
     replicated,
+    row_plan,
     row_sharding,
-    swap,
 )
-from lobpcg_tpu_torch.parallel.spmd_bsr import ShardedBSROperator
+from lobpcg_tpu_torch.parallel.spmd_bsr import ShardedBSROperator, fitting_plan
 from lobpcg_tpu_torch.parallel.spmd_stencil import (
     SpmdLaplacian1D,
     SpmdLaplacianND,
+    segments_align,
     unroll_block_diag,
+    unroll_block_diag2,
     use_spmd_stencils,
 )
 
@@ -131,24 +145,47 @@ class RowPanelOperator(LinearOperator):
         return self.A.dtype
 
 
-def _ranks_per_copy(nd: int, copies: int, what: str) -> int:
-    """p, the ranks one of ``copies`` half-swapped copies spans over nd
-    ranks (1 when a rank holds whole copies); raises unless p is 1 or
-    even."""
-    if nd % copies == 0:
-        p = nd // copies
-    elif copies % nd == 0:
-        p = 1
-    else:
-        raise NotImplementedError(
-            f"{what}: {copies} copies over {nd} ranks; one of the two must "
-            "divide the other")
-    if p > 1 and p % 2:
-        raise NotImplementedError(
-            f"{what} over {nd} ranks: the half swap pairs rank r with the "
-            f"rank {p}/2 away inside its copy, so the ranks a copy spans "
-            f"({p}) must be even in number")
-    return p
+@dataclasses.dataclass
+class BSRRowPanelOperator(LinearOperator):
+    """A BSROperator's block rows of this rank (``block_cols`` keep the
+    global block columns) times the all-gathered global block: K3 with
+    the whole block as its frame (its plain version for a CPU tensor or
+    another dtype than f32)."""
+
+    block_cols: torch.Tensor
+    blocks: torch.Tensor
+    n: int = 0
+    mesh: RowMesh = None
+
+    @classmethod
+    def shard(cls, op: BSROperator, mesh: RowMesh):
+        nb_loc = op.blocks.shape[0] // mesh.size
+        rows = slice(mesh.rank * nb_loc, (mesh.rank + 1) * nb_loc)
+        return cls(op.block_cols[rows].to(mesh.device, torch.int32),
+                   op.blocks[rows].to(mesh.device), n=op.n, mesh=mesh)
+
+    def matmat(self, X):
+        Xg = all_gather_rows(self.mesh, X)
+        if X.dtype == torch.float32 and self.blocks.dtype == torch.float32:
+            return bsr_matmat(self.block_cols, self.blocks, Xg.contiguous(),
+                              frame=True)
+        return bsr_matmat_reference(self.block_cols, self.blocks, Xg)
+
+    @property
+    def shape(self):
+        return (self.n, self.n)
+
+    @property
+    def dtype(self):
+        return self.blocks.dtype
+
+
+def _half_swap_pieces(n: int, copies: int):
+    """The half swap of each copy as (out_lo, out_hi, src_lo) row ranges."""
+    m = n // (2 * copies)
+    return [piece for j in range(copies) for piece in (
+        (2 * j * m, (2 * j + 1) * m, (2 * j + 1) * m),
+        ((2 * j + 1) * m, (2 * j + 2) * m, 2 * j * m))]
 
 
 @dataclasses.dataclass
@@ -156,12 +193,16 @@ class ShardedBlockAntiDiagOperator(LinearOperator):
     """diag(B, ..., B), ``copies`` copies of B = {{0, D}, {D, 0}}, over a
     row mesh (one copy is BlockAntiDiagOperator, two are its split-real
     form).  Each copy's half swap, then a scale by this rank's rows ``d``
-    of the row scales ([d; d] per copy).  A copy spans p = nd / copies
-    ranks: at p = 1 every rank holds whole copies and swaps them
-    locally; at an even p rank r swaps with the rank p/2 away inside its
-    copy (one batch of a send and a receive); anything else raises."""
+    of the row scales ([d; d] per copy).  ``plan`` (``mesh.row_plan``,
+    worked out once on the host) names the ranks that hold this rank's
+    swapped rows, and one batch of sends and receives brings them: none
+    when a rank holds whole copies (a local permutation), one partner
+    when a copy spans an even number of ranks, two when it spans an odd
+    number, a few more when copies and ranks do not divide one
+    another."""
 
     d: torch.Tensor
+    plan: RowPlan
     n: int = 0
     mesh: RowMesh = None
     copies: int = 1
@@ -169,29 +210,20 @@ class ShardedBlockAntiDiagOperator(LinearOperator):
     @classmethod
     def shard(cls, op: BlockAntiDiagOperator, mesh: RowMesh, copies: int = 1):
         c = int(copies)
-        return cls.place(torch.cat([op.d, op.d]).repeat(c), mesh, c,
-                         type(op).__name__)
+        return cls.place(torch.cat([op.d, op.d]).repeat(c), mesh, c)
 
     @classmethod
-    def place(cls, scale: torch.Tensor, mesh: RowMesh, copies: int = 1,
-              what: str = "BlockAntiDiagOperator"):
+    def place(cls, scale: torch.Tensor, mesh: RowMesh, copies: int = 1):
         """From the global row scales ``scale`` [n] (applied after the
         swap)."""
-        _ranks_per_copy(mesh.size, int(copies), what)
-        return cls(d=_rows_of(scale, mesh), n=scale.shape[0], mesh=mesh,
-                   copies=int(copies))
+        n, c = scale.shape[0], int(copies)
+        return cls(d=_rows_of(scale, mesh),
+                   plan=row_plan(n, mesh.size, mesh.rank,
+                                 _half_swap_pieces(n, c)),
+                   n=n, mesh=mesh, copies=c)
 
     def matmat(self, X):
-        nd, c = self.mesh.size, self.copies
-        p = _ranks_per_copy(nd, c, "BlockAntiDiagOperator")
-        if p == 1:
-            m = self.n // (2 * c)
-            k = X.shape[1]
-            Xs = X.reshape(-1, 2, m, k).flip(1).reshape(X.shape)
-            return self.d[:, None] * Xs
-        r = self.mesh.rank
-        partner = r - r % p + (r % p + p // 2) % p
-        return self.d[:, None] * swap(self.mesh, X, partner)
+        return self.d[:, None] * permute_rows(self.mesh, X, self.plan)
 
     @property
     def shape(self):
@@ -202,8 +234,50 @@ class ShardedBlockAntiDiagOperator(LinearOperator):
         return self.d.dtype
 
 
+def _placed(x, device):
+    """``x`` (an operator tree, or a tensor, tuple or list inside one)
+    with every tensor on ``device``."""
+    if isinstance(x, torch.Tensor):
+        return x.to(device)
+    if type(x) in (tuple, list):
+        return type(x)(_placed(v, device) for v in x)
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return dataclasses.replace(x, **{
+            f.name: _placed(getattr(x, f.name), device)
+            for f in dataclasses.fields(x) if f.init})
+    return x
+
+
+@dataclasses.dataclass
+class GatheredOperator(LinearOperator):
+    """An unsharded operator over a row mesh: the all-gathered block
+    through ``op``, whole on every rank, and this rank's rows of the
+    product (XLA's fallback for an operator it cannot partition)."""
+
+    op: LinearOperator
+    mesh: RowMesh = None
+
+    @classmethod
+    def place(cls, op: LinearOperator, mesh: RowMesh):
+        return cls(_placed(op, mesh.device), mesh=mesh)
+
+    def matmat(self, X):
+        n_loc, r = X.shape[0], self.mesh.rank
+        Y = self.op.matmat(all_gather_rows(self.mesh, X))
+        return Y[r * n_loc : (r + 1) * n_loc]
+
+    @property
+    def shape(self):
+        return self.op.shape
+
+    @property
+    def dtype(self):
+        return self.op.dtype
+
+
 _SHARDED = (SpmdLaplacian1D, SpmdLaplacianND, ShardedBSROperator, LocalRows,
-            RowPanelOperator, ShardedBlockAntiDiagOperator)
+            RowPanelOperator, BSRRowPanelOperator, ShardedBlockAntiDiagOperator,
+            GatheredOperator)
 
 
 def _embedded_rows(Ar: torch.Tensor, Ai: torch.Tensor,
@@ -234,6 +308,8 @@ def shard_operator(op, mesh: RowMesh):
         if op.mesh is not mesh:
             raise ValueError(f"{type(op).__name__} is sharded over another mesh")
         return op
+    if op.shape[0] % mesh.size:
+        return _placed(op, mesh.device)
     if isinstance(op, (DiagonalOperator, JacobiPreconditioner)):
         n = op.d.shape[0]
         return LocalRows(type(op)(_rows_of(op.d, mesh)), n=n, mesh=mesh)
@@ -250,10 +326,14 @@ def shard_operator(op, mesh: RowMesh):
         return SumOperator(
             LocalRows(DiagonalOperator(_rows_of(torch.cat([dr, dr]), mesh)),
                       n=2 * dr.shape[0], mesh=mesh),
-            ShardedBlockAntiDiagOperator.place(
-                torch.cat([-di, di]), mesh, 1, type(op).__name__))
+            ShardedBlockAntiDiagOperator.place(torch.cat([-di, di]), mesh))
     if isinstance(op, BSROperator):
-        return ShardedBSROperator.shard(op, mesh)
+        plan = fitting_plan(op, mesh.size, shards=[mesh.rank])
+        if plan is not None:
+            return ShardedBSROperator.place(op, mesh, plan)
+        if op.blocks.shape[0] % mesh.size == 0:
+            return BSRRowPanelOperator.shard(op, mesh)
+        return GatheredOperator.place(op, mesh)
     if isinstance(op, BlockDiagOperator):
         if isinstance(op.inner, BlockAntiDiagOperator):
             # Caught here, before unroll_block_diag: the copies' half swaps
@@ -261,14 +341,23 @@ def shard_operator(op, mesh: RowMesh):
             return ShardedBlockAntiDiagOperator.shard(op.inner, mesh,
                                                       copies=op.copies)
         return shard_operator(unroll_block_diag(op), mesh)
+    if isinstance(op, BlockDiag2Operator):
+        flat, stencil = unroll_block_diag2(op)
+        if flat is not None and segments_align(stencil.n, stencil.segments,
+                                               mesh.size):
+            return shard_operator(flat, mesh)
+        return GatheredOperator.place(op, mesh)
     if type(op) in (SumOperator, ScaledOperator, ShiftedOperator,
                     ComposedOperator, ChebyshevFilter):
         return dataclasses.replace(op, **{
             f.name: shard_operator(getattr(op, f.name), mesh)
             for f in dataclasses.fields(op)
             if isinstance(getattr(op, f.name), LinearOperator)})
-    if isinstance(op, (Laplacian1D, LaplacianND)):
+    if isinstance(op, Laplacian1D) or (isinstance(op, LaplacianND)
+                                       and int(op.grid[0]) % mesh.size == 0):
         return use_spmd_stencils(op, mesh)
+    if isinstance(op, (LaplacianND, CallableOperator)):
+        return GatheredOperator.place(op, mesh)
     raise NotImplementedError(
         f"shard_operator: no sharded form of {type(op).__name__}")
 
@@ -281,9 +370,13 @@ def shard_problem(
     T=None,
 ):
     """(A, X0, B, T) placed on the mesh: the sharded operators and this
-    rank's rows of X0.  The JAX package's ``spmd_stencil=False`` (let the
-    partitioner derive the halos) has no counterpart: the port has no
-    partitioner, so stencils always exchange explicitly."""
+    rank's rows of X0 (the whole problem on every rank when n does not
+    divide over the ranks).  The JAX package's ``spmd_stencil=False``
+    (let the partitioner derive the halos) has no counterpart: the port
+    has no partitioner, so stencils always exchange explicitly, and a
+    Laplacian1D whose segment boundaries fall inside a shard is refused,
+    as the JAX package refuses it under its default
+    ``spmd_stencil=True``."""
 
     def prep(op):
         return None if op is None else shard_operator(op, mesh)

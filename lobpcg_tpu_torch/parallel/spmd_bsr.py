@@ -88,23 +88,19 @@ class ShardPlan:
     win: dict
 
 
-def plan_shards(op, nd: int, shards=None) -> ShardPlan:
-    """Plan a BSROperator (``block_cols``, ``blocks``) for ``nd`` row
-    shards, building the windows of ``shards`` (default: all).  Raises
-    when the block rows do not divide or the bandwidth reaches past a
-    shard."""
+def fitting_plan(op, nd: int, shards=None) -> Optional[ShardPlan]:
+    """``plan_shards``' plan, or None where the matrix does not fit nd
+    row shards: its block rows do not divide, or its block bandwidth
+    reaches past a shard.  One copy of the matrix to the host."""
     cols = torch.as_tensor(op.block_cols).cpu().numpy()
     blocks = torch.as_tensor(op.blocks).cpu().numpy()
     nb, R, bs, _ = blocks.shape
     if nb % nd:
-        raise ValueError(f"nb={nb} block rows not divisible by {nd}")
+        return None
     halo = _ell_halo_width(cols, blocks)
     nb_loc = nb // nd
     if halo >= nb_loc:
-        raise ValueError(
-            f"block bandwidth {halo} >= {nb_loc} block rows/shard; "
-            "RCM-reorder the matrix (utils.native.rcm_order) or use "
-            "fewer shards")
+        return None
     nb_ext = nb_loc + 2 * halo
     strip = bs * (-(-256 // bs))
     safe = _safe_cols(cols, blocks)
@@ -125,6 +121,21 @@ def plan_shards(op, nd: int, shards=None) -> ShardPlan:
         lo[d], win[d] = ell_to_strip_window(*local(d), strip=strip,
                                             ncols=nb_ext, force_width=Wb)
     return ShardPlan(nb_loc, halo, strip, Wb, lo, win)
+
+
+def plan_shards(op, nd: int, shards=None) -> ShardPlan:
+    """Plan a BSROperator (``block_cols``, ``blocks``) for ``nd`` row
+    shards, building the windows of ``shards`` (default: all).  Raises
+    when the block rows do not divide or the bandwidth reaches past a
+    shard."""
+    plan = fitting_plan(op, nd, shards)
+    if plan is None:
+        raise ValueError(
+            f"{op.blocks.shape[0]} block rows over {nd} shards: the block "
+            "rows must divide and the block bandwidth must stay under a "
+            "shard's block rows; RCM-reorder the matrix "
+            "(utils.native.rcm_order) or use fewer shards")
+    return plan
 
 
 @dataclasses.dataclass
@@ -155,10 +166,17 @@ class ShardedBSROperator(LinearOperator):
     def shard(cls, op, mesh: RowMesh,
               pallas: str = "auto") -> "ShardedBSROperator":
         """Plan a BSROperator and place this rank's part on its device."""
+        return cls.place(op, mesh, plan_shards(op, mesh.size,
+                                               shards=[mesh.rank]), pallas)
+
+    @classmethod
+    def place(cls, op, mesh: RowMesh, plan: ShardPlan,
+              pallas: str = "auto") -> "ShardedBSROperator":
+        """This rank's part of a BSROperator planned for the mesh (``plan``
+        covers this rank's shard), on its device."""
         if pallas not in PALLAS_MODES:
             raise ValueError(f"pallas must be one of {PALLAS_MODES}, got "
                              f"{pallas!r}")
-        plan = plan_shards(op, mesh.size, shards=[mesh.rank])
         r, nb_loc = mesh.rank, plan.nb_loc
         rows = slice(r * nb_loc, (r + 1) * nb_loc)
         dev = mesh.device

@@ -26,6 +26,7 @@ import math
 import torch
 
 from lobpcg_tpu_torch.operators.linop import (
+    BlockDiag2Operator,
     BlockDiagOperator,
     DiagonalOperator,
     JacobiPreconditioner,
@@ -45,6 +46,16 @@ from lobpcg_tpu_torch.ops.cuda.stencil import (
 from lobpcg_tpu_torch.parallel.mesh import RowMesh, halo_exchange
 
 PALLAS_MODES = ("auto", "interpret", "off")
+
+
+def segments_align(n: int, segments: int, nd: int) -> bool:
+    """Whether ``SpmdLaplacian1D`` takes n rows in ``segments`` segments
+    over nd ranks: the rows divide into segments x ranks, and every shard
+    holds whole segments or every segment spans whole shards."""
+    if n % (segments * nd):
+        return False
+    seg, local_rows = n // segments, n // nd
+    return seg % local_rows == 0 or local_rows % seg == 0
 
 
 def stencil_matmat_spmd(
@@ -80,7 +91,7 @@ def stencil_matmat_spmd(
     # Segment boundaries must align with the shard grid: every shard
     # holds whole segments (the kernel's own segments handle them) or
     # every segment spans whole shards (the halo zeroing handles them).
-    if (seg % local_rows) and (local_rows % seg):
+    if not segments_align(n, num_segments, nd):
         raise ValueError(
             f"segment length {seg} and shard rows {local_rows} must divide "
             "one another (segment boundaries would fall inside a shard)")
@@ -197,6 +208,56 @@ def unroll_block_diag(op: BlockDiagOperator) -> LinearOperator:
             f"no sharded form of BlockDiagOperator over {type(o).__name__}")
 
     return unroll(op.inner)
+
+
+def _stencil_and_diagonals(op):
+    """(scale, Laplacian1D, [diagonal d's]) of a sum of one Laplacian1D,
+    plain or scaled by a number, and DiagonalOperators; None for any
+    other tree."""
+    terms, todo = [], [op]
+    while todo:
+        o = todo.pop()
+        if isinstance(o, SumOperator):
+            todo += [o.right, o.left]
+        else:
+            terms.append(o)
+    stencils = [t for t in terms if isinstance(t, Laplacian1D) or (
+        isinstance(t, ScaledOperator) and isinstance(t.op, Laplacian1D)
+        and isinstance(t.alpha, (int, float)))]
+    diags = [t.d for t in terms if type(t) is DiagonalOperator]
+    if len(stencils) != 1 or len(stencils) + len(diags) != len(terms):
+        return None
+    (st,) = stencils
+    if isinstance(st, ScaledOperator):
+        return float(st.alpha) * st.op.scale, st.op, diags
+    return st.scale, st, diags
+
+
+def unroll_block_diag2(op: BlockDiag2Operator):
+    """(flat, stencil): diag(top, bottom) as one Laplacian1D of twice the
+    segments plus the diagonal [d_top; d_bottom], as
+    ``benchmarks/solve_bdg.py:well_problem`` builds the well's A, when
+    top and bottom are each one same-shaped Laplacian1D (scaled or not)
+    plus DiagonalOperators (``physics.bdg_operators`` without
+    ``dipolar``); (None, None) otherwise."""
+    top, bot = _stencil_and_diagonals(op.top), _stencil_and_diagonals(op.bottom)
+    if top is None or bot is None:
+        return None, None
+    (s_t, l_t, d_t), (s_b, l_b, d_b) = top, bot
+    if (s_t, l_t.n, l_t.segments, l_t.dtype) != (s_b, l_b.n, l_b.segments,
+                                                  l_b.dtype):
+        return None, None
+    stencil = Laplacian1D(scale=s_t, n=2 * l_t.n, segments=2 * l_t.segments,
+                          pad_lanes=l_t.pad_lanes, dtype=l_t.dtype)
+    if not d_t and not d_b:
+        return stencil, stencil
+
+    def total(ds, like):
+        return sum(ds[1:], ds[0]) if ds else torch.zeros_like(like)
+
+    ref = (d_t or d_b)[0]
+    diag = torch.cat([total(d_t, ref), total(d_b, ref)])
+    return SumOperator(stencil, DiagonalOperator(diag)), stencil
 
 
 def _rewrite(op, mesh: RowMesh):

@@ -20,7 +20,6 @@ inverse-diagonal or a Chebyshev approximate inverse of diag(M, K).
 
 from __future__ import annotations
 
-import dataclasses
 from typing import Optional
 
 import torch
@@ -28,34 +27,12 @@ import torch
 from lobpcg_tpu_torch.operators.chebyshev import ChebyshevFilter
 from lobpcg_tpu_torch.operators.linop import (
     BlockAntiDiagOperator,
+    BlockDiag2Operator,
     DiagonalOperator,
     JacobiPreconditioner,
     LinearOperator,
 )
 from lobpcg_tpu_torch.utils.prng import fill_random
-
-
-@dataclasses.dataclass
-class BlockDiag2Operator(LinearOperator):
-    """diag(top, bottom) with distinct blocks (A = diag(M, K))."""
-
-    top: LinearOperator
-    bottom: LinearOperator
-
-    def matmat(self, X):
-        m = self.top.shape[0]
-        return torch.cat(
-            [self.top.matmat(X[:m]), self.bottom.matmat(X[m:])], dim=0
-        )
-
-    @property
-    def shape(self):
-        n = self.top.shape[0] + self.bottom.shape[0]
-        return (n, n)
-
-    @property
-    def dtype(self):
-        return self.top.dtype
 
 
 def bdg_operators(

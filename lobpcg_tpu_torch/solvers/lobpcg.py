@@ -50,8 +50,6 @@ def _local_rows(n: int):
     mesh = rows.active()
     if mesh is None:
         return n, None
-    if n % mesh.size:
-        raise ValueError(f"n={n} rows do not divide over {mesh.size} ranks")
     n_loc = n // mesh.size
     return n_loc, slice(mesh.rank * n_loc, (mesh.rank + 1) * n_loc)
 
@@ -143,10 +141,18 @@ def _check_rr_chunk_unsharded(config: SolverConfig, mesh) -> None:
 def solve_entry(impl, A, B, T, X0, P0, config, generator, device, draws,
                 it_cap):
     """The entry steps lobpcg and ilobpcg share: find the row group (the
-    active mesh, or the mesh of a sharded operator in A, B or T), check
+    active mesh, or the mesh of a sharded operator in A, B or T; none
+    when n does not divide over its ranks), check
     the inputs against this rank's rows, and run ``impl`` under the
     config's precision with the random draws cut to this rank's rows."""
     mesh = rows.active() or rows.find_mesh(A, B, T)
+    if mesh is not None and A.shape[0] % mesh.size:
+        # Rows that do not divide: shard_problem placed the whole problem
+        # on every rank, and each rank solves all of it with no row group
+        # (the JAX package's replicated arrays).
+        if device is None and X0 is None:
+            device = mesh.device
+        mesh = None
     with rows.rows_ctx(mesh):
         _check_rr_chunk_unsharded(config, mesh)
         device = _check_inputs(A, X0, config, it_cap, device)

@@ -859,3 +859,106 @@ def test_sharded_realified_b_and_k3_frame_at_world_size_one(cuda_device):
         assert float((y - tri.matmat(X[:16])).abs().max()) <= 1e-5
     finally:
         dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_gathered_form_and_exchange_swap_at_world_size_one(cuda_device):
+    """row_mesh(1) on NCCL: the gathered forms of a BSROperator (the whole
+    matrix, and this rank's block rows through K3 on the gathered block)
+    and of a CallableOperator, the half swap through the exchange's plan
+    (at one rank a local permutation, no message), and the physics pencil
+    unrolled onto K1, each equal to the unsharded product."""
+    import torch.distributed as dist
+
+    from lobpcg_tpu_torch import parallel
+    from lobpcg_tpu_torch.parallel import mesh as pmesh
+    from lobpcg_tpu_torch.parallel.sharding import (
+        BSRRowPanelOperator,
+        GatheredOperator,
+    )
+    from lobpcg_tpu_torch.physics import bdg
+
+    mesh = parallel.row_mesh(1)
+    try:
+        n = 1536
+        rng = np.random.default_rng(9)
+        X = torch.from_numpy(rng.uniform(-1, 1, (n, 16))).to(cuda_device,
+                                                            torch.float32)
+        tri = tl.BSROperator.from_dense(
+            np.diag(2.0 * np.ones(n)) - np.diag(np.ones(n - 1), 1)
+            - np.diag(np.ones(n - 1), -1), block_size=8, device=cuda_device)
+        g = GatheredOperator.place(tri, mesh)
+
+        def spmms():
+            return kb.bsr_matmat.launches + kb.bsr_window_matmat.launches
+
+        gathers, before = pmesh.all_gather_rows.launches, spmms()
+        assert torch.equal(g.matmat(X), tri.matmat(X))
+        assert pmesh.all_gather_rows.launches == gathers + 1
+        assert spmms() == before + 2  # the gathered apply and the reference
+        panel = BSRRowPanelOperator.shard(tri, mesh)
+        k3 = kb.bsr_matmat.launches
+        y = panel.matmat(X)
+        assert kb.bsr_matmat.launches == k3 + 1
+        assert torch.equal(y, kb.bsr_matmat(tri.block_cols, tri.blocks, X))
+        M = torch.from_numpy(rng.uniform(-1, 1, (n, n))).to(cuda_device,
+                                                           torch.float32)
+        call = tl.CallableOperator(args=(M,), fn=lambda Y, A: A @ Y, n=n)
+        assert isinstance(parallel.shard_operator(call, mesh), GatheredOperator)
+        assert torch.equal(parallel.shard_operator(call, mesh).matmat(X),
+                           call.matmat(X))
+        d = torch.from_numpy(rng.uniform(1, 2, n // 6)).to(cuda_device,
+                                                          torch.float32)
+        b3 = tl.BlockDiagOperator(tl.BlockAntiDiagOperator(d), copies=3)
+        swap = parallel.shard_operator(b3, mesh)
+        assert swap.plan.sends == () and swap.plan.recvs == ()
+        moved = pmesh.permute_rows.launches
+        assert torch.equal(swap.matmat(X), b3.matmat(X))
+        assert pmesh.permute_rows.launches == moved
+        m = n // 2
+        psi = torch.linspace(0, 1, m, device=cuda_device)
+        A, _, _, _ = bdg.bdg_operators(tl.Laplacian1D(0.5, m), psi, 2.0, 1.0)
+        flat = parallel.shard_operator(A, mesh)
+        assert isinstance(flat.left, parallel.SpmdLaplacian1D)
+        k1_before = k1.stencil_matmat.launches
+        y = flat.matmat(X)
+        assert k1.stencil_matmat.launches == k1_before + 1
+        torch.cuda.synchronize()
+        assert float((y - A.matmat(X)).abs().max()) <= 1e-5
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.mark.gpu
+def test_small_batched_sweep_on_card(cuda_device):
+    """lt.batched over 3 barrier heights of a small f32 well through K1:
+    each problem equal to its lone solve (eigenvalues bit for bit,
+    iterations equal)."""
+    m, well, nev, ss, dt = 512, 64, 4, 8, torch.float32
+    lo = (m - well) // 2
+    u = np.zeros((m, ss), np.float32)
+    u[lo : lo + well] = np.random.RandomState(42).uniform(-0.5, 0.5, (well, ss))
+    X0 = torch.as_tensor(np.concatenate([u, u]), device=cuda_device)
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+
+    def solve(barrier):
+        V = torch.full((m,), 1.0 + float(barrier), dtype=dt, device=cuda_device)
+        V[lo : lo + well] = 1.0
+        A = tl.Laplacian1D(scale=1.0, n=2 * m, segments=2, dtype=dt) \
+            + tl.DiagonalOperator(torch.cat([V, V]))
+        B = tl.BlockAntiDiagOperator(d=torch.ones(m, dtype=dt, device=cuda_device))
+        T = tl.ChebyshevFilter(op=A, lo=2.0, hi=5.1 + float(barrier), degree=3)
+        r = tl.ilobpcg(A, X0, B, T, nev=nev, size_sub=ss, tol=1e-5,
+                       max_iter=300, generator=gen)
+        return r.eigenvalues, r.converged, r.iterations
+
+    barriers = torch.tensor([1.0, 2.0, 3.0])
+    before = k1.stencil_matmat.launches
+    lam, conv, it = tl.batched(solve, generators=[gen])(barriers)
+    assert k1.stencil_matmat.launches > before
+    assert lam.shape == (3, nev) and lam.device == cuda_device
+    assert conv.tolist() == [nev] * 3
+    for i in (0, 2):
+        gen.manual_seed(0)
+        lone = solve(barriers[i])
+        assert torch.equal(lam[i], lone[0]) and int(it[i]) == lone[2]

@@ -352,12 +352,29 @@ def test_interop_places_jax_realified_operators(rank):
 @pytest.mark.parametrize("size,copies", [(3, 2), (6, 2), (2, 3)])
 def test_realified_b_ranks_that_cannot_swap_raise(size, copies):
     """3 ranks over 2 copies divide neither way; 6 ranks give each copy 3
-    (odd); 2 ranks over 3 copies divide neither way."""
-    op = tl.BlockDiagOperator(tl.BlockAntiDiagOperator(torch.ones(12)),
-                              copies=copies)
-    mesh = RowMesh(group=None, rank=0, size=size, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError):
-        shard_operator(op, mesh)
+    (odd); 2 ranks over 3 copies divide neither way: no single partner
+    holds a rank's swapped rows, so each rank's form carries the exchange
+    of ``row_plan``.  Every rank's messages carried by hand give the
+    unsharded product, to 1e-12."""
+    d = torch.from_numpy(np.random.RandomState(size).uniform(1, 2, 6))
+    op = tl.BlockDiagOperator(tl.BlockAntiDiagOperator(d), copies=copies)
+    n = op.shape[0]
+    X = torch.from_numpy(np.random.RandomState(copies).uniform(-0.5, 0.5, (n, 3)))
+    sops = [shard_operator(op, RowMesh(group=None, rank=r, size=size,
+                                       device=torch.device("cpu")))
+            for r in range(size)]
+    n_loc = n // size
+    parts = [X[r * n_loc : (r + 1) * n_loc] for r in range(size)]
+    sent = {(r, q): torch.cat([parts[r][a:b] for a, b in ranges])
+            for r, s in enumerate(sops) for q, ranges in s.plan.sends}
+    for r, s in enumerate(sops):
+        assert (type(s).__name__, s.copies) == ("ShardedBlockAntiDiagOperator",
+                                                copies)
+        swapped = torch.cat([(parts[r] if q < 0 else sent[(q, r)])[a:b]
+                             for q, a, b in s.plan.parts])
+        np.testing.assert_allclose((s.d[:, None] * swapped).numpy(),
+                                   _local(RowMesh(None, r, size, "cpu"),
+                                          op.matmat(X)).numpy(), atol=1e-12)
 
 
 def test_sharded_realified_bdg_matches_unsharded_jax(ranks, draws):

@@ -526,15 +526,34 @@ def test_every_sharded_form_matches_the_unsharded_operator(ranks):
 
 
 def test_what_has_no_sharded_form_raises():
+    """Over 3 ranks the half swap takes the exchange of ``row_plan``, a
+    CallableOperator the gathered form, and operator rows that do not
+    divide stay whole (a replicated solve).  Still refused, as by the JAX
+    package: a Laplacian1D whose segment boundaries fall inside a shard
+    under spmd_stencil=True, a column axis, and a class with no sharded
+    form (a BlockDiagOperator of a DenseOperator)."""
+    from lobpcg_tpu_torch.parallel.sharding import (
+        GatheredOperator,
+        ShardedBlockAntiDiagOperator,
+    )
+
     mesh = RowMesh(group=None, rank=0, size=3, device=torch.device("cpu"))
-    with pytest.raises(NotImplementedError, match="even"):
-        shard_operator(tl.BlockAntiDiagOperator(torch.ones(6)), mesh)
-    with pytest.raises(NotImplementedError, match="CallableOperator"):
-        shard_operator(tl.CallableOperator(args=(), fn=lambda X: X, n=6), mesh)
-    with pytest.raises(ValueError, match="divide"):
-        shard_operator(tl.DiagonalOperator(torch.ones(7)), mesh)
+    swap = shard_operator(tl.BlockAntiDiagOperator(torch.ones(3)), mesh)
+    assert isinstance(swap, ShardedBlockAntiDiagOperator)
+    assert swap.plan is not None and swap.d.shape == (2,)
+    call = shard_operator(tl.CallableOperator(args=(), fn=lambda X: X, n=6), mesh)
+    assert isinstance(call, GatheredOperator) and call.shape == (6, 6)
+    diag = shard_operator(tl.DiagonalOperator(torch.ones(7)), mesh)
+    assert isinstance(diag, tl.DiagonalOperator) and diag.d.shape == (7,)
+    lap = shard_operator(tl.Laplacian1D(1.0, 60, segments=2,
+                                        dtype=torch.float64), mesh)
+    with pytest.raises(ValueError, match="segment boundaries"):
+        lap.matmat(torch.zeros((20, 2), dtype=torch.float64))
     with pytest.raises(ValueError, match="axis"):
         parallel.row_sharding(mesh, 2, "cols")
+    with pytest.raises(NotImplementedError, match="DenseOperator"):
+        shard_operator(tl.BlockDiagOperator(tl.DenseOperator(torch.eye(3)),
+                                            copies=2), mesh)
 
 
 def test_row_mesh_has_no_cpu_fallback():

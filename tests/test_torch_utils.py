@@ -165,25 +165,27 @@ def _cfg(**kw):
 def test_peak_estimate_is_the_anchor_table():
     """The H100 anchors (tools/plan_anchors.py): with the dual basis on,
     the forced quality-5 branch lifts the b-cache-off, ax-cache-on peak
-    by one block; pack_applies never enters."""
+    by one block; pack_applies never enters.  The block part (the
+    estimate less the fixed term) is proportional to the block size."""
     assert plan.PEAK_BLOCKS_H100[(True, False, True)] == pytest.approx(
         plan.PEAK_BLOCKS_H100[(False, False, True)] + 1.0, abs=0.01)
+    fixed = plan.FIXED_GB_H100
     block = 4_000_000 * 64 * 4 / 2**30
     for (dual, b_cache, ax_cache), blocks in plan.PEAK_BLOCKS_H100.items():
         for pack in (True, False):
             cfg = _cfg(use_b_cache=b_cache, use_ax_cache=ax_cache,
                        dual_basis=dual, pack_applies=pack)
             for dt in (torch.float32, np.float32):
-                assert plan.estimate_peak_gb(4_000_000, 64, dt, cfg) == \
-                    pytest.approx(blocks * block, rel=1e-12)
+                assert plan.estimate_peak_gb(4_000_000, 64, dt, cfg) - fixed \
+                    == pytest.approx(blocks * block, rel=1e-12)
     # The flagship's full configuration: 13.41 GiB on the card.
     assert plan.estimate_peak_gb(4_000_000, 64, torch.float32, _cfg()) == \
         pytest.approx(13.406, abs=0.01)
-    base = plan.estimate_peak_gb(4_000_000, 64, torch.float32, _cfg())
-    assert plan.estimate_peak_gb(2_000_000, 64, torch.float32, _cfg()) == \
-        pytest.approx(base / 2)
+    base = plan.estimate_peak_gb(4_000_000, 64, torch.float32, _cfg()) - fixed
+    assert plan.estimate_peak_gb(2_000_000, 64, torch.float32, _cfg()) \
+        - fixed == pytest.approx(base / 2)
     assert plan.estimate_peak_gb(4_000_000, 64, torch.float64, _cfg(),
-                                 pad_lanes=True) == pytest.approx(2 * base)
+                                 pad_lanes=True) - fixed == pytest.approx(2 * base)
 
 
 def test_plan_walks_the_ladder_in_order():
