@@ -10,8 +10,10 @@ non-zero; there is no CPU fallback):
                 bsr.cu, copy.cu) with nvcc, one process per source, all at
                 once.
 3. kernel K1  — the 1-D stencil against its plain version at the BdG
-                solve's shapes and the headline gates' widths (160 and
-                320 columns); error, ms and GB/s of both.
+                solve's shapes, the headline gates' widths (160 and
+                320 columns) and the lockstep sweeps' folded blocks
+                ([8M, 30] and [8M, 8] over 16 segments, [2M, 30] and
+                [2M, 8] over 64); error, ms and GB/s of both.
 4. kernel K7  — the streaming copy against its plain version (clone) at
                 [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
                 GB/s, bound, and Tensor.copy_ as the library time.
@@ -116,6 +118,23 @@ non-zero; there is no CPU fallback):
                 oracle, K1 launched, and two of the eight equal to their
                 lone solves (eigenvalues bit for bit, iterations equal);
                 per-problem iterations and wall, the batch's wall and peak.
+20. lockstep  — the same 8 barriers as ONE lockstep ilobpcg (X0 [8, n, 30];
+                A = the shared two-segment Laplacian1D + DiagonalOperator
+                [8, n], B shared, Chebyshev with [8] upper bounds): 16/16
+                within 1e-5 of each oracle, and K1 launched once per batch
+                apply: as often as the longest-running problem applies A
+                alone (its lone solve's launches, fixed plus per
+                iteration); per-problem iterations, the wall beside the
+                batched phase's, the peak, the host syncs an iteration
+                (torch's CUDA sync debug mode), and the tall Gram at its
+                shape three ways (split over rows as ops/gram.py runs
+                it, one strided-batched GEMM, one GEMM per problem: ms
+                and error against float64).  Then 32 barriers in
+                [1, 4] at n 65,536 the same way (oracles through the
+                tridiagonal eigensolver on well_eigs_oracle's matrix,
+                K1 held to the same count), beside lt.batched on 4 of
+                them (its wall, and each problem's wall and host syncs
+                inside it).
 
 Every kernel wrapper counts its launches; each path runs with every
 count set to 0 just before it and read just after.  The second-to-last
@@ -126,10 +145,12 @@ power limit; the last line is the ok record.  Imports nothing of JAX.
 from __future__ import annotations
 
 import dataclasses
+import functools
 import json
 import math
 import subprocess
 import time
+import warnings
 
 import numpy as np
 import scipy.sparse as sp
@@ -147,6 +168,7 @@ from lobpcg_tpu_torch.examples import (
     sharded_solve,
     sparse_3d_laplacian,
 )
+from lobpcg_tpu_torch.ops import gram
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import build as cuda_build
 from lobpcg_tpu_torch.ops.cuda import copy as k7
@@ -188,6 +210,14 @@ N_WIDE, NEV_WIDE, SS_WIDE = 20_000, 150, 256
 BATCH_BARRIERS = (1.0, 1.25, 1.5, 1.75, 2.0, 2.5, 3.0, 4.0)
 N_BATCH, NEV_BATCH, SS_BATCH = 1_000_000, 16, 30
 BATCH_LONE = (0, 7)  # the problems also solved alone
+# The lockstep sweeps: the batched phase's 8 barriers as one lockstep
+# ilobpcg, and 32 barriers of the same well at n 65,536 (where one problem
+# leaves the card idle), 4 of them also through lt.batched.
+LOCK_SMALL_N = 65_536
+LOCK_SMALL_BARRIERS = tuple(float(b) for b in np.linspace(1.0, 4.0, 32))
+LOCK_SMALL_SEQ = 4
+NORM_BLOCK = lt.SolverConfig.norm_block  # the norm estimates' block width (default)
+WELL_MARGIN = 2048  # solve_bdg.well_eigs_oracle's barrier sites each side
 
 # Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32
 # operations/s outside the tensor cores.
@@ -307,9 +337,10 @@ def conv1d_stencil(X, scale, seg):
 
 
 def kernel_phase(dev) -> list[dict]:
-    """K1 against its plain version at the main path's shapes and at the
-    headline gates' widths, and the library yardstick at the BdG solve's
-    [4M, 64] f32 and the gates' [4M, 160] and [4M, 320]."""
+    """K1 against its plain version at the main path's shapes, at the
+    headline gates' widths and at the lockstep sweeps' shapes, and the
+    library yardstick at the BdG solve's [4M, 64] f32 and the gates'
+    [4M, 160] and [4M, 320]."""
     gen = torch.Generator(device=dev).manual_seed(0)
     cases = [
         # (n, k, dtype, segments, edge_rows?)
@@ -323,6 +354,14 @@ def kernel_phase(dev) -> list[dict]:
         # segments, the split-real gate's [4M, 320] over 4.
         (N_MAIN, 160, torch.float32, 2, False),
         (N_MAIN, 320, torch.float32, 4, False),
+        # The lockstep sweeps: a batch apply folds [b, n, k] into one
+        # [b n, k] block over b * 2 segments, at the block width and the
+        # norm estimates' width (no operator packs two blocks: every one
+        # answers apply_width_ok True).
+        *((b * n, k, torch.float32, 2 * b, False)
+          for b, n in ((len(BATCH_BARRIERS), N_BATCH),
+                       (len(LOCK_SMALL_BARRIERS), LOCK_SMALL_N))
+          for k in (SS_BATCH, NORM_BLOCK)),
     ]
     scale = 1.0
     out = []
@@ -1481,8 +1520,7 @@ def batched_phase(dev) -> dict:
     batch_walls = list(walls)
 
     t0 = time.perf_counter()
-    exact = [solve_bdg.well_eigs_oracle(solve_bdg.WELL, NEV_BATCH, b)
-             for b in BATCH_BARRIERS]
+    exact = [well_oracle(b) for b in BATCH_BARRIERS]
     emit({"phase": "host", "what": "the 8 barriers' dense well oracles",
           "seconds": time.perf_counter() - t0})
     lam64 = lam.double().cpu().numpy()
@@ -1514,6 +1552,248 @@ def batched_phase(dev) -> dict:
             raise AssertionError(f"batched problem {i} is not its lone "
                                  f"solve: {v}, {int(it[i])} iterations")
     return rec
+
+
+@functools.cache
+def well_oracle(barrier: float) -> np.ndarray:
+    """solve_bdg.well_eigs_oracle at NEV_BATCH, once per barrier."""
+    return solve_bdg.well_eigs_oracle(solve_bdg.WELL, NEV_BATCH, barrier)
+
+
+def well_oracle_tridiagonal(barrier: float) -> np.ndarray:
+    """The low eigenvalues of well_eigs_oracle's matrix (the well in
+    WELL_MARGIN barrier sites each side) through LAPACK's tridiagonal
+    eigensolver: milliseconds where the dense one takes seconds."""
+    import scipy.linalg as sla
+
+    size = solve_bdg.WELL + 2 * WELL_MARGIN
+    V = np.full(size, barrier + solve_bdg.SHIFT)
+    V[WELL_MARGIN : WELL_MARGIN + solve_bdg.WELL] = solve_bdg.SHIFT
+    return sla.eigvalsh_tridiagonal(2.0 + V, -np.ones(size - 1), select="i",
+                                    select_range=(0, NEV_BATCH - 1))
+
+
+class SyncCount:
+    """The host syncs of a region, counted through torch's CUDA sync debug
+    mode ("warn": one warning per synchronizing call)."""
+
+    def __enter__(self):
+        self._catch = warnings.catch_warnings(record=True)
+        self._seen = self._catch.__enter__()
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        return self
+
+    def so_far(self) -> int:
+        return sum("synchroniz" in str(w.message) for w in self._seen)
+
+    def __exit__(self, *exc):
+        torch.cuda.set_sync_debug_mode("default")
+        self._catch.__exit__(*exc)
+        self.count = self.so_far()
+        return False
+
+
+def lockstep_problem(n: int, barriers, dev):
+    """The well pencil over ``barriers`` as one lockstep problem: the
+    shared two-segment Laplacian1D plus a DiagonalOperator [b, n], the
+    shared B, a Chebyshev filter with [b] upper bounds, X0 [b, n, 30]."""
+    diags, his = [], []
+    for barrier in barriers:
+        A, B, T, X0, _, _ = solve_bdg.well_problem(
+            n, NEV_BATCH, SS_BATCH, dtype=torch.float32, cheb=CHEB_DEGREE,
+            precond=True, device=dev, barrier=barrier)
+        diags.append(A.right.d)
+        his.append(T.hi)
+    A = A.left + lt.DiagonalOperator(torch.stack(diags))
+    T = dataclasses.replace(T, op=A, hi=torch.tensor(his, dtype=torch.float64,
+                                                     device=dev))
+    return A, B, T, X0.expand(len(barriers), *X0.shape).contiguous()
+
+
+def lockstep_sweep(dev, n: int, barriers, cfg, oracle) -> tuple[dict, object]:
+    """One lockstep ilobpcg over ``barriers``: its record (converged,
+    iterations, errors against ``oracle``, wall, peak, launches, host
+    syncs) and the result."""
+    A, B, T, X0 = lockstep_problem(n, barriers, dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with SyncCount() as syncs:
+        r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen)
+        lam64 = r.eigenvalues.double().cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    rel = [float(np.max(np.abs(lam64[i] - e) / np.abs(e)))
+           for i, e in enumerate(oracle(b) for b in barriers)]
+    lock_iters = int(r.iterations.max())
+    return {"n": n, "nev": NEV_BATCH, "size_sub": SS_BATCH,
+            "cheb_degree": CHEB_DEGREE, "tol": TOL, "problems": len(barriers),
+            "barriers": list(barriers), "converged": r.converged.tolist(),
+            "iterations": r.iterations.tolist(),
+            "lockstep_iterations": lock_iters, "max_rel_err": rel,
+            "quality5": r.quality5_count.tolist(),
+            "rr_failed": r.rr_fail_count.tolist(), "wall_s": wall,
+            "launches": counts,
+            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "host_syncs": syncs.count,
+            "host_syncs_per_iteration": syncs.count / max(lock_iters, 1)}, r
+
+
+def lone_solve(dev, n, barrier, cfg, it_cap=None) -> dict:
+    """One problem of a sweep alone (the generator seeded as the batch's):
+    its iterations, K1 launches, host syncs and wall."""
+    A, B, T, X0, _, _ = solve_bdg.well_problem(
+        n, NEV_BATCH, SS_BATCH, dtype=torch.float32, cheb=CHEB_DEGREE,
+        precond=True, device=dev, barrier=barrier)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    torch.cuda.synchronize()
+    zero_counts()
+    t0 = time.perf_counter()
+    with SyncCount() as syncs:
+        r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen, it_cap=it_cap)
+        r.eigenvalues.cpu()  # the result's read, counted as the batch's is
+    torch.cuda.synchronize()
+    return {"iterations": r.iterations, "k1": read_counts()["stencil1d"],
+            "host_syncs": syncs.count, "wall_s": time.perf_counter() - t0}
+
+
+def tall_gram_check(dev) -> dict:
+    """The tall Gram V^H U at the 8 x 1M sweep's shape ([8, 1M, 30] f32,
+    uniform [0, 1) entries: sums of 1M positive terms) three ways: the
+    batched contraction of ops/gram.py (split over rows), one
+    strided-batched GEMM over all the rows, and one GEMM per problem;
+    ms and the largest error of each relative to the largest entry of
+    the float64 product."""
+    gen = torch.Generator(device=dev).manual_seed(1)
+    shape = (len(BATCH_BARRIERS), N_BATCH, SS_BATCH)
+    V = torch.rand(shape, generator=gen, device=dev)
+    U = torch.rand(shape, generator=gen, device=dev)
+    ref = torch.matmul(V.double().mH, U.double())
+    scale = float(ref.abs().max())
+    ways = {
+        "split_rows": lambda: gram._local_hdot(V, U),
+        "strided_batched": lambda: torch.matmul(V.mH, U),
+        "per_problem": lambda: torch.stack(
+            [torch.matmul(V[i].mH, U[i]) for i in range(shape[0])]),
+    }
+    out = {}
+    for name, fn in ways.items():
+        err = float((fn().double() - ref).abs().max()) / scale
+        out[name] = {"ms": time_ms(fn), "max_rel_err": err}
+    del V, U, ref
+    free()
+    return out
+
+
+def k1_accounting(dev, n, barrier, cfg, lock_iters) -> dict:
+    """The K1 launches a lockstep sweep must make, one a batch apply: its
+    longest-running problem alone applies A `fixed` times before its loop
+    (it_cap 0) and `per_it` times an iteration, so the batch launches K1
+    fixed + per_it x its own iterations.  With that lone solve's record."""
+    lone = lone_solve(dev, n, barrier, cfg)
+    fixed = lone_solve(dev, n, barrier, cfg, it_cap=0)["k1"]
+    per_it = (lone["k1"] - fixed) / lone["iterations"]
+    return {"lone": {"iterations": lone["iterations"], "k1_launches": lone["k1"],
+                     "k1_before_loop": fixed, "k1_per_iteration": per_it,
+                     "host_syncs_per_iteration":
+                         lone["host_syncs"] / lone["iterations"],
+                     "wall_s": lone["wall_s"]},
+            "k1_launches_expected": fixed + per_it * lock_iters}
+
+
+def check_sweep(rec) -> None:
+    """A lockstep sweep's checks: 16/16 for every problem within
+    ORACLE_RTOL of its oracle, and K1 launched once a batch apply."""
+    phase, problems = rec["phase"], rec["problems"]
+    if rec["converged"] != [NEV_BATCH] * problems or \
+            not max(rec["max_rel_err"]) <= ORACLE_RTOL:
+        raise AssertionError(f"{phase}: converged {rec['converged']}, max rel "
+                             f"err {rec['max_rel_err']}")
+    if rec["launches"]["stencil1d"] != rec["k1_launches_expected"]:
+        raise AssertionError(f"{phase}: K1 launched "
+                             f"{rec['launches']['stencil1d']} times, the "
+                             f"longest problem's applies are "
+                             f"{rec['k1_launches_expected']}")
+
+
+def lockstep_phase(dev, batched_rec) -> list[dict]:
+    """The batched phase's 8 barriers at 1M x 16 as one lockstep ilobpcg,
+    then 32 barriers at n 65,536 beside lt.batched on 4 of them."""
+    cfg = lt.SolverConfig(nev=NEV_BATCH, size_sub=SS_BATCH, tol=TOL,
+                          max_iter=MAX_ITER, gram_precision="highest")
+    rec, r = lockstep_sweep(dev, N_BATCH, BATCH_BARRIERS, cfg, well_oracle)
+    longest = int(torch.argmax(r.iterations))
+    del r
+    free()
+    rec = {"phase": "lockstep", **rec,
+           "batched_wall_s": batched_rec["wall_s"],
+           "batched_iterations": batched_rec["iterations"],
+           "batched_k1_launches": batched_rec["launches"]["stencil1d"],
+           "longest_problem": longest,
+           **k1_accounting(dev, N_BATCH, BATCH_BARRIERS[longest], cfg,
+                           rec["lockstep_iterations"]),
+           "tall_gram": tall_gram_check(dev)}
+    emit(rec)
+    check_sweep(rec)
+    recs = [rec]
+    free()
+
+    # 32 barriers at n 65,536: the tridiagonal oracle, held against the
+    # dense one where the sweeps share a barrier.
+    for b in (1.0, 4.0):
+        err = float(np.max(np.abs(well_oracle_tridiagonal(b) - well_oracle(b))
+                           / np.abs(well_oracle(b))))
+        if not err <= 1e-12:
+            raise AssertionError(f"tridiagonal oracle off by {err} at {b}")
+    rec, r = lockstep_sweep(dev, LOCK_SMALL_N, LOCK_SMALL_BARRIERS, cfg,
+                            well_oracle_tridiagonal)
+    longest = int(torch.argmax(r.iterations))
+    del r
+    free()
+    acct = k1_accounting(dev, LOCK_SMALL_N, LOCK_SMALL_BARRIERS[longest], cfg,
+                         rec["lockstep_iterations"])
+    # lt.batched on the first few, one problem after another; each
+    # problem's wall and host syncs are read inside the batch's run.
+    gen = torch.Generator(device=dev).manual_seed(0)
+    walls, syncs_each = [], []
+
+    def one(barrier):
+        A, B, T, X0, _, _ = solve_bdg.well_problem(
+            LOCK_SMALL_N, NEV_BATCH, SS_BATCH, dtype=torch.float32,
+            cheb=CHEB_DEGREE, precond=True, device=dev, barrier=float(barrier))
+        torch.cuda.synchronize()
+        t0, s0 = time.perf_counter(), syncs.so_far()
+        r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen)
+        r.eigenvalues.cpu()  # the result's read, counted as the batch's is
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        syncs_each.append(syncs.so_far() - s0)
+        return r.eigenvalues, r.converged, r.iterations
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with SyncCount() as syncs:
+        _, seq_conv, seq_it = lt.batched(one, generators=[gen])(
+            torch.tensor(LOCK_SMALL_BARRIERS[:LOCK_SMALL_SEQ],
+                         dtype=torch.float64))
+    torch.cuda.synchronize()
+    seq_wall = time.perf_counter() - t0
+    rec = {"phase": "lockstep_small", **rec, "longest_problem": longest,
+           **acct,
+           "sequential": {"problems": LOCK_SMALL_SEQ, "wall_s": seq_wall,
+                          "converged": seq_conv.tolist(),
+                          "iterations": seq_it.tolist(),
+                          "wall_s_per_problem": walls,
+                          "host_syncs_per_iteration": [
+                              q / int(it) for q, it in zip(syncs_each, seq_it)]}}
+    emit(rec)
+    check_sweep(rec)
+    recs.append(rec)
+    return recs
 
 
 def kernel_entry(name, launches, recs, at) -> dict:
@@ -1587,7 +1867,9 @@ def main() -> None:
     examples_phase(dev)
     wide_pencil_phase(dev)
     free()
-    batched_phase(dev)
+    batched_rec = batched_phase(dev)
+    free()
+    lockstep_phase(dev, batched_rec)
     free()
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})

@@ -20,7 +20,9 @@ from lobpcg_tpu_torch.operators.linop import LinearOperator
 class ChebyshevFilter(LinearOperator):
     """T ~ A^{-1} on [lo, hi] by `degree` Chebyshev-iteration steps.
 
-    ``lo`` / ``hi`` are Python floats.  ``chunk``: apply the (linear)
+    ``lo`` / ``hi`` are Python floats, or [b] tensors of per-problem
+    bounds for a batched X [b, n, k] (a sweep over the interval, as
+    ``jax.vmap`` maps these data fields).  ``chunk``: apply the (linear)
     recurrence to one contiguous column chunk of that width at a time,
     which bounds the recurrence's ~4 live blocks to [n, chunk] each.
     """
@@ -35,27 +37,41 @@ class ChebyshevFilter(LinearOperator):
         return self.op.apply_width_ok(k)
 
     def matmat(self, X):
-        n, k = X.shape
+        k = X.shape[-1]
         if self.chunk and self.chunk < k and k % self.chunk == 0:
             Y = torch.empty_like(X)
             for j in range(0, k, self.chunk):
-                Y[:, j : j + self.chunk] = self._apply(
-                    X[:, j : j + self.chunk].contiguous()
+                Y[..., j : j + self.chunk] = self._apply(
+                    X[..., j : j + self.chunk].contiguous()
                 )
             return Y
         return self._apply(X)
 
     def _apply(self, X):
-        theta = (self.hi + self.lo) / 2.0
-        delta = (self.hi - self.lo) / 2.0
+        lo, hi = self.lo, self.hi
+        if any(isinstance(v, torch.Tensor) and v.dim() == 1 for v in (lo, hi)):
+            # Per-problem bounds: the recurrence's scalars in float64, as
+            # Python computes them for float bounds, cast to X's dtype
+            # and broadcast over each problem's block.
+            lo, hi = (torch.as_tensor(v, dtype=torch.float64,
+                                      device=X.device).reshape(-1, 1, 1)
+                      for v in (lo, hi))
+
+            def coef(c):
+                return c.to(X.dtype)
+        else:
+            def coef(c):
+                return c
+        theta = (hi + lo) / 2.0
+        delta = (hi - lo) / 2.0
         sigma1 = theta / delta
 
         rho = 1.0 / sigma1
-        d = X / theta
+        d = X / coef(theta)
         y = d
         for _ in range(self.degree - 1):
             rho_next = 1.0 / (2.0 * sigma1 - rho)
-            d = rho_next * rho * d + (2.0 * rho_next / delta) * (
+            d = coef(rho_next * rho) * d + coef(2.0 * rho_next / delta) * (
                 X - self.op.matmat(y)
             )
             y = y + d

@@ -4,6 +4,15 @@
 Operators are plain classes with ``matmat``, ``shape`` and ``dtype``;
 their tensor fields live on the device the solve runs on.  The JAX
 package's pytree registration has no role in torch and is dropped.
+
+Batched blocks (a lockstep batched solve, ``solvers/lobpcg.py``): the
+operators of this module take X as [b, n, k] too.  Their data may carry
+a leading batch dimension, one problem each (``DenseOperator.A``
+[b, n, n], ``DiagonalOperator.d`` / ``JacobiPreconditioner.d`` /
+``BlockAntiDiagOperator.d`` [b, n], ``Laplacian1D.scale`` [b]); data
+without one is shared by the whole batch, as ``jax.vmap`` shares an
+unmapped operand.  An operator of another module that has no batched
+form raises ``NotImplementedError`` on a 3-D X (``unbatched``).
 """
 
 from __future__ import annotations
@@ -19,6 +28,16 @@ from lobpcg_tpu_torch.ops.cuda.stencil import (
     stencil_matmat,
     stencil_matmat_reference,
 )
+
+
+def unbatched(op, X: torch.Tensor) -> None:
+    """Refuse a batched [b, n, k] block in an operator without a batched
+    form, naming it."""
+    if X.dim() != 2:
+        raise NotImplementedError(
+            f"{type(op).__name__} takes an [n, k] block, got "
+            f"{tuple(X.shape)}: the lockstep batched solve does not take "
+            f"this operator yet")
 
 
 class LinearOperator(abc.ABC):
@@ -69,14 +88,14 @@ class LinearOperator(abc.ABC):
 class DenseOperator(LinearOperator):
     """Dense matrix operator."""
 
-    A: torch.Tensor  # [n, n]
+    A: torch.Tensor  # [n, n], or [b, n, n]
 
     def matmat(self, X):
         return torch.matmul(self.A, X)
 
     @property
     def shape(self):
-        return tuple(self.A.shape)
+        return tuple(self.A.shape[-2:])
 
     @property
     def dtype(self):
@@ -87,14 +106,14 @@ class DenseOperator(LinearOperator):
 class DiagonalOperator(LinearOperator):
     """Diagonal operator."""
 
-    d: torch.Tensor  # [n]
+    d: torch.Tensor  # [n], or [b, n]
 
     def matmat(self, X):
-        return self.d[:, None] * X
+        return self.d.unsqueeze(-1) * X
 
     @property
     def shape(self):
-        n = self.d.shape[0]
+        n = self.d.shape[-1]
         return (n, n)
 
     @property
@@ -106,14 +125,14 @@ class DiagonalOperator(LinearOperator):
 class JacobiPreconditioner(LinearOperator):
     """T = diag(d)^{-1}; the standard preconditioner shape for LOBPCG."""
 
-    d: torch.Tensor  # [n] diagonal of A (or an approximation)
+    d: torch.Tensor  # [n] diagonal of A (or an approximation), or [b, n]
 
     def matmat(self, X):
-        return X / self.d[:, None]
+        return X / self.d.unsqueeze(-1)
 
     @property
     def shape(self):
-        n = self.d.shape[0]
+        n = self.d.shape[-1]
         return (n, n)
 
     @property
@@ -132,6 +151,7 @@ class CallableOperator(LinearOperator):
     _dtype: Any = torch.float32
 
     def matmat(self, X):
+        unbatched(self, X)
         return self.fn(X, *self.args)
 
     @property
@@ -148,12 +168,15 @@ class Laplacian1D(LinearOperator):
     """Segmented 1-D Dirichlet Laplacian: block-diag of `segments`
     independent tridiag[-1, 2, -1] * scale stencils (scale = 1/h^2).
 
-    ``scale`` is a Python float (read once, never per apply) and
-    ``dtype`` the operator's dtype.  Dispatch is on the block's device
-    and dtype only: f32/bf16 go through ``stencil_matmat`` (the CUDA
-    kernel for a CUDA tensor, its plain version for a CPU tensor);
-    other dtypes (f64, complex) take the plain pad/slice formula, as the
-    JAX package does for dtypes its kernel does not take.
+    ``scale`` is a Python float (read once, never per apply), or a [b]
+    tensor of per-problem scales for a batch, and ``dtype`` the
+    operator's dtype.  Dispatch is on the block's device and dtype only:
+    f32/bf16 go through ``stencil_matmat`` (the CUDA kernel for a CUDA
+    tensor, its plain version for a CPU tensor); other dtypes (f64,
+    complex) take the plain pad/slice formula, as the JAX package does
+    for dtypes its kernel does not take.  A batched X [b, n, k] is one
+    [b*n, k] block of b*segments segments: one launch for the batch (a
+    [b] scale is one broadcast multiply after it, at scale 1).
     ``pad_lanes`` is accepted for API parity and ignored: it padded
     widths to 128 TPU lanes, and the Hopper kernel takes any width.
     """
@@ -165,13 +188,24 @@ class Laplacian1D(LinearOperator):
     dtype: torch.dtype = torch.float32
 
     def matmat(self, X):
+        if X.dim() == 2:
+            return self._apply(X, self.scale, self.segments)
+        b, n, k = X.shape
+        per_problem = isinstance(self.scale, torch.Tensor) \
+            and self.scale.dim() == 1
+        Y = self._apply(X.reshape(b * n, k),
+                        1.0 if per_problem else self.scale,
+                        b * self.segments).reshape(b, n, k)
+        if per_problem:
+            Y = Y * self.scale.to(Y.dtype)[:, None, None]
+        return Y
+
+    @staticmethod
+    def _apply(X, scale, segments):
         if X.dtype in KERNEL_DTYPES:
-            return stencil_matmat(
-                X.contiguous(), self.scale, num_segments=self.segments
-            )
-        return stencil_matmat_reference(
-            X, self.scale, num_segments=self.segments
-        )
+            return stencil_matmat(X.contiguous(), scale,
+                                  num_segments=segments)
+        return stencil_matmat_reference(X, scale, num_segments=segments)
 
     @property
     def shape(self):
@@ -191,9 +225,10 @@ class BlockDiagOperator(LinearOperator):
     def matmat(self, X):
         m = self.inner.shape[0]
         parts = [
-            self.inner.matmat(X[i * m : (i + 1) * m]) for i in range(self.copies)
+            self.inner.matmat(X[..., i * m : (i + 1) * m, :])
+            for i in range(self.copies)
         ]
-        return torch.cat(parts, dim=0)
+        return torch.cat(parts, dim=-2)
 
     @property
     def shape(self):
@@ -216,7 +251,8 @@ class BlockDiag2Operator(LinearOperator):
     def matmat(self, X):
         m = self.top.shape[0]
         return torch.cat(
-            [self.top.matmat(X[:m]), self.bottom.matmat(X[m:])], dim=0
+            [self.top.matmat(X[..., :m, :]), self.bottom.matmat(X[..., m:, :])],
+            dim=-2,
         )
 
     @property
@@ -231,19 +267,21 @@ class BlockDiag2Operator(LinearOperator):
 
 @dataclasses.dataclass
 class BlockAntiDiagOperator(LinearOperator):
-    """B = {{0, D}, {D, 0}} with D = diag(d): swaps halves and scales."""
+    """B = {{0, D}, {D, 0}} with D = diag(d): swaps halves and scales.
+    A batched X swaps the halves of each problem (dim -2)."""
 
-    d: torch.Tensor  # [m], n = 2m
+    d: torch.Tensor  # [m], n = 2m; or [b, m]
 
     def matmat(self, X):
-        m = self.d.shape[0]
-        top = self.d[:, None] * X[m:]
-        bot = self.d[:, None] * X[:m]
-        return torch.cat([top, bot], dim=0)
+        m = self.d.shape[-1]
+        d = self.d.unsqueeze(-1)
+        top = d * X[..., m:, :]
+        bot = d * X[..., :m, :]
+        return torch.cat([top, bot], dim=-2)
 
     @property
     def shape(self):
-        n = 2 * self.d.shape[0]
+        n = 2 * self.d.shape[-1]
         return (n, n)
 
     @property

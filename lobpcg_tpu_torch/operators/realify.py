@@ -46,6 +46,7 @@ from lobpcg_tpu_torch.operators.linop import (
     JacobiPreconditioner,
     Laplacian1D,
     LinearOperator,
+    unbatched,
 )
 
 
@@ -57,6 +58,7 @@ class RealEmbeddedDenseOperator(LinearOperator):
     Ai: torch.Tensor  # [n, n] imag part (antisymmetric)
 
     def matmat(self, X):
+        unbatched(self, X)
         n = self.Ar.shape[0]
         x, y = X[:n], X[n:]
         return torch.cat(
@@ -81,6 +83,7 @@ class RealEmbeddedDiagonalOperator(LinearOperator):
     di: torch.Tensor
 
     def matmat(self, X):
+        unbatched(self, X)
         n = self.dr.shape[0]
         x, y = X[:n], X[n:]
         dr, di = self.dr[:, None], self.di[:, None]

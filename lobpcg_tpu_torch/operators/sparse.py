@@ -20,7 +20,7 @@ import numpy as np
 import torch
 
 from lobpcg_tpu_torch.config import resolve_device
-from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.operators.linop import LinearOperator, unbatched
 from lobpcg_tpu_torch.ops.cuda.bsr import (
     bsr_matmat,
     bsr_matmat_reference,
@@ -94,6 +94,7 @@ class BSROperator(LinearOperator):
         return R * bs > theta * self.win_vals.shape[2]
 
     def matmat(self, X):
+        unbatched(self, X)
         bs = self.blocks.shape[2]
         if X.dtype == torch.float32 and self.blocks.dtype == torch.float32:
             X = X.contiguous()

@@ -18,7 +18,7 @@ import math
 import numpy as np
 import torch
 
-from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.operators.linop import LinearOperator, unbatched
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 from lobpcg_tpu_torch.ops.cuda.stencil import KERNEL_DTYPES, stencil_matmat
 from lobpcg_tpu_torch.ops.cuda.stencil3d import lap_along
@@ -57,6 +57,7 @@ class LaplacianND(LinearOperator):
     dtype: torch.dtype = torch.float32
 
     def matmat(self, X):
+        unbatched(self, X)
         k = X.shape[1]
         grid = tuple(int(g) for g in self.grid)
         use_kernels = not self.force_jnp and X.dtype in KERNEL_DTYPES

@@ -18,11 +18,13 @@ on exit.
 
 from __future__ import annotations
 
+import functools
 from typing import Optional
 
 import torch
 
 from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.ops import masking
 from lobpcg_tpu_torch.ops.rows import row_sum
 
 # The active Gram precision name ("highest" or "high"), set by
@@ -97,10 +99,10 @@ def apply_block_op_pair(op, U: torch.Tensor, V: torch.Tensor):
     the operator's fast path."""
     if op is None:
         return U, V
-    if _pack_pair_ok(op, U.shape[1], V.shape[1]):
-        ku = U.shape[1]
-        Y = op.matmat(torch.cat([U, V], dim=1))
-        return Y[:, :ku], Y[:, ku:]
+    if _pack_pair_ok(op, U.shape[-1], V.shape[-1]):
+        ku = U.shape[-1]
+        Y = op.matmat(torch.cat([U, V], dim=-1))
+        return Y[..., :ku], Y[..., ku:]
     return op.matmat(U), op.matmat(V)
 
 
@@ -117,7 +119,7 @@ def applied_blocks(op, blocks, pre=None, pack=True):
         j = todo[i]
         if pack and i + 1 < len(todo):
             j2 = todo[i + 1]
-            if _pack_pair_ok(op, blocks[j].shape[1], blocks[j2].shape[1]):
+            if _pack_pair_ok(op, blocks[j].shape[-1], blocks[j2].shape[-1]):
                 applied[j], applied[j2] = apply_block_op_pair(
                     op, blocks[j], blocks[j2]
                 )
@@ -154,18 +156,61 @@ class mixed_chunk_ctx:
         return False
 
 
+# Rows of one piece of a batched tall contraction (_tall_hmm): at most
+# this many, at least _SPLIT_MIN where n has such a divisor.
+_SPLIT_MAX, _SPLIT_MIN = 8192, 1024
+
+
+@functools.lru_cache(maxsize=64)
+def _split_rows(n: int) -> int:
+    """Rows of one piece: n itself up to _SPLIT_MAX, else the largest
+    divisor of n in [_SPLIT_MIN, _SPLIT_MAX], else _SPLIT_MAX (the last
+    n % _SPLIT_MAX rows then make a product of their own)."""
+    if n <= _SPLIT_MAX:
+        return n
+    for r in range(_SPLIT_MAX, _SPLIT_MIN - 1, -1):
+        if n % r == 0:
+            return r
+    return _SPLIT_MAX
+
+
+def _tall_hmm(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """V^H @ U for tall blocks.  A batched pair [b, n, k] is cut into
+    pieces of ``_split_rows(n)`` rows that run as one batched GEMM, and
+    the pieces' products (and that of the rows left over) are summed:
+    cuBLAS's strided-batched GEMM gives each problem's small output to a
+    few thread blocks that run the whole n-long reduction in f32, slow
+    and less accurate than the split over rows its unbatched GEMM
+    makes."""
+    if V.dim() == 2:
+        return torch.matmul(V.mH, U)
+    n = V.shape[-2]
+    r = _split_rows(n)
+    if r == n:
+        return torch.matmul(V.mH, U)
+    m = n - n % r
+    lead = V.shape[:-2]
+    Vs = V[..., :m, :].reshape(lead + (m // r, r, V.shape[-1]))
+    Us = U[..., :m, :].reshape(lead + (m // r, r, U.shape[-1]))
+    out = torch.matmul(Vs.mH, Us).sum(dim=-3)
+    if m < n:
+        out = out + torch.matmul(V[..., m:, :].mH, U[..., m:, :])
+    return out
+
+
 def _local_hdot(V: torch.Tensor, U: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """V^H @ U over the rows at hand.  ``out_dtype`` wider than the
     storage dtype accumulates in that dtype, casting row chunks
     (mixed_chunk_ctx) of both operands."""
     dt = out_dtype if out_dtype is not None else U.dtype
     if dt == V.dtype and dt == U.dtype:
-        return torch.matmul(V.mH, U)
+        return _tall_hmm(V, U)
     rows = _MIXED_CHUNK[0] or _WIDEN_ROWS
-    n = V.shape[0]
+    n = V.shape[-2]
     acc = None
     for j in range(0, n, rows):
-        p = torch.matmul(V[j : j + rows].to(dt).mH, U[j : j + rows].to(dt))
+        p = _tall_hmm(V[..., j : j + rows, :].to(dt),
+                      U[..., j : j + rows, :].to(dt))
         acc = p if acc is None else acc + p
     return acc
 
@@ -183,15 +228,15 @@ def gram_self(
     """G = U^H B U  (B None -> U^H U).  ``chunk``: assemble G column
     block by column block, so only a [n, chunk] B-application transient
     is live at a time."""
-    k = U.shape[1]
+    k = U.shape[-1]
     if chunk is None or B is None or chunk >= k:
         BU = apply_block_op(B, U)
         return _hdot(U, BU, out_dtype)
     cols = []
     for j in range(0, k, chunk):
-        BUj = B.matmat(U[:, j : j + chunk])
+        BUj = B.matmat(U[..., j : j + chunk])
         cols.append(_hdot(U, BUj, out_dtype))
-    return torch.cat(cols, dim=1)
+    return torch.cat(cols, dim=-1)
 
 
 def gram_cross(
@@ -222,14 +267,14 @@ def as_blocks(S, nx: int):
     [n, m] blocks) to a tuple of column blocks."""
     if isinstance(S, (tuple, list)):
         return tuple(S)
-    k = S.shape[1]
-    return tuple(S[:, j : j + nx] for j in range(0, k, nx))
+    k = S.shape[-1]
+    return tuple(S[..., j : j + nx] for j in range(0, k, nx))
 
 
 def blocks_width(S) -> int:
     if isinstance(S, (tuple, list)):
-        return sum(b.shape[1] for b in S)
-    return S.shape[1]
+        return sum(b.shape[-1] for b in S)
+    return S.shape[-1]
 
 
 def blocks_dtype(S):
@@ -240,7 +285,7 @@ def blocks_dtype(S):
 
 def bh_dot(blocks, Y: torch.Tensor, out_dtype=None) -> torch.Tensor:
     """[sum_i k_i, c] stack of blocks_i^H Y."""
-    return torch.cat([_hdot(b, Y, out_dtype) for b in blocks], dim=0)
+    return torch.cat([_hdot(b, Y, out_dtype) for b in blocks], dim=-2)
 
 
 def b_mm(blocks, C: torch.Tensor) -> torch.Tensor:
@@ -248,8 +293,8 @@ def b_mm(blocks, C: torch.Tensor) -> torch.Tensor:
     out = None
     j = 0
     for b in blocks:
-        w = b.shape[1]
-        t = mm(b, C[j : j + w])
+        w = b.shape[-1]
+        t = mm(b, C[..., j : j + w, :])
         out = t if out is None else out + t
         j += w
     return out
@@ -266,7 +311,7 @@ def herm_tile_gram(blocks, applied, out_dtype=None) -> torch.Tensor:
             tiles[i][j] = _hdot(blocks[i], applied[j], out_dtype)
             if i != j:
                 tiles[j][i] = tiles[i][j].mH
-    return torch.cat([torch.cat(row, dim=1) for row in tiles], dim=0)
+    return torch.cat([torch.cat(row, dim=-1) for row in tiles], dim=-2)
 
 
 def gram_blocks(blocks, B: Optional[LinearOperator] = None,
@@ -281,7 +326,7 @@ def gram_blocks(blocks, B: Optional[LinearOperator] = None,
             tiles[i][j] = _hdot(blocks[i], Bb, out_dtype)
             if i != j:
                 tiles[j][i] = tiles[i][j].mH
-    return torch.cat([torch.cat(row, dim=1) for row in tiles], dim=0)
+    return torch.cat([torch.cat(row, dim=-1) for row in tiles], dim=-2)
 
 
 def gram_blocks_pre(blocks, Bblocks, out_dtype=None) -> torch.Tensor:
@@ -292,37 +337,39 @@ def gram_blocks_pre(blocks, Bblocks, out_dtype=None) -> torch.Tensor:
 def scale_diag(G: torch.Tensor):
     """Guarded Jacobi scaling: D_ii = 1/sqrt(|G_ii|), Gs = D G D."""
     rdt = G.real.dtype if G.is_complex() else G.dtype
-    gd = torch.abs(torch.diagonal(G)).to(rdt)
+    gd = torch.abs(torch.diagonal(G, dim1=-2, dim2=-1)).to(rdt)
     pos = gd > 0
     D = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, gd, 1.0)), 1.0)
-    Gs = (D[:, None] * G) * D[None, :].to(G.dtype)
+    Gs = (D[..., :, None] * G) * D[..., None, :].to(G.dtype)
     return D, Gs
 
 
 def frob_norm(X: torch.Tensor) -> torch.Tensor:
-    """Frobenius norm of a k x k (replicated) matrix, in the real dtype."""
-    return torch.sqrt(torch.sum(torch.abs(X) ** 2))
+    """Frobenius norm of a k x k (replicated) matrix, in the real dtype
+    (one per problem of a batch)."""
+    return torch.sqrt(torch.sum(torch.abs(X) ** 2, dim=(-2, -1)))
 
 
 def tall_frob_norm(X: torch.Tensor) -> torch.Tensor:
     """Frobenius norm of a tall [n, k] block, summed over the row group
-    of a sharded solve."""
-    return torch.sqrt(row_sum(torch.sum(torch.abs(X) ** 2)))
+    of a sharded solve (one per problem of a batch)."""
+    return torch.sqrt(row_sum(torch.sum(torch.abs(X) ** 2, dim=(-2, -1))))
 
 
 def ortho_err(G: torch.Tensor, count=None) -> torch.Tensor:
     """||G - I_sig||_F using |G_jj| - 1 on the diagonal (works for +-1
     signature diagonals); off-diagonals counted once (upper triangle).
-    When `count` is given, dead rows/cols (index >= count) are excluded."""
-    k = G.shape[0]
-    diag = torch.diagonal(G)
+    When `count` is given (an int, or one per problem), dead rows/cols
+    (index >= count) are excluded."""
+    k = G.shape[-1]
+    diag = torch.diagonal(G, dim1=-2, dim2=-1)
     diag_err = torch.abs(diag) - 1.0
-    off = G - torch.diag(diag)
+    off = G - masking.diag(diag)
     if count is not None:
-        live = torch.arange(k, device=G.device) < int(count)
-        keep = live[:, None] & live[None, :]
+        live = masking.as_mask(k, count, G.device)
+        keep = live[..., :, None] & live[..., None, :]
         off = off * keep.to(off.dtype)
         diag_err = torch.where(live, diag_err, 0.0)
     upper = torch.triu(torch.ones((k, k), dtype=torch.bool, device=G.device), 1)
-    off2 = torch.sum((torch.abs(off) ** 2) * upper)
-    return torch.sqrt(off2 + torch.sum(diag_err**2))
+    off2 = torch.sum((torch.abs(off) ** 2) * upper, dim=(-2, -1))
+    return torch.sqrt(off2 + torch.sum(diag_err**2, dim=-1))

@@ -5,7 +5,9 @@ The projected pencil solve runs through ops.pencil; the signature sort
 (positives ascending, then negatives descending, then zero-signature
 entries last) is two stable argsorts, since torch has no lexsort.
 Sentinel (masked-coordinate) eigenpairs are detected by their coordinate
-mass, get signature 0, and therefore sort last.
+mass, get signature 0, and therefore sort last.  Batched (``ops/lanes.py``),
+``quality`` and ``rr_ok`` are [b] lanes and the dual-basis stabilization
+runs when some problem needs it.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from lobpcg_tpu_torch.ops import masking
+from lobpcg_tpu_torch.ops import lanes, masking
 from lobpcg_tpu_torch.ops.gram import (
     as_blocks,
     blocks_dtype,
@@ -37,8 +39,8 @@ class IndefiniteRRResult(NamedTuple):
     Cx_ortho: torch.Tensor  # [k, nx] stabilized basis (== Cx when quality ok)
     lam: torch.Tensor  # [nx] real
     sig: torch.Tensor  # [k] i32 signature, sorted order (0 = dead sentinel)
-    quality: int  # 1 good, 5 poor (dual-basis projection)
-    rr_ok: bool  # projected pencil solve succeeded
+    quality: int  # 1 good, 5 poor (dual-basis projection); [b] lanes
+    rr_ok: bool  # projected pencil solve succeeded; [b] lanes
 
 
 def signature_sort(lam: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
@@ -47,20 +49,21 @@ def signature_sort(lam: torch.Tensor, sig: torch.Tensor) -> torch.Tensor:
     two stable argsorts, the secondary key first."""
     group = torch.where(sig > 0, 0, torch.where(sig < 0, 1, 2)).to(torch.int32)
     val = torch.where(sig > 0, lam, torch.where(sig < 0, -lam, 0.0))
-    by_val = torch.argsort(val, stable=True)
-    by_group = torch.argsort(group[by_val], stable=True)
-    return by_val[by_group]
+    by_val = torch.argsort(val, dim=-1, stable=True)
+    by_group = torch.argsort(torch.take_along_dim(group, by_val, dim=-1),
+                             dim=-1, stable=True)
+    return torch.take_along_dim(by_val, by_group, dim=-1)
 
 
 def _b_normalize(V: torch.Tensor, GB: torch.Tensor, tiny: float):
     """Scale columns by 1/sqrt(|diag(V^H GB V)|).  Returns (V_scaled,
     diag); diag carries the signature information."""
     GBV = mm(GB, V)
-    d = torch.sum(V.conj() * GBV, dim=0)
+    d = torch.sum(V.conj() * GBV, dim=-2)
     ad = torch.abs(d)
     big = ad > tiny
     scale = torch.where(big, 1.0 / torch.sqrt(torch.where(big, ad, 1.0)), 1.0)
-    return V * scale[None, :].to(V.dtype), d
+    return V * scale[..., None, :].to(V.dtype), d
 
 
 def indefinite_rayleigh_ritz(
@@ -82,8 +85,8 @@ def indefinite_rayleigh_ritz(
     perm = signature_sort(lam, sig)
     return (
         masking.permute_cols(V, perm).to(X.dtype),
-        lam[perm],
-        sig[perm],
+        torch.take_along_dim(lam, perm, dim=-1),
+        torch.take_along_dim(sig, perm, dim=-1),
         ok,
     )
 
@@ -114,7 +117,7 @@ def indefinite_rayleigh_ritz_modified(
     fallback (svqb_mat-stabilized Cx_ortho).  ``Bblocks``: pre-applied
     (B@X, B@P, B@W)."""
     blocks = as_blocks(S, nx)
-    k = sum(b.shape[1] for b in blocks)
+    k = sum(b.shape[-1] for b in blocks)
     m = nx
     dev = blocks[0].device
     live = masking.blocks_mask((m, m, k - 2 * m), (m, np_act, nw_act), dev)
@@ -142,45 +145,39 @@ def indefinite_rayleigh_ritz_modified(
     sig = torch.where(sent, 0, sig).to(torch.int32)
 
     # Quality check over live eigenvectors.
-    live_cols = (~sent)[None, :].to(V.dtype)
+    live_cols = (~sent)[..., None, :].to(V.dtype)
     Vl = V * live_cols
     GBVl = mm(GB, Vl)
     G2 = mm(Vl.mH, GBVl)
-    g2d = torch.diagonal(G2)
+    g2d = torch.diagonal(G2, dim1=-2, dim2=-1)
     dd = torch.abs(g2d) - torch.where(sent, 0.0, 1.0)
-    E = G2 - torch.diag(g2d) + torch.diag(dd.to(G2.dtype))
+    E = G2 - masking.diag(g2d) + masking.diag(dd.to(G2.dtype))
     eerr = frob_norm(E)
     cerr = frob_norm(Vl)
     bcerr = frob_norm(GBVl)
     quality_ok = (bcerr < tiny) | (eerr <= quality_tol * cerr * bcerr)
-    # One host read for both branch flags.
-    q_ok, rr_ok = torch.stack([quality_ok, rr_ok]).tolist()
+    # One host read for both branch flags (none for lanes).
+    q_ok, rr_ok = lanes.read_pair(quality_ok, rr_ok)
 
     perm = signature_sort(lam_all, sig)
     V = masking.permute_cols(V, perm)
-    lam_all = lam_all[perm]
-    sig = sig[perm]
+    lam_all = torch.take_along_dim(lam_all, perm, dim=-1)
+    sig = torch.take_along_dim(sig, perm, dim=-1)
 
-    Cx = V[:, :nx]
-    lam = lam_all[:nx]
+    Cx = V[..., :nx]
+    lam = lam_all[..., :nx]
     Cp0 = Cx.clone()
-    Cp0[:nx] = 0
+    Cp0[..., :nx, :] = 0
 
-    if q_ok:
-        Cp = ortho_indefinite_mat(
-            Cp0, Cx, GB,
-            eps_ortho=eps_ortho, eps_drop=eps_drop,
-            max_outer=max_outer, max_inner=max_inner,
-        )
-        return IndefiniteRRResult(
-            Cx.to(sdt), Cp.to(sdt), Cx.to(sdt), lam, sig, 1, rr_ok,
-        )
-    Cx_o = svqb_mat(Cx, GB, tau=eps_drop)
+    # Poor quality: iterate a stabilized basis (the dual-basis fallback).
+    Cx_o = lanes.cond(q_ok, lambda: Cx,
+                      lambda: svqb_mat(Cx, GB, tau=eps_drop))
     Cp = ortho_indefinite_mat(
         Cp0, Cx_o, GB,
         eps_ortho=eps_ortho, eps_drop=eps_drop,
         max_outer=max_outer, max_inner=max_inner,
     )
     return IndefiniteRRResult(
-        Cx.to(sdt), Cp.to(sdt), Cx_o.to(sdt), lam, sig, 5, rr_ok,
+        Cx.to(sdt), Cp.to(sdt), Cx_o.to(sdt), lam, sig,
+        lanes.select(q_ok, 1, 5), rr_ok,
     )

@@ -4,7 +4,10 @@
 The outer/inner structure (project against V, SVQB-orthonormalize,
 check Frobenius errors, exit early) is the JAX package's; its
 ``lax.while_loop``s are host loops here, with the same early exits and
-the same caps.  Each loop test reads one device boolean.
+the same caps.  Each loop test reads one device boolean.  Batched, a
+loop runs until every problem is done and a done problem is frozen
+(``ops/lanes.py``), as under a vmapped ``while_loop``: the test still
+reads once for the whole batch.
 """
 
 from __future__ import annotations
@@ -13,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from lobpcg_tpu_torch.ops import masking
+from lobpcg_tpu_torch.ops import lanes, masking
 from lobpcg_tpu_torch.ops.gram import (
     _hdot,
     apply_block_op,
@@ -46,9 +49,16 @@ def _bnorm(B, vb):
     total = None
     for b in vb:
         Bb = apply_block_op(B, b)
-        t = torch.sum(torch.abs(Bb) ** 2)
+        t = torch.sum(torch.abs(Bb) ** 2, dim=(-2, -1))
         total = t if total is None else total + t
     return torch.sqrt(row_sum(total))
+
+
+def _bv_norm(Bvb, eps_ortho):
+    """||B V||_F from the pre-applied blocks (B@X, B@P)."""
+    bv2 = row_sum(sum(torch.sum(torch.abs(Bb) ** 2, dim=(-2, -1))
+                      for Bb in Bvb))
+    return _guard(torch.sqrt(bv2), eps_ortho)
 
 
 def _inner_err_ok(U, BU, G, nu, B, eps_ortho, *, indefinite):
@@ -75,19 +85,24 @@ def _svqb_inner_loop(
     already-orthonormal entry skips the SVQB pass.  Returns (U, BU, nu).
     """
     done = (
-        bool(_inner_err_ok(U, BU0, G0, nu, B, eps_ortho,
-                           indefinite=indefinite))
+        lanes.read(_inner_err_ok(U, BU0, G0, nu, B, eps_ortho,
+                                 indefinite=indefinite))
         if seed_done else False
     )
     BU, G = BU0, G0
     i = 0
-    while i < max_inner and not done:
+    while i < max_inner and not lanes.all_(done):
+        # Lanes that are done keep their state (only a batch holds it).
+        kept = (U, BU, G, nu) if lanes.is_lanes(done) else None
         T, nu = _svqb_transform(G, nu, eps_drop, True, U.dtype)
         U = masking.mask_cols(mm(U, T), nu)
         BU = apply_block_op(B, U)
         G = _hdot(U, BU, rr_dtype)
-        done = bool(_inner_err_ok(U, BU, G, nu, B, eps_ortho,
-                                  indefinite=indefinite))
+        if kept is not None:
+            U, BU, G, nu = lanes.select(done, kept, (U, BU, G, nu))
+            del kept
+        done = done | lanes.read(_inner_err_ok(U, BU, G, nu, B, eps_ortho,
+                                               indefinite=indefinite))
         i += 1
     return U, BU, nu
 
@@ -103,12 +118,12 @@ def _entry_state(U, nu, B, vb, Bvb, BV_norm, eps_ortho, eps_drop,
     G = _hdot(U, BU, rr_dtype)
     D, Gs = scale_diag(G)
     Dc = D.to(U.dtype)
-    U = U * Dc[None, :]
-    BU = BU * Dc[None, :]
-    gd = torch.abs(torch.diagonal(G))
-    live = torch.arange(gd.shape[0], device=gd.device) < int(nu)
-    gmax = torch.max(torch.where(live, gd, 0.0))
-    gmin = torch.min(torch.where(live, gd, float("inf")))
+    U = U * Dc[..., None, :]
+    BU = BU * Dc[..., None, :]
+    gd = torch.abs(torch.diagonal(G, dim1=-2, dim2=-1))
+    live = masking.as_mask(gd.shape[-1], nu, gd.device)
+    gmax = torch.amax(torch.where(live, gd, 0.0), dim=-1)
+    gmin = torch.amin(torch.where(live, gd, float("inf")), dim=-1)
     floor_ok = gmin >= eps_drop * gmax
     ok_self = floor_ok & _inner_err_ok(
         U, BU, Gs, nu, B, eps_ortho, indefinite=indefinite
@@ -119,7 +134,7 @@ def _entry_state(U, nu, B, vb, Bvb, BV_norm, eps_ortho, eps_drop,
     )
     U_norm = _guard(tall_frob_norm(U), eps_ortho)
     rerr = frob_norm(coef) / (BV_norm * U_norm)
-    return U, BU, bool(ok_self & (rerr < eps_ortho))
+    return U, BU, lanes.read(ok_self & (rerr < eps_ortho))
 
 
 def _outer_loop(U, nu, vb, B, Bvb, BV_norm, sig, eps_ortho, eps_drop,
@@ -135,7 +150,9 @@ def _outer_loop(U, nu, vb, B, Bvb, BV_norm, sig, eps_ortho, eps_drop,
     else:
         BU, done = None, False  # the body always runs at least once
     outer = 0
-    while outer < max_outer and not done:
+    while outer < max_outer and not lanes.all_(done):
+        # Lanes that are done keep their state (only a batch holds it).
+        kept = (U, BU, nu) if lanes.is_lanes(done) else None
         coef = (
             bh_dot(Bvb, U) if Bvb is not None else
             bh_dot(vb, apply_block_op(B, U))
@@ -149,10 +166,13 @@ def _outer_loop(U, nu, vb, B, Bvb, BV_norm, sig, eps_ortho, eps_drop,
             U, BU, G0, nu, B, eps_ortho, eps_drop, max_inner,
             indefinite=indefinite, rr_dtype=rr_dtype, seed_done=entry_check,
         )
+        if kept is not None:
+            U, BU, nu = lanes.select(done, kept, (U, BU, nu))
+            del kept
         coef2 = bh_dot(vb, BU)
         U_norm = _guard(tall_frob_norm(U), eps_ortho)
         rerr = frob_norm(coef2) / (BV_norm * U_norm)
-        done = bool(rerr < eps_ortho)
+        done = done | lanes.read(rerr < eps_ortho)
         outer += 1
     if BU is None:  # max_outer == 0: U is returned as it came
         BU = apply_block_op(B, U)
@@ -183,13 +203,12 @@ def ortho_drop(
     projector's B application and sources ||B V||; ``return_bu=True``
     also returns the exit B@U.
     """
-    nu = int(nu)
+    nu = lanes.count(nu)
     del nv
-    vb = as_blocks(V, U.shape[1])
+    vb = as_blocks(V, U.shape[-1])
     U = masking.mask_cols(U, nu)
     if Bvb is not None:
-        bv2 = row_sum(sum(torch.sum(torch.abs(Bb) ** 2) for Bb in Bvb))
-        BV_norm = _guard(torch.sqrt(bv2), eps_ortho)
+        BV_norm = _bv_norm(Bvb, eps_ortho)
     else:
         BV_norm = _guard(_bnorm(B, vb), eps_ortho)
     U, nu, BU = _outer_loop(
@@ -222,15 +241,14 @@ def ortho_indefinite(
     indefinite): the projector is V sig (V^H B U) with sig = V^H B V
     (computed when not supplied).  ``Bvb`` / ``return_bu`` as in
     ortho_drop."""
-    nu = int(nu)
+    nu = lanes.count(nu)
     del nv
-    vb = as_blocks(V, U.shape[1])
+    vb = as_blocks(V, U.shape[-1])
     U = masking.mask_cols(U, nu)
     if Bvb is not None:
         if sig is None:
             sig = herm_tile_gram(vb, Bvb)
-        bv2 = row_sum(sum(torch.sum(torch.abs(Bb) ** 2) for Bb in Bvb))
-        BV_norm = _guard(torch.sqrt(bv2), eps_ortho)
+        BV_norm = _bv_norm(Bvb, eps_ortho)
     else:
         if sig is None:
             sig = gram_blocks(vb, B)
@@ -262,25 +280,24 @@ def ortho_indefinite_mat(
 
     def inner(U):
         i, done = 0, False
-        while i < max_inner and not done:
-            U = svqb_mat(U, mat, tau=eps_drop)
+        while i < max_inner and not lanes.all_(done):
+            U = lanes.select(done, U, svqb_mat(U, mat, tau=eps_drop))
             G = gram_self_mat(U, mat)
             err = ortho_err(G)
             U_norm = _guard(frob_norm(U), eps_ortho)
-            done = bool(err / (U_norm * U_norm) < eps_ortho)
+            done = done | lanes.read(err / (U_norm * U_norm) < eps_ortho)
             i += 1
         return U
 
     outer, done = 0, False
-    while outer < max_outer and not done:
+    while outer < max_outer and not lanes.all_(done):
         c1 = gram_cross_mat(V, U, mat)
         t1 = mm(V, c1)
         c2 = gram_cross_mat(V, t1, mat)
-        U = U - mm(V, c2)
-        U = inner(U)
+        U = lanes.select(done, U, inner(U - mm(V, c2)))
         c3 = gram_cross_mat(V, U, mat)
         U_norm = _guard(frob_norm(U), eps_ortho)
         rerr = frob_norm(c3) / (MV_norm * U_norm)
-        done = bool(rerr < eps_ortho)
+        done = done | lanes.read(rerr < eps_ortho)
         outer += 1
     return U

@@ -11,6 +11,11 @@ of ``lobpcg_tpu/ops/pencil.py``).
 - 'auto': cholesky, with QZ when no definite combination exists.
 
 |beta| (resp. |mu|) below `tiny` maps to +-1e30 sentinels.
+
+Batched (``ops/lanes.py``): the pair is [b, k, k], ``ok`` is [b], the
+ladder runs for the batch when some problem needs it and is selected per
+problem, and the host QZ loops over the problems that need it (the JAX
+package's ``pure_callback(..., vmap_method="sequential")``).
 """
 
 from __future__ import annotations
@@ -20,6 +25,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from lobpcg_tpu_torch.ops import lanes, masking
 from lobpcg_tpu_torch.ops.gram import mm
 from lobpcg_tpu_torch.ops.linalg import eigh
 
@@ -77,16 +83,16 @@ def _whiten_scored(M, live=None):
     s_hi_idx = None
     if live is not None:
         shift = torch.amax(torch.sum(torch.abs(Ms), dim=-1), dim=-1) + 2.0
-        dead_diag = torch.diag((~live).to(Ms.dtype))
+        dead_diag = masking.diag((~live).to(Ms.dtype))
         Ms = Ms * (1.0 - dead_diag) + shift[..., None, None].to(
             Ms.dtype
         ) * dead_diag
-        n_dead = torch.sum(~live)
-        s_hi_idx = torch.clamp(k - 1 - n_dead, 0, k - 1).reshape(1)
+        n_dead = torch.sum(~live, dim=-1)
+        s_hi_idx = torch.clamp(k - 1 - n_dead, 0, k - 1)[..., None]
     s, U = eigh(Ms)  # ascending; shifted dead at the top
     s_hi = (
         s[..., -1] if s_hi_idx is None
-        else torch.index_select(s, -1, s_hi_idx)[..., 0]
+        else torch.take_along_dim(s, s_hi_idx, dim=-1)[..., 0]
     )
     ok = torch.isfinite(s[..., 0]) & (s[..., 0] > 0) & (s_hi > 0)
     s_safe = torch.where(s > 0, s, 1.0)
@@ -105,7 +111,7 @@ def pencil_eig_cholesky(GA, GB, tiny: float, live=None):
     eigh) and the best-conditioned definite one is used, with
     lam = (lam_C - s) / c.  ok=False only when no combination is
     definite; the outputs are then NaN."""
-    k = GA.shape[0]
+    k = GA.shape[-1]
     dt = GA.dtype
     rdt = _real_dtype(dt)
     GAh = 0.5 * (GA + GA.mH)
@@ -113,33 +119,40 @@ def pencil_eig_cholesky(GA, GB, tiny: float, live=None):
 
     F0, ok0, sc0 = _whiten_scored(GAh, live)
     floor = float(np.sqrt(torch.finfo(rdt).eps))
-    if bool(ok0 & (sc0 >= floor)):
-        F, c, s, ok = F0, 1.0, 0.0, ok0
-    else:
-        nGA = torch.sqrt(torch.sum(torch.abs(GAh) ** 2))
-        nGB = torch.sqrt(torch.sum(torch.abs(GBh) ** 2))
+
+    def ladder():
+        nGA = torch.sqrt(torch.sum(torch.abs(GAh) ** 2, dim=(-2, -1)))
+        nGB = torch.sqrt(torch.sum(torch.abs(GBh) ** 2, dim=(-2, -1)))
         rho = torch.where(
             nGB > 0, nGA / torch.where(nGB > 0, nGB, 1.0), 1.0
         )
         cs = torch.tensor(_LADDER_C, dtype=rdt, device=GA.device)
-        ss = torch.tensor(_LADDER_T, dtype=rdt, device=GA.device) * rho
+        ss = torch.tensor(_LADDER_T, dtype=rdt, device=GA.device) \
+            * rho[..., None]
         Cs = (
-            cs[:, None, None].to(dt) * GAh[None]
-            + ss[:, None, None].to(dt) * GBh[None]
+            cs[:, None, None].to(dt) * GAh[..., None, :, :]
+            + ss[..., :, None, None].to(dt) * GBh[..., None, :, :]
         )
-        Fs, oks, scs = _whiten_scored(Cs, live)
-        idx = torch.argmax(scs)  # best-conditioned definite candidate
-        F, c, s, ok = Fs[idx], cs[idx], ss[idx], torch.any(oks)
+        Fs, oks, scs = _whiten_scored(
+            Cs, None if live is None else live[..., None, :])
+        idx = torch.argmax(scs, dim=-1)  # best-conditioned definite candidate
+        F = torch.take_along_dim(Fs, idx[..., None, None, None], dim=-3)
+        s = torch.take_along_dim(ss, idx[..., None], dim=-1)[..., 0]
+        return F[..., 0, :, :], cs[idx], s, torch.any(oks, dim=-1)
+
+    F, c, s, ok = lanes.cond(lanes.read(ok0 & (sc0 >= floor)),
+                             lambda: (F0, 1.0, 0.0, ok0), ladder)
     eye = torch.eye(k, dtype=dt, device=GA.device)
-    F_safe = torch.where(ok, F, eye)
+    F_safe = torch.where(ok[..., None, None], F, eye)
     lam_C, V = _kps_reduce(F_safe, GBh, tiny)
+    c, s = lanes.col(c), lanes.col(s)
     lam = torch.where(
         torch.abs(lam_C) >= 0.5 * BIG,
         torch.sign(lam_C) * c * BIG,
         (lam_C - s) * c,  # c in {+1,-1} so 1/c == c
     ).to(rdt)
-    lam = torch.where(ok, lam, float("nan"))
-    V = torch.where(ok, V, float("nan"))
+    lam = torch.where(ok[..., None], lam, float("nan"))
+    V = torch.where(ok[..., None, None], V, float("nan"))
     return lam, V, ok
 
 
@@ -159,19 +172,35 @@ def _qz_host(GA: np.ndarray, GB: np.ndarray):
     )
 
 
-def pencil_eig_qz(GA, GB, tiny: float):
+def pencil_eig_qz(GA, GB, tiny: float, need=None):
     """GGEV parity path: QZ on the host (scipy), results back on GA's
-    device."""
+    device.  A pair [k, k] is a batch of one.  Batched, one QZ per
+    problem that ``need`` ([b] bool, None = all) names, in turn (the JAX
+    package's ``pure_callback(..., vmap_method="sequential")``); the
+    others get NaN and ok False.  A pair that is not finite raises
+    (scipy's check), alone or in a batch."""
     rdt = _real_dtype(GA.dtype)
-    alpha, beta, VR = _qz_host(
-        GA.detach().cpu().numpy(), GB.detach().cpu().numpy()
-    )
     dev = GA.device
-    alpha = torch.from_numpy(alpha).to(dev)
-    beta = torch.from_numpy(beta).to(dev)
-    lam = _sentinel_lambda(alpha, beta, tiny, rdt)
-    ok = torch.ones((), dtype=torch.bool, device=dev)
-    return lam, torch.from_numpy(VR).to(dev), ok
+    k = GA.shape[-1]
+    GA_h = GA.detach().cpu().numpy().reshape(-1, k, k)
+    GB_h = GB.detach().cpu().numpy().reshape(-1, k, k)
+    b = GA_h.shape[0]
+    need = [True] * b if need is None else need.reshape(-1).tolist()
+    cdt = np.result_type(GA_h.dtype, np.complex64)
+    alpha = np.full((b, k), np.nan, dtype=cdt)
+    beta = np.full((b, k), np.nan, dtype=cdt)
+    VR = np.full((b, k, k), np.nan, dtype=GA_h.dtype)
+    for i in range(b):
+        if need[i]:
+            alpha[i], beta[i], VR[i] = _qz_host(GA_h[i], GB_h[i])
+    ok = torch.tensor(need, device=dev)
+    lam = _sentinel_lambda(torch.from_numpy(alpha).to(dev),
+                           torch.from_numpy(beta).to(dev), tiny, rdt)
+    lam = torch.where(ok[..., None], lam, float("nan"))
+    VR = torch.from_numpy(VR).to(dev)
+    if GA.dim() == 2:
+        return lam[0], VR[0], ok[0]
+    return lam, VR, ok
 
 
 def pencil_eig(
@@ -185,7 +214,10 @@ def pencil_eig(
         return pencil_eig_qz(GA, GB, tiny)
     if method == "auto":
         lam_c, V_c, ok = pencil_eig_cholesky(GA, GB, tiny, live)
-        if bool(ok):
+        if lanes.all_(ok):
             return lam_c, V_c, ok
-        return pencil_eig_qz(GA, GB, tiny)
+        if GA.dim() == 2:
+            return pencil_eig_qz(GA, GB, tiny)
+        return lanes.select(ok, (lam_c, V_c, ok),
+                            pencil_eig_qz(GA, GB, tiny, need=~ok))
     raise ValueError(f"unknown pencil method {method!r}")

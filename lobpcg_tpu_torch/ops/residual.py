@@ -15,7 +15,7 @@ from lobpcg_tpu_torch.operators.linop import LinearOperator
 def col_norms(W: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Column 2-norms of a tall block, summed over the row group of a
     sharded solve."""
-    return torch.sqrt(row_sum(torch.sum(torch.abs(W) ** 2, dim=0,
+    return torch.sqrt(row_sum(torch.sum(torch.abs(W) ** 2, dim=-2,
                                         keepdim=keepdim)))
 
 
@@ -32,7 +32,7 @@ def get_residual(
     W = A.matmat(X) if AX is None else AX
     if BX is None:
         BX = apply_block_op(B, X)
-    return W - BX * lam[None, :].to(BX.dtype)
+    return W - BX * lam[..., None, :].to(BX.dtype)
 
 
 def get_residual_norm(
@@ -46,15 +46,16 @@ def get_residual_norm(
     """Backward-error style relative norms for the first nev columns:
     resNorm[i] = ||W[:, i]|| / (||A|| + |lam_i| * ||B||).  ``BW``
     (pre-applied B @ W[:, :nev]) switches the numerator to the
-    B-seminorm sqrt(|w_i^H B w_i|)."""
+    B-seminorm sqrt(|w_i^H B w_i|).  Batched: the norms are [b]."""
     if BW is not None:
         nom = torch.sqrt(torch.abs(row_sum(
-            torch.sum(W[:, :nev].conj() * BW[:, :nev], dim=0).real
+            torch.sum(W[..., :nev].conj() * BW[..., :nev], dim=-2).real
         )))
     else:
-        nom = col_norms(W[:, :nev])
+        nom = col_norms(W[..., :nev])
     b_norm = torch.where(b_norm > 0, b_norm, 1.0)
-    denom = a_norm + torch.abs(lam[:nev]).to(nom.dtype) * b_norm
+    denom = a_norm[..., None] + torch.abs(lam[..., :nev]).to(nom.dtype) \
+        * b_norm[..., None]
     return (nom / denom).to(nom.dtype)
 
 
@@ -64,16 +65,17 @@ def estimate_norm(
     iters: int = 10,
 ) -> torch.Tensor:
     """||A|| estimate via power iteration from the random start block
-    ``v`` ([n, block]; each column normalized independently, the
-    estimate is the max per-column growth).  The caller draws ``v``
-    (``utils.prng``), where the JAX package passes a key."""
-    nrm0 = col_norms(v)
+    ``v`` ([n, block], or [b, n, block] for a batch; each column
+    normalized independently, the estimate is the max per-column growth,
+    one per problem).  The caller draws ``v`` (``utils.prng``), where the
+    JAX package passes a key."""
+    nrm0 = col_norms(v, keepdim=True)
     v = v / torch.where(nrm0 > 0, nrm0, 1.0).to(v.dtype)
     nrm = nrm0
     for _ in range(iters):
         w = A.matmat(v)
-        nrm = col_norms(w)
+        nrm = col_norms(w, keepdim=True)
         v = torch.where(
             nrm > 0, w / torch.where(nrm > 0, nrm, 1.0).to(w.dtype), w
         )
-    return torch.max(nrm)
+    return torch.amax(nrm, dim=(-2, -1))

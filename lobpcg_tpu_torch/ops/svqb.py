@@ -13,7 +13,7 @@ from typing import Optional
 
 import torch
 
-from lobpcg_tpu_torch.ops import masking
+from lobpcg_tpu_torch.ops import lanes, masking
 from lobpcg_tpu_torch.ops.gram import gram_self, gram_self_mat, mm, scale_diag
 from lobpcg_tpu_torch.ops.linalg import eigh
 from lobpcg_tpu_torch.operators.linop import LinearOperator
@@ -22,7 +22,8 @@ from lobpcg_tpu_torch.operators.linop import LinearOperator
 def _svqb_transform(G, count, tau, drop, dtype):
     """From a Gram matrix (live block only; dead zero) to the fused
     transform T = D * V * D_final with drop compaction.  Internal math
-    runs in G's dtype; T is cast to `dtype`.  Returns (T [k,k], n_kept)."""
+    runs in G's dtype; T is cast to `dtype`.  Returns (T [k,k], n_kept);
+    batched, T is [b, k, k] and n_kept [b] lanes."""
     rdt = G.real.dtype if G.is_complex() else G.dtype
     G = masking.inject_diag(G, count, 1.0)
 
@@ -36,7 +37,7 @@ def _svqb_transform(G, count, tau, drop, dtype):
 
     absw = torch.abs(w)
     live_absw = torch.where(sent, 0.0, absw)
-    maxeig = torch.max(live_absw)
+    maxeig = torch.amax(live_absw, dim=-1, keepdim=True)
     thresh = tau * maxeig
 
     if drop:
@@ -48,7 +49,7 @@ def _svqb_transform(G, count, tau, drop, dtype):
         absw, torch.clamp(thresh, min=torch.finfo(rdt).tiny)
     )
     df = 1.0 / torch.sqrt(floor)
-    T = (D[:, None] * V) * df[None, :].to(V.dtype)
+    T = (D[..., :, None] * V) * df[..., None, :].to(V.dtype)
 
     perm, n_kept = masking.compact_by_flag(dropped)
     T = masking.permute_cols(T, perm)
@@ -79,14 +80,15 @@ def robust_basis_init(X, B, refill, *, tau, rr_dtype=None):
     with dropping, dropped slots refilled with random data, and one more
     SVQB pass.  ``refill`` is a zero-argument function returning the
     random [n, m] block (where the JAX package takes a key); it is
-    called only when a column was dropped."""
-    m = X.shape[1]
+    called only when a column was dropped (batched: in some problem, and
+    every problem gets the same draws, as under ``jax.vmap``)."""
+    m = X.shape[-1]
     X1, kept = svqb(X, m, B, tau=tau, drop=True, rr_dtype=rr_dtype)
-    if kept == m:
+    if lanes.all_(kept == m):
         X2 = X1
     else:
         live = masking.as_mask(m, kept, X.device)
-        X2 = torch.where(live[None, :], X1, refill().to(X.dtype))
+        X2 = torch.where(live[..., None, :], X1, refill().to(X.dtype))
     X3, _ = svqb(X2, m, B, tau=tau, drop=False, rr_dtype=rr_dtype)
     return X3
 
@@ -99,7 +101,7 @@ def svqb_mat(
 ):
     """SVQB against an explicit dense metric; never drops.  All columns
     live; runs entirely in U's dtype."""
-    k = U.shape[1]
+    k = U.shape[-1]
     G = gram_self_mat(U, mat)
     T, _ = _svqb_transform(G, k, tau, False, U.dtype)
     return mm(U, T)

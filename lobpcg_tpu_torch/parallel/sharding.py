@@ -10,7 +10,7 @@ rank's rows and keeps the global ``shape``:
 |---|---|
 | any operator whose n does not divide over the ranks | the operator itself, whole on every rank: the solve runs replicated (``shard_array`` keeps X0 whole too) |
 | DiagonalOperator, JacobiPreconditioner | ``LocalRows``: the local slice |
-| Laplacian1D | ``SpmdLaplacian1D`` (halo exchange + K1) |
+| Laplacian1D | ``SpmdLaplacian1D`` (halo exchange + K1) when its segments align with the shards (``segments_align``); else ``GatheredOperator``, the product XLA's partitioner gives the JAX package under ``spmd_stencil=False`` |
 | BlockDiagOperator of Laplacian1D (+ diagonals) | one segmented stencil, then as above |
 | LaplacianND | ``SpmdLaplacianND`` (plane exchange + the unsharded operator) when nx divides over the ranks, else ``GatheredOperator`` |
 | Sum/Scaled/Shifted/Composed, ChebyshevFilter | the same node over sharded children |
@@ -53,6 +53,7 @@ from lobpcg_tpu_torch.operators.linop import (
     ScaledOperator,
     ShiftedOperator,
     SumOperator,
+    unbatched,
 )
 from lobpcg_tpu_torch.operators.realify import (
     RealEmbeddedDenseOperator,
@@ -113,6 +114,7 @@ class LocalRows(LinearOperator):
     mesh: RowMesh = None
 
     def matmat(self, X):
+        unbatched(self, X)
         return self.op.matmat(X)
 
     @property
@@ -133,6 +135,7 @@ class RowPanelOperator(LinearOperator):
     mesh: RowMesh = None
 
     def matmat(self, X):
+        unbatched(self, X)
         return torch.matmul(self.A, all_gather_rows(self.mesh, X))
 
     @property
@@ -165,6 +168,7 @@ class BSRRowPanelOperator(LinearOperator):
                    op.blocks[rows].to(mesh.device), n=op.n, mesh=mesh)
 
     def matmat(self, X):
+        unbatched(self, X)
         Xg = all_gather_rows(self.mesh, X)
         if X.dtype == torch.float32 and self.blocks.dtype == torch.float32:
             return bsr_matmat(self.block_cols, self.blocks, Xg.contiguous(),
@@ -223,6 +227,7 @@ class ShardedBlockAntiDiagOperator(LinearOperator):
                    n=n, mesh=mesh, copies=c)
 
     def matmat(self, X):
+        unbatched(self, X)
         return self.d[:, None] * permute_rows(self.mesh, X, self.plan)
 
     @property
@@ -262,6 +267,7 @@ class GatheredOperator(LinearOperator):
         return cls(_placed(op, mesh.device), mesh=mesh)
 
     def matmat(self, X):
+        unbatched(self, X)
         n_loc, r = X.shape[0], self.mesh.rank
         Y = self.op.matmat(all_gather_rows(self.mesh, X))
         return Y[r * n_loc : (r + 1) * n_loc]
@@ -353,8 +359,11 @@ def shard_operator(op, mesh: RowMesh):
             f.name: shard_operator(getattr(op, f.name), mesh)
             for f in dataclasses.fields(op)
             if isinstance(getattr(op, f.name), LinearOperator)})
-    if isinstance(op, Laplacian1D) or (isinstance(op, LaplacianND)
-                                       and int(op.grid[0]) % mesh.size == 0):
+    if isinstance(op, Laplacian1D):
+        if segments_align(op.n, op.segments, mesh.size):
+            return use_spmd_stencils(op, mesh)
+        return GatheredOperator.place(op, mesh)
+    if isinstance(op, LaplacianND) and int(op.grid[0]) % mesh.size == 0:
         return use_spmd_stencils(op, mesh)
     if isinstance(op, (LaplacianND, CallableOperator)):
         return GatheredOperator.place(op, mesh)
@@ -371,12 +380,13 @@ def shard_problem(
 ):
     """(A, X0, B, T) placed on the mesh: the sharded operators and this
     rank's rows of X0 (the whole problem on every rank when n does not
-    divide over the ranks).  The JAX package's ``spmd_stencil=False``
-    (let the partitioner derive the halos) has no counterpart: the port
-    has no partitioner, so stencils always exchange explicitly, and a
-    Laplacian1D whose segment boundaries fall inside a shard is refused,
-    as the JAX package refuses it under its default
-    ``spmd_stencil=True``."""
+    divide over the ranks).  The JAX package's ``spmd_stencil`` flag has
+    no counterpart: the port has no partitioner, so the route is the
+    table's, by shape.  A stencil whose segments align with the shards
+    exchanges halos explicitly (the JAX package's default); a
+    Laplacian1D whose segment boundaries fall inside a shard is gathered
+    (``GatheredOperator``), the product the JAX package's partitioner
+    gives it under ``spmd_stencil=False``."""
 
     def prep(op):
         return None if op is None else shard_operator(op, mesh)

@@ -36,7 +36,7 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.operators.linop import LinearOperator, unbatched
 from lobpcg_tpu_torch.ops.cuda.bsr import (
     bsr_matmat,
     bsr_window_matmat,
@@ -198,6 +198,7 @@ class ShardedBSROperator(LinearOperator):
                 and self.dtype == torch.float32)
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
+        unbatched(self, X)
         bs, H = self.bs, self.halo
         nb_loc = self.blocks.shape[0]
         n_loc, k = X.shape

@@ -35,6 +35,7 @@ from lobpcg_tpu_torch.operators.linop import (
     ScaledOperator,
     ShiftedOperator,
     SumOperator,
+    unbatched,
 )
 from lobpcg_tpu_torch.operators.realify import RealEmbeddedDiagonalOperator
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
@@ -124,6 +125,7 @@ class SpmdLaplacian1D(LinearOperator):
     dtype: torch.dtype = torch.float32
 
     def matmat(self, X):
+        unbatched(self, X)
         return stencil_matmat_spmd(
             X, self.scale, self.mesh, num_segments=self.segments, n=self.n,
             pallas=self.pallas)
@@ -146,6 +148,7 @@ class SpmdLaplacianND(LinearOperator):
     dtype: torch.dtype = torch.float32
 
     def matmat(self, X):
+        unbatched(self, X)
         nx, rest = int(self.grid[0]), tuple(int(g) for g in self.grid[1:])
         nd = self.mesh.size
         if nx % nd:

@@ -6,14 +6,13 @@ strength, on one card).
 ``batched(solve)(A_batch, shifts)`` calls ``solve`` once per slice of the
 leading dimension of its tensor arguments and stacks what it returns.
 Under ``jax.vmap`` the JAX package's ``lax.while_loop`` becomes one
-program whose iterations are masked per problem.  The port's solvers are
-a host loop whose branches are Python ``if``s on values read back from
-the device (``solvers/lobpcg.py``), which ``torch.vmap`` cannot carry, so
-each problem here runs the unbatched host loop on the card, one after
-another, and gets exactly its own solve's result.  A lockstep batched
-solver (one set of launches for the whole batch, per-problem masks in the
-style of the JAX package's fixed-shape masking) is later speed work
-(ROADMAP).
+program whose iterations are masked per problem.  That program is the
+port's lockstep route: ``lobpcg``/``ilobpcg`` given an X0 of [b, n, m]
+(``solvers/lobpcg.py``) run the batch as one loop, one set of launches
+for the batch, with per-problem masks.  ``batched`` stays the generic
+map for any function (and for the operators the lockstep route does not
+take): each problem runs the unbatched host loop on the card, one after
+another, and gets exactly its own solve's result.
 
 Random draws: ``jax.vmap`` over a solve with an unbatched key gives every
 problem the same draws.  Pass the generators the solve draws from as

@@ -8,6 +8,10 @@ iteration, the quality=5 dual-basis projection, the B-application cache,
 rr-fail recovery and the optional stall reset.  Beyond the reads the
 ortho loops' early exits and the SVQB kept counts need, each iteration
 reads the RR's two branch flags together and the residual norms once.
+A 3-D X0 runs a lockstep batch, as in ``solvers/lobpcg.py``: the stall
+reset, the rr-fail recovery and the quality-5 dual basis are computed
+for the batch when some live problem takes them and selected per
+problem.
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import torch
 
 from lobpcg_tpu_torch.config import STALL_NOISE, SolverConfig, quality_tol, tiny
 from lobpcg_tpu_torch.operators.linop import LinearOperator
-from lobpcg_tpu_torch.ops import masking
+from lobpcg_tpu_torch.ops import lanes, masking
 from lobpcg_tpu_torch.ops.gram import (
     apply_block_op,
     apply_block_op_pair,
@@ -38,6 +42,7 @@ from lobpcg_tpu_torch.ops.residual import (
 from lobpcg_tpu_torch.ops.svqb import robust_basis_init
 from lobpcg_tpu_torch.solvers import observe
 from lobpcg_tpu_torch.solvers.lobpcg import (
+    _batch,
     _config_of,
     _local_rows,
     _norms,
@@ -55,16 +60,18 @@ def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
     m = config.size_sub
     nev = config.nev
     dtype = A.dtype
+    lead = _batch(X0)  # (b,) for a lockstep batch
+    nb = lead[0] if lead else None
     eps_ortho, eps_drop = config.resolved_eps(dtype)
     rrdt = config.resolved_rr_dtype(dtype)
     tn = tiny(dtype if rrdt is None else rrdt)
     qt = quality_tol(dtype)
 
-    a_norm, b_norm = _norms(A, B, rng, config, n, dtype, device)
+    a_norm, b_norm = _norms(A, B, rng, config, n, dtype, device, lead)
 
     def res_norm(W, lam):
         BW = (
-            apply_block_op(B, W[:, :nev])
+            apply_block_op(B, W[..., :nev])
             if config.residual_norm == "b" else None
         )
         return get_residual_norm(W, lam, a_norm, b_norm, nev, BW)
@@ -86,30 +93,44 @@ def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
     res = res_norm(W, lam)
 
     P = (
-        torch.zeros((n_loc, m), dtype=dtype, device=device) if P0 is None
-        else P0.to(device=device, dtype=dtype)
+        torch.zeros(lead + (n_loc, m), dtype=dtype, device=device)
+        if P0 is None else P0.to(device=device, dtype=dtype)
     )
-    p_cnt = p0_cnt if P0 is not None else 0
-    conv, it, q5, stall = 0, 0, 0, 0
-    rr_fail = int(not bool(rr_ok0))
-    res_best = float(torch.max(res))
-    hist = observe.history_init(config, m, lam.dtype, res.dtype, device)
+    p_cnt = p0_cnt if P0 is not None else lanes.zeros(nb, device)
+    conv = it = q5 = stall = lanes.zeros(nb, device)
+    rr_fail = lanes.as_int(lanes.not_(lanes.read(rr_ok0)))
+    res_best = lanes.read(torch.amax(res, dim=-1))
+    hist = observe.history_init(config, m, lam.dtype, res.dtype, device, lead)
     if not config.use_ax_cache:
         AX = None
 
     limit = config.max_iter if it_cap is None else min(it_cap, config.max_iter)
-    while it < limit and conv < nev:
-        np_act = min(p_cnt, m - conv)
-        nw = m if it == 0 else m - conv
+    g = 0  # lockstep iterations: every live problem's ``it``
+    while True:
+        run = (it < limit) & (conv < nev)
+        some, every = lanes.status(run)
+        if not some:
+            break
+        # Problems that are done stay frozen (see solvers/lobpcg.py).
+        live = True if every else run
+        old = None if every else (X, AX, P, W, lam, sig, res, conv, p_cnt,
+                                  it, q5, stall, rr_fail, res_best)
+        np_act = lanes.minimum(p_cnt, m - conv)
+        nw = lanes.select(it == 0, m, m - conv)
 
         # Stagnation stabilizer (SolverConfig.stall_reset): perturb W
         # with column-norm-scaled noise; dead (zero) columns stay zero.
-        tripped = bool(config.stall_reset) and stall >= config.stall_reset
-        if tripped:
-            z = rng.fill(f"stall{it}", (n, m), dtype, device)
+        # Every live problem of a batch is at iteration g.
+        tripped = False
+        if config.stall_reset:
+            tripped = lanes.settle(stall >= config.stall_reset, live)
+
+        def perturb():
+            z = rng.fill(f"stall{g}", (n, m), dtype, device)
             nrm = col_norms(W, keepdim=True).to(dtype)
-            W = W + z * (STALL_NOISE * nrm)
-            del z
+            return W + z * (STALL_NOISE * nrm)
+
+        W = lanes.cond(tripped, perturb, lambda: W)
 
         if T is not None:
             W = masking.mask_cols(T.matmat(W), nw)
@@ -150,67 +171,81 @@ def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
             rr_dtype=rrdt, Bblocks=Bblocks, pack=config.pack_applies,
         )
         del Bblocks
+        rr_ok = lanes.settle(rr.rr_ok, live)
 
-        if rr.rr_ok:
-            if rr.quality == 1 or not config.dual_basis:
-                Xn = b_mm(blocks, rr.Cx)
-                Pn = b_mm(blocks, rr.Cp)
-                AXn = A.matmat(Xn)
-                Wres = get_residual(Xn, AXn, rr.lam, A, B)
-            else:
-                # Dual basis: residual from the accurate basis, iterate
-                # the stable one.
-                X_acc = b_mm(blocks, rr.Cx)
-                Xn = b_mm(blocks, rr.Cx_ortho)
-                Pn = b_mm(blocks, rr.Cp)
-                AXn = A.matmat(Xn) if config.use_ax_cache else None
-                Wres = get_residual(X_acc, None, rr.lam, A, B)
-                del X_acc
-            lam_n, sig_n = rr.lam, rr.sig[:m]
-        else:
+        def project_good():
+            Xn = b_mm(blocks, rr.Cx)
+            Pn = b_mm(blocks, rr.Cp)
+            AXn = A.matmat(Xn)
+            Wres = get_residual(Xn, AXn, rr.lam, A, B)
+            return Xn, Pn, AXn if config.use_ax_cache else None, Wres
+
+        def project_poor():
+            # Dual basis: residual from the accurate basis, iterate the
+            # stable one.
+            X_acc = b_mm(blocks, rr.Cx)
+            Xn = b_mm(blocks, rr.Cx_ortho)
+            Pn = b_mm(blocks, rr.Cp)
+            AXn = A.matmat(Xn) if config.use_ax_cache else None
+            return Xn, Pn, AXn, get_residual(X_acc, None, rr.lam, A, B)
+
+        def update():
+            if not config.dual_basis:
+                return project_good()
+            return lanes.cond(lanes.settle(rr.quality == 1, live),
+                              project_good, project_poor)
+
+        def recover():
             # The projected pencil solve failed: discard the update, keep
             # X and its eigenvalues, reset the momentum, rebuild W from X.
             Wres = get_residual(X, AX, lam, A, B)
-            Xn, Pn, AXn, lam_n, sig_n = X, torch.zeros_like(P), AX, lam, sig
+            return X, torch.zeros_like(P), AX, Wres
+
+        Xn, Pn, AXn, Wres = lanes.cond(rr_ok, update, recover)
+        lam_n = lanes.select(rr_ok, rr.lam, lam)
+        sig_n = lanes.select(rr_ok, rr.sig[..., :m], sig)
         del blocks, W
-        if not config.use_ax_cache:
-            AXn = None
 
         res = res_norm(Wres, lam_n)
-        res_h = res.tolist()
+        res_max = lanes.read(torch.amax(res, dim=-1))
         convn = masking.prefix_count(res <= config.tol)
 
         act = m - convn
-        p_next = act if rr.rr_ok else 0
+        p_next = lanes.select(rr_ok, act, 0)
         P = masking.shift_cols(Pn, convn, p_next)
         W = masking.shift_cols(Wres, convn, act)
         del Pn, Wres
 
-        observe.log_iteration(config, "ilobpcg", it, lam_n, res, convn)
-        flag = rr.quality + 8 * int(not rr.rr_ok) + 16 * int(tripped)
-        hist = observe.history_update(hist, it, lam_n, res, convn, flag)
+        observe.log_iteration(config, "ilobpcg", g, lam_n, res, convn)
+        failed = lanes.as_int(lanes.not_(rr_ok))
+        flag = rr.quality + 8 * failed + 16 * lanes.as_int(tripped)
+        hist = observe.history_update(hist, g, lam_n, res, convn, flag, live)
 
         # Stall accounting: progress = the converged prefix grew or the
         # worst residual improved 10% on the best seen; an rr-failed
         # iteration jumps straight to the threshold.
-        res_max = max(res_h)
-        improved = convn > conv or res_max < 0.9 * res_best
+        improved = (convn > conv) | (res_max < 0.9 * res_best)
         K = max(config.stall_reset, 1)
-        if improved or tripped:
-            stall = 0
-        else:
-            stall = min(stall + 1 + K * int(not rr.rr_ok), 2 * K)
-        q5 += int(rr.quality == 5 and rr.rr_ok)
-        rr_fail += int(not rr.rr_ok)
-        res_best = min(res_best, res_max)
+        stall = lanes.select(improved | tripped, 0,
+                             lanes.minimum(stall + 1 + K * failed, 2 * K))
+        q5 = q5 + lanes.as_int((rr.quality == 5) & rr_ok)
+        rr_fail = rr_fail + failed
+        res_best = lanes.minimum(res_best, res_max)
         X, AX, lam, sig, conv, p_cnt = Xn, AXn, lam_n, sig_n, convn, p_next
-        it += 1
+        it = it + 1
+        if old is not None:
+            (X, AX, P, W, lam, sig, res, conv, p_cnt, it, q5, stall, rr_fail,
+             res_best) = lanes.select(live, (X, AX, P, W, lam, sig, res, conv,
+                                             p_cnt, it, q5, stall, rr_fail,
+                                             res_best), old)
+            del old
+        g += 1
 
     return ILOBPCGResult(
-        eigenvalues=lam[:nev],
-        eigenvectors=X[:, :nev],
+        eigenvalues=lam[..., :nev],
+        eigenvectors=X[..., :nev],
         residual_norms=res,
-        signature=sig[:nev],
+        signature=sig[..., :nev],
         converged=conv,
         iterations=it,
         basis=X,
@@ -240,8 +275,8 @@ def ilobpcg(
 ) -> ILOBPCGResult:
     """Solve A x = lambda B x with **indefinite** B for the eigenvalues
     closest to the positive spectrum edge (KPS ordering: positive
-    ascending first).  B is required.  Device, ``generator`` and
-    ``draws`` as in ``lobpcg``.
+    ascending first).  B is required.  Device, ``generator``, ``draws``
+    and the lockstep batch (a 3-D X0) as in ``lobpcg``.
     """
     if B is None:
         raise ValueError("ilobpcg: B operator must not be None")

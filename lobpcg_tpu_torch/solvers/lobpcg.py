@@ -7,6 +7,15 @@ blocks keep the JAX package's fixed [n, m] shapes with dead columns
 exactly zero, and the live-column counts are Python ints.  Beyond the
 reads the ortho loops' early exits and the SVQB kept counts need, each
 iteration reads the RR's retry flag and the residual norms once.
+
+Lockstep batched solves (what ``jax.vmap`` gives the JAX package): an
+X0 of shape [b, n, m] solves b problems in one loop, one set of launches
+for the batch.  The per-problem counts and flags are then [b] tensors on
+the device, each branch is computed for the batch when some live problem
+takes it and selected per problem, and a converged or capped problem is
+frozen while the others run (``ops/lanes.py``).  The loop is the same
+code: on a 2-D X0 the helpers reduce to the unbatched host loop.  The
+host reads of an iteration do not grow with b.
 """
 
 from __future__ import annotations
@@ -22,7 +31,7 @@ from lobpcg_tpu_torch.config import (
     validate_problem,
 )
 from lobpcg_tpu_torch.operators.linop import LinearOperator
-from lobpcg_tpu_torch.ops import masking, rows
+from lobpcg_tpu_torch.ops import lanes, masking, rows
 from lobpcg_tpu_torch.ops.gram import (
     apply_block_op,
     apply_block_op_pair,
@@ -54,13 +63,22 @@ def _local_rows(n: int):
     return n_loc, slice(mesh.rank * n_loc, (mesh.rank + 1) * n_loc)
 
 
-def _prepare_p0(P0, A, config):
+def _batch(X0):
+    """The leading shape of a lockstep batched solve: (b,) for an X0 of
+    [b, n, m], () otherwise."""
+    return tuple(X0.shape[:-2]) if X0 is not None else ()
+
+
+def _prepare_p0(P0, A, config, lead=()):
     """Validate and prefix-compact a warm-restart momentum block (this
     rank's rows under a row group): the live P columns must form a
     zero-padded prefix, so nonzero columns move to the front (stable) and
     are counted.  Returns (P0, count)."""
     if P0 is None:
         return None, 0
+    if lead:
+        raise NotImplementedError(
+            "P0 (a warm restart) is not taken by the lockstep batched solve")
     n_loc, _ = _local_rows(A.shape[0])
     if tuple(P0.shape) != (n_loc, config.size_sub):
         raise ValueError(
@@ -75,18 +93,20 @@ def _prepare_p0(P0, A, config):
     return P0, p0_cnt
 
 
-def _norms(A, B, rng, config, n, dtype, device):
-    """(||A||, ||B||) estimates from the draws "norm_a" / "norm_b";
-    ||B|| = 1 when B is None."""
+def _norms(A, B, rng, config, n, dtype, device, lead=()):
+    """(||A||, ||B||) estimates from the draws "norm_a" / "norm_b"
+    (one per problem of a batch, every problem starting from the same
+    draws); ||B|| = 1 when B is None."""
     shape = (n, config.norm_block)
-    a_norm = estimate_norm(
-        A, rng.fill("norm_a", shape, dtype, device), config.norm_iters
-    )
+
+    def start(name):
+        v = rng.fill(name, shape, dtype, device)
+        return v.expand(lead + shape) if lead else v
+
+    a_norm = estimate_norm(A, start("norm_a"), config.norm_iters)
     if B is None:
         return a_norm, torch.ones((), dtype=a_norm.dtype, device=device)
-    b_norm = estimate_norm(
-        B, rng.fill("norm_b", shape, dtype, device), config.norm_iters
-    )
+    b_norm = estimate_norm(B, start("norm_b"), config.norm_iters)
     return a_norm, b_norm
 
 
@@ -103,14 +123,17 @@ def _check_inputs(A, X0, config, it_cap, device):
     validate_problem(A.shape[0], config)
     n_loc, _ = _local_rows(A.shape[0])
     if X0 is not None:
-        if X0.shape[1] != config.size_sub:
+        if X0.dim() not in (2, 3):
+            raise ValueError(f"X0 must be [n, size_sub] or [b, n, size_sub], "
+                             f"got {tuple(X0.shape)}")
+        if X0.shape[-1] != config.size_sub:
             raise ValueError(
-                f"X0 has {X0.shape[1]} columns, expected "
+                f"X0 has {X0.shape[-1]} columns, expected "
                 f"size_sub={config.size_sub}"
             )
-        if X0.shape[0] != n_loc:
+        if X0.shape[-2] != n_loc:
             raise ValueError(
-                f"X0 has {X0.shape[0]} rows, expected {n_loc} (A.shape[0]="
+                f"X0 has {X0.shape[-2]} rows, expected {n_loc} (A.shape[0]="
                 f"{A.shape[0]}{'' if rows.active() is None else ', this rank'})"
             )
         if device is not None and torch.device(device) != X0.device:
@@ -144,8 +167,12 @@ def solve_entry(impl, A, B, T, X0, P0, config, generator, device, draws,
     active mesh, or the mesh of a sharded operator in A, B or T; none
     when n does not divide over its ranks), check
     the inputs against this rank's rows, and run ``impl`` under the
-    config's precision with the random draws cut to this rank's rows."""
+    config's precision with the random draws cut to this rank's rows.
+    A 3-D X0 runs the batch in lockstep (not under a row group)."""
     mesh = rows.active() or rows.find_mesh(A, B, T)
+    if _batch(X0) and mesh is not None:
+        raise NotImplementedError(
+            "the lockstep batched solve does not take sharded problems")
     if mesh is not None and A.shape[0] % mesh.size:
         # Rows that do not divide: shard_problem placed the whole problem
         # on every rank, and each rank solves all of it with no row group
@@ -156,7 +183,7 @@ def solve_entry(impl, A, B, T, X0, P0, config, generator, device, draws,
     with rows.rows_ctx(mesh):
         _check_rr_chunk_unsharded(config, mesh)
         device = _check_inputs(A, X0, config, it_cap, device)
-        P0, p0_cnt = _prepare_p0(P0, A, config)
+        P0, p0_cnt = _prepare_p0(P0, A, config, _batch(X0))
         rng = Draws(generator, draws, rows=_local_rows(A.shape[0])[1])
         with precision_ctx(config.gram_precision), \
                 mixed_chunk_ctx(config.rr_chunk_rows):
@@ -183,14 +210,16 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
     m = config.size_sub
     nev = config.nev
     dtype = A.dtype
+    lead = _batch(X0)  # (b,) for a lockstep batch
+    nb = lead[0] if lead else None
     eps_ortho, eps_drop = config.resolved_eps(dtype)
     rrdt = config.resolved_rr_dtype(dtype)
 
-    a_norm, b_norm = _norms(A, B, rng, config, n, dtype, device)
+    a_norm, b_norm = _norms(A, B, rng, config, n, dtype, device, lead)
 
     def res_norm(W, lam):
         BW = (
-            apply_block_op(B, W[:, :nev])
+            apply_block_op(B, W[..., :nev])
             if config.residual_norm == "b" and B is not None else None
         )
         return get_residual_norm(W, lam, a_norm, b_norm, nev, BW)
@@ -212,12 +241,12 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
         AX = None
 
     P = (
-        torch.zeros((n_loc, m), dtype=dtype, device=device) if P0 is None
-        else P0.to(device=device, dtype=dtype)
+        torch.zeros(lead + (n_loc, m), dtype=dtype, device=device)
+        if P0 is None else P0.to(device=device, dtype=dtype)
     )
-    p_cnt = p0_cnt if P0 is not None else 0
-    conv, use_ortho, it, retries = 0, 0, 0, 0
-    hist = observe.history_init(config, m, lam.dtype, res.dtype, device)
+    p_cnt = p0_cnt if P0 is not None else lanes.zeros(nb, device)
+    conv = use_ortho = it = retries = lanes.zeros(nb, device)
+    hist = observe.history_init(config, m, lam.dtype, res.dtype, device, lead)
     cache_b = config.use_b_cache and B is not None
 
     def do_ortho(W, nw, X, P, np_act, Bvb=None):
@@ -237,15 +266,26 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
         )
 
     limit = config.max_iter if it_cap is None else min(it_cap, config.max_iter)
-    while it < limit and conv < nev:
-        np_act = min(p_cnt, m - conv)
-        nw = m if it == 0 else m - conv
+    g = 0  # lockstep iterations: every live problem's ``it``
+    while True:
+        run = (it < limit) & (conv < nev)
+        some, every = lanes.status(run)
+        if not some:
+            break
+        # Problems that are done stay frozen: their old state is selected
+        # back at the end of the iteration.
+        live = True if every else run
+        old = None if every else (X, AX, P, W, lam, res, conv, p_cnt,
+                                  use_ortho, it, retries)
+        np_act = lanes.minimum(p_cnt, m - conv)
+        nw = lanes.select(it == 0, m, m - conv)
 
         if T is not None:
             W = masking.mask_cols(T.matmat(W), nw)
 
         # With cache_b, B@X and B@P are applied once and threaded
         # through the ortho projector and the RR B-Gram.
+        orth = lanes.settle(use_ortho >= 1, live)
         Bvb = None
         if cache_b:
             if config.pack_applies:
@@ -253,21 +293,22 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
             else:
                 BX, BP = apply_block_op(B, X), apply_block_op(B, P)
             Bvb = (BX, BP)
-            if use_ortho >= 1:
-                W, nw, BW = do_ortho(W, nw, X, P, np_act, Bvb=Bvb)
-            else:
-                BW = apply_block_op(B, W)
+            W, nw, BW = lanes.cond(
+                orth, lambda: do_ortho(W, nw, X, P, np_act, Bvb=Bvb),
+                lambda: (W, nw, apply_block_op(B, W)))
             Bblocks = (BX, BP, BW)
         else:
-            if use_ortho >= 1:
-                W, nw = do_ortho(W, nw, X, P, np_act)
+            W, nw = lanes.cond(orth, lambda: do_ortho(W, nw, X, P, np_act),
+                               lambda: (W, nw))
             Bblocks = None
 
-        rr = rr_modified(W, nw, use_ortho, Bblocks)
+        rr = rr_modified(W, nw, lanes.as_int(orth), Bblocks)
         flag0 = rr.flag
-        if rr.flag == 2:
+        retried = lanes.settle(flag0 == 2, live)
+        if lanes.any_(retried):
             # Cholesky/cond failure: orthogonalize W and retry with the
-            # ortho branch.
+            # ortho branch (in a batch, for the problems that failed).
+            kept = (rr, W, nw) if lanes.is_lanes(retried) else None
             if cache_b:
                 W, nw, BW2 = do_ortho(W, nw, X, P, np_act, Bvb=Bvb)
                 Bblocks = (BX, BP, BW2)
@@ -275,10 +316,11 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
                 W, nw = do_ortho(W, nw, X, P, np_act)
                 Bblocks = None
             rr = rr_modified(W, nw, 1, Bblocks)
-            use_ortho = 1
-        else:
-            use_ortho = max(use_ortho, rr.flag)
-        retries += int(flag0 == 2)
+            if kept is not None:
+                rr, W, nw = lanes.select(retried, (rr, W, nw), kept)
+                del kept
+        use_ortho = lanes.select(retried, 1, lanes.maximum(use_ortho, rr.flag))
+        retries = retries + lanes.as_int(flag0 == 2)
         Bvb = Bblocks = None
 
         blocks = (X, P, W)
@@ -294,19 +336,26 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
 
         # Soft-locking compaction for the next iteration.
         act = m - convn
-        p_next = min(max(rr.p_count - convn, 0), act)
+        p_next = lanes.minimum(lanes.maximum(rr.p_count - convn, 0), act)
         P = masking.shift_cols(Pn, convn, p_next)
         W = masking.shift_cols(Wres, convn, act)
         del Pn, Wres
 
-        observe.log_iteration(config, "lobpcg", it, rr.lam, res, convn)
-        hist = observe.history_update(hist, it, rr.lam, res, convn, flag0)
+        observe.log_iteration(config, "lobpcg", g, rr.lam, res, convn)
+        hist = observe.history_update(hist, g, rr.lam, res, convn, flag0, live)
         X, AX, lam, conv, p_cnt = Xn, AXn, rr.lam, convn, p_next
-        it += 1
+        it = it + 1
+        if old is not None:
+            (X, AX, P, W, lam, res, conv, p_cnt, use_ortho, it,
+             retries) = lanes.select(live, (X, AX, P, W, lam, res, conv,
+                                            p_cnt, use_ortho, it, retries),
+                                     old)
+            del old
+        g += 1
 
     return LOBPCGResult(
-        eigenvalues=lam[:nev],
-        eigenvectors=X[:, :nev],
+        eigenvalues=lam[..., :nev],
+        eigenvectors=X[..., :nev],
         residual_norms=res,
         converged=conv,
         iterations=it,
@@ -337,7 +386,10 @@ def lobpcg(
     """Solve A x = lambda B x for the nev smallest eigenpairs.
 
     B=None gives the standard problem, T is an optional preconditioner,
-    X0 an optional initial guess ([n, size_sub]).  The solve runs on
+    X0 an optional initial guess ([n, size_sub]); an X0 of
+    [b, n, size_sub] solves b problems in lockstep (operator data with a
+    leading batch dimension, ``operators/linop.py``) and every field of
+    the result gains a leading batch dimension.  The solve runs on
     X0's device, or on ``device`` when X0 is None, or on the CUDA card
     when neither is given.  Random fills come
     from ``generator`` (a ``torch.Generator`` on that device; None = the

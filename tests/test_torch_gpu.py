@@ -962,3 +962,99 @@ def test_small_batched_sweep_on_card(cuda_device):
         gen.manual_seed(0)
         lone = solve(barriers[i])
         assert torch.equal(lam[i], lone[0]) and int(it[i]) == lone[2]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("per_problem_scale", [False, True])
+def test_laplacian1d_batched_apply_is_one_k1_launch(cuda_device,
+                                                    per_problem_scale):
+    """Laplacian1D(segments=2) on X [3, 512, 8] f32: one K1 launch over 6
+    segments, equal to the three problems' own applies (a per-problem
+    scale multiplies after K1 at scale 1: 2 ulp)."""
+    scales = [SCALE, 0.5, 2.0]
+    X = torch.from_numpy(np.random.default_rng(3).uniform(
+        -0.5, 0.5, (3, 512, 8))).to(cuda_device, torch.float32)
+    scale = torch.tensor(scales, device=cuda_device) if per_problem_scale \
+        else SCALE
+    op = tl.Laplacian1D(scale, 512, segments=2)
+    before = k1.stencil_matmat.launches
+    Y = op.matmat(X)
+    assert k1.stencil_matmat.launches == before + 1
+    for i in range(3):
+        s = scales[i] if per_problem_scale else SCALE
+        want = tl.Laplacian1D(s, 512, segments=2).matmat(X[i])
+        tol = 2 * torch.finfo(torch.float32).eps * s * float(X.abs().max())
+        assert float((Y[i] - want).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_small_lockstep_sweep_on_card(cuda_device):
+    """The small well sweep of test_small_batched_sweep_on_card as one
+    lockstep ilobpcg (A = shared stencil + DiagonalOperator [3, n],
+    Chebyshev with [3] upper bounds): 4/4 for every barrier, each within
+    the solve's tolerance of its lone solve and at most one iteration
+    apart (f32, batched GEMMs round otherwise), and K1 launched once per
+    batch apply: as the longest problem alone, over the lockstep's
+    iterations."""
+    m, well, nev, ss, dt = 512, 64, 4, 8, torch.float32
+    lo = (m - well) // 2
+    u = np.zeros((m, ss), np.float32)
+    u[lo : lo + well] = np.random.RandomState(42).uniform(-0.5, 0.5, (well, ss))
+    X0 = torch.as_tensor(np.concatenate([u, u]), device=cuda_device)
+    barriers = (1.0, 2.0, 3.0)
+    B = tl.BlockAntiDiagOperator(d=torch.ones(m, dtype=dt, device=cuda_device))
+    lap = tl.Laplacian1D(scale=1.0, n=2 * m, segments=2, dtype=dt)
+    cfg = tl.SolverConfig(nev=nev, size_sub=ss, tol=1e-5, max_iter=300)
+
+    def diag(barrier):
+        V = torch.full((m,), 1.0 + barrier, dtype=dt, device=cuda_device)
+        V[lo : lo + well] = 1.0
+        return torch.cat([V, V])
+
+    def lone(barrier, it_cap=None):
+        A = lap + tl.DiagonalOperator(diag(barrier))
+        T = tl.ChebyshevFilter(op=A, lo=2.0, hi=5.1 + barrier, degree=3)
+        before = k1.stencil_matmat.launches
+        r = tl.ilobpcg(A, X0, B, T, config=cfg, it_cap=it_cap,
+                       generator=torch.Generator(device=cuda_device).manual_seed(0))
+        return r, k1.stencil_matmat.launches - before
+
+    A = lap + tl.DiagonalOperator(torch.stack([diag(b) for b in barriers]))
+    T = tl.ChebyshevFilter(op=A, lo=2.0, hi=torch.tensor(
+        [5.1 + b for b in barriers], dtype=torch.float64, device=cuda_device),
+        degree=3)
+    before = k1.stencil_matmat.launches
+    out = tl.ilobpcg(A, X0.expand(3, *X0.shape).contiguous(), B, T, config=cfg,
+                     generator=torch.Generator(device=cuda_device).manual_seed(0))
+    launches = k1.stencil_matmat.launches - before
+    assert out.converged.tolist() == [nev] * 3
+    assert out.eigenvalues.shape == (3, nev) and out.basis.shape == (3, 2 * m, ss)
+    for i, b in enumerate(barriers):
+        r, _ = lone(b)
+        assert abs(int(out.iterations[i]) - r.iterations) <= 1
+        assert float(((out.eigenvalues[i] - r.eigenvalues).abs()
+                      / r.eigenvalues.abs()).max()) <= cfg.tol
+    longest = int(torch.argmax(out.iterations))
+    r, total = lone(barriers[longest])
+    _, fixed = lone(barriers[longest], it_cap=0)
+    per_it = (total - fixed) // r.iterations
+    assert launches == fixed + per_it * int(out.iterations.max())
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n", [1_000_000, 2 * 500_009])
+def test_batched_tall_gram_split_on_card(cuda_device, n):
+    """The batched tall Gram V^H U ([4, n, 30] f32, uniform [0, 1)
+    entries: sums of n positive terms) against float64, relative to the
+    largest entry: within 1e-5 (the solve's tolerance) at n 1,000,000
+    (8000-row pieces) and at 2 x 500,009, which has no divisor in
+    [1024, 8192] (8192-row pieces and the 594 rows left over).  One
+    strided-batched GEMM over all the rows erred by 1.9e-4 at 1M."""
+    from lobpcg_tpu_torch.ops import gram
+
+    gen = torch.Generator(device=cuda_device).manual_seed(1)
+    V = torch.rand((4, n, 30), generator=gen, device=cuda_device)
+    U = torch.rand((4, n, 30), generator=gen, device=cuda_device)
+    ref = torch.matmul(V.double().mH, U.double())
+    err = float((gram._local_hdot(V, U).double() - ref).abs().max())
+    assert err / float(ref.abs().max()) <= 1e-5

@@ -527,11 +527,11 @@ def test_every_sharded_form_matches_the_unsharded_operator(ranks):
 
 def test_what_has_no_sharded_form_raises():
     """Over 3 ranks the half swap takes the exchange of ``row_plan``, a
-    CallableOperator the gathered form, and operator rows that do not
-    divide stay whole (a replicated solve).  Still refused, as by the JAX
-    package: a Laplacian1D whose segment boundaries fall inside a shard
-    under spmd_stencil=True, a column axis, and a class with no sharded
-    form (a BlockDiagOperator of a DenseOperator)."""
+    CallableOperator the gathered form, a Laplacian1D whose segment
+    boundaries fall inside a shard the gathered form too (the JAX
+    package's spmd_stencil=False), and operator rows that do not divide
+    stay whole (a replicated solve).  Still refused: a column axis, and a
+    class with no sharded form (a BlockDiagOperator of a DenseOperator)."""
     from lobpcg_tpu_torch.parallel.sharding import (
         GatheredOperator,
         ShardedBlockAntiDiagOperator,
@@ -547,8 +547,8 @@ def test_what_has_no_sharded_form_raises():
     assert isinstance(diag, tl.DiagonalOperator) and diag.d.shape == (7,)
     lap = shard_operator(tl.Laplacian1D(1.0, 60, segments=2,
                                         dtype=torch.float64), mesh)
-    with pytest.raises(ValueError, match="segment boundaries"):
-        lap.matmat(torch.zeros((20, 2), dtype=torch.float64))
+    assert isinstance(lap, GatheredOperator) and lap.shape == (60, 60)
+    assert isinstance(lap.op, tl.Laplacian1D) and lap.op.segments == 2
     with pytest.raises(ValueError, match="axis"):
         parallel.row_sharding(mesh, 2, "cols")
     with pytest.raises(NotImplementedError, match="DenseOperator"):

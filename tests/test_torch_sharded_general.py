@@ -13,6 +13,9 @@ JAX package on the same numpy inputs:
   Gaussian condensate in a harmonic trap) unrolled into one two-segment
   stencil, and gathered when its segments do not align with the shards
   or a dipolar term is added;
+- a Laplacian1D whose segment boundaries fall inside a shard (n 96 in
+  two segments over 3 ranks): gathered, the product the JAX package's
+  partitioner gives it under ``shard_problem(..., spmd_stencil=False)``;
 - operators whose rows do not divide over the ranks: the problem is
   placed whole on every rank and solved there with no row group.
 
@@ -145,6 +148,8 @@ def port_op(name):
     if name == "lap_diag":
         return tl.Laplacian1D(lap_scale(60), 60, dtype=F64) \
             + tl.DiagonalOperator(t(np.linspace(0, 1, 60)))
+    if name == "lap_seg2":
+        return tl.Laplacian1D(lap_scale(48), 96, segments=2, dtype=F64)
     if name in ("bdg", "bdg_dipolar"):
         kin, psi, v, dip, _ = bdg_inputs()
         A, _, _, _ = tbdg.bdg_operators(
@@ -169,6 +174,7 @@ PRODUCTS = {
     "bsr_nb15": (120, 3, 8),
     "lapnd": (384, 3, 9),
     "lap_diag": (60, 3, 10),
+    "lap_seg2": (96, 3, 14),
     "bdg": (2 * BDG_M, 3, 11),
     "bdg_dipolar": (2 * BDG_M, 3, 12),
     "bdg_b": (2 * BDG_M, 3, 13),
@@ -184,6 +190,7 @@ SOLVES = {
     "bsr_wide": ("lobpcg", 96, 3, 6, 1e-9, 300, (4,)),
     "lapnd": ("lobpcg", 384, 3, 6, 1e-8, 300, (4,)),
     "lap_diag": ("lobpcg", 60, 3, 6, 1e-9, 300, (4, 5)),
+    "lap_seg2": ("lobpcg", 96, 3, 6, 1e-9, 300, (3,)),
 }
 
 
@@ -307,6 +314,8 @@ def jax_op(name):
     if name == "lap_diag":
         return jl.Laplacian1D(scale=a(lap_scale(60)), n=60) \
             + jl.DiagonalOperator(a(np.linspace(0, 1, 60)))
+    if name == "lap_seg2":
+        return jl.Laplacian1D(scale=a(lap_scale(48)), n=96, segments=2)
     if name in ("bdg", "bdg_dipolar"):
         kin, psi, v, dip, _ = bdg_inputs()
         A, _, _, _ = jbdg.bdg_operators(
@@ -403,6 +412,7 @@ FORMS = {
     "bsr_nb15": {3: "ShardedBSROperator", 4: G, 5: "ShardedBSROperator"},
     "lapnd": {3: "SpmdLaplacianND", 4: G, 5: "LaplacianND"},
     "lap_diag": {w: "SumOperator(SpmdLaplacian1D, LocalRows)" for w in WORLDS},
+    "lap_seg2": {3: G, 4: "SpmdLaplacian1D", 5: "Laplacian1D"},
     "bdg": {3: G, 4: "SumOperator(SpmdLaplacian1D, LocalRows)", 5: G},
     "bdg_dipolar": {w: G for w in WORLDS},
     "bdg_b": {w: BAD for w in WORLDS},
@@ -480,6 +490,38 @@ def test_replicated_solve_from_x0_none_is_the_lone_solve(ranks):
         assert res["iterations"] == lone.iterations
         np.testing.assert_allclose(res["lam"], lone.eigenvalues.numpy(),
                                    rtol=1e-12)
+
+
+def test_segments_inside_a_shard_solve_gathered(ranks, draws):
+    """Laplacian1D(n 96, 2 segments) on 3 ranks: a shard of 32 rows in a
+    segment of 48.  The sharded solve (the gathered form on every rank)
+    equals the port's unsharded solve and the JAX package's
+    shard_problem(..., spmd_stencil=False) solve on its 3-device CPU
+    mesh, eigenvalues to 1e-10 relative."""
+    jax, jnp = _jax()
+    import lobpcg_tpu as jl
+    from lobpcg_tpu.parallel import row_mesh
+    from lobpcg_tpu.parallel import shard_problem as jax_shard_problem
+
+    solver, n, nev, ss, tol, max_iter, _ = SOLVES["lap_seg2"]
+    A, X0, _, _ = port_problem("lap_seg2")
+    lone = tl.lobpcg(A, X0, nev=nev, size_sub=ss, tol=tol, max_iter=max_iter,
+                     draws=draws["lap_seg2"], device="cpu")
+    jA, jX0 = jax_op("lap_seg2"), jnp.asarray(X0.numpy())
+    As, X0s, _, _ = jax_shard_problem(row_mesh(3), jA, jX0,
+                                      spmd_stencil=False)
+    rj = jl.lobpcg(As, X0s, config=jl.SolverConfig(
+        nev=nev, size_sub=ss, tol=tol, max_iter=max_iter),
+        key=jax.random.PRNGKey(0))
+    lam_j = np.asarray(rj.eigenvalues)
+    assert int(rj.converged) == lone.converged == nev
+    np.testing.assert_allclose(lone.eigenvalues.numpy(), lam_j, rtol=1e-10)
+    for rec in (r["solves"]["lap_seg2"] for r in ranks(3)):
+        assert rec["a_form"] == G
+        assert rec["converged"] == nev
+        np.testing.assert_allclose(rec["lam"], lone.eigenvalues.numpy(),
+                                   rtol=1e-10)
+        np.testing.assert_allclose(rec["lam"], lam_j, rtol=1e-10)
 
 
 def test_physics_pencil_forms():
