@@ -9,11 +9,16 @@ non-zero; there is no CPU fallback):
 2. build      — builds the kernels (csrc/stencil1d.cu, stencil3d.cu,
                 bsr.cu, copy.cu) with nvcc, one process per source, all at
                 once.
-3. kernel K1  — the 1-D stencil against its plain version at the BdG
-                solve's shapes, the headline gates' widths (160 and
-                320 columns) and the lockstep sweeps' folded blocks
-                ([8M, 30] and [8M, 8] over 16 segments, [2M, 30] and
-                [2M, 8] over 64); error, ms and GB/s of both.
+3. kernel K1  — the 1-D stencil against its plain version and cuDNN's
+                depthwise conv1d (lobpcg_tpu_torch/tools/
+                stencil_widths.py) at the BdG solve's shapes, the
+                headline gates' widths (160 and 320 columns), the
+                lockstep sweeps' folded blocks ([8M, 30] and [8M, 8]
+                over 16 segments, [2M, 30] and [2M, 8] over 64), a
+                row-sliced X[1:] with edge rows, and f32 widths 1-129
+                and bf16 widths 6, 30, 64 at ~256 MiB of X; error, ms,
+                GB/s and bound of each; fails if an f32 point with X of
+                64 MiB or more runs under half its bound.
 4. kernel K7  — the streaming copy against its plain version (clone) at
                 [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
                 GB/s, bound, and Tensor.copy_ as the library time.
@@ -148,7 +153,6 @@ import dataclasses
 import functools
 import json
 import math
-import subprocess
 import time
 import warnings
 
@@ -180,6 +184,7 @@ from lobpcg_tpu_torch.parallel.sharding import (
     GatheredOperator,
 )
 from lobpcg_tpu_torch.physics.bdg import BlockDiag2Operator
+from lobpcg_tpu_torch.tools import stencil_widths
 from lobpcg_tpu_torch.utils import native
 
 N_MAIN = 4_000_000
@@ -219,10 +224,11 @@ LOCK_SMALL_SEQ = 4
 NORM_BLOCK = lt.SolverConfig.norm_block  # the norm estimates' block width (default)
 WELL_MARGIN = 2048  # solve_bdg.well_eigs_oracle's barrier sites each side
 
-# Published H100 SXM peaks (NVIDIA's data sheet): HBM3 bytes/s and f32
-# operations/s outside the tensor cores.
-HBM_BYTES_PER_S = 3.35e12
-F32_FLOPS = 67e12
+# Published H100 SXM peaks, the bound of each kernel's time, its error
+# and the card's nvidia-smi line, shared with the K1 width sweep.
+HBM_BYTES_PER_S, F32_FLOPS = stencil_widths.HBM_BYTES_PER_S, stencil_widths.F32_FLOPS
+bound, max_abs, card_line = (stencil_widths.bound, stencil_widths.max_abs,
+                             stencil_widths.card_line)
 
 # (wrapper, source, TPU kernel it replaces) of every kernel of the port.
 KERNELS = {
@@ -251,14 +257,6 @@ COLLECTIVES = {"all_reduce": pmesh.all_reduce,
 
 def emit(obj) -> None:
     print(json.dumps(obj), flush=True)
-
-
-def card_line() -> str:
-    return subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit",
-         "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    ).stdout.strip().splitlines()[0]
 
 
 def zero_counts() -> None:
@@ -294,19 +292,6 @@ def timed_untracked(fn) -> float:
             wrapper.launches = counts[name]
 
 
-def bound(nbytes: float, flops: float) -> dict:
-    """The least time the card could take: the larger of the bytes over
-    the HBM rate and the operations over the f32 (non-tensor) peak."""
-    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
-    t_ops = flops / F32_FLOPS * 1e3
-    return {"bound_ms": max(t_bytes, t_ops),
-            "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def max_abs(a, b) -> float:
-    return float(torch.max(torch.abs(a.float() - b.float())))
-
-
 def free() -> None:
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -325,105 +310,21 @@ def build_phase() -> None:
     emit({"phase": "build", "total_s": time.perf_counter() - t0})
 
 
-def conv1d_stencil(X, scale, seg):
-    """K1's yardstick: one depthwise cuDNN conv1d over the same bytes, X
-    viewed as a channels-last [segments, k, n / segments] batch (no edge
-    rows; TF32 off)."""
-    n, k = X.shape
-    w = torch.tensor([-scale, 2.0 * scale, -scale], dtype=X.dtype,
-                     device=X.device).repeat(k, 1, 1)
-    Xc = X.view(seg, n // seg, k).permute(0, 2, 1)
-    return lambda: torch.nn.functional.conv1d(Xc, w, padding=1, groups=k)
-
-
 def kernel_phase(dev) -> list[dict]:
-    """K1 against its plain version at the main path's shapes, at the
-    headline gates' widths and at the lockstep sweeps' shapes, and the
-    library yardstick at the BdG solve's [4M, 64] f32 and the gates'
-    [4M, 160] and [4M, 320]."""
-    gen = torch.Generator(device=dev).manual_seed(0)
-    cases = [
-        # (n, k, dtype, segments, edge_rows?)
-        (N_MAIN, 64, torch.float32, 2, False),
-        (N_MAIN, 64, torch.float32, 2, True),
-        (N_MAIN, 256, torch.float32, 2, False),
-        (N_MAIN, 256, torch.float32, 2, True),
-        (N_MAIN, 64, torch.bfloat16, 2, False),
-        (N_MAIN, 78, torch.float32, 2, True),
-        # The headline gates' widths: the real gate's [4M, 160] over 2
-        # segments, the split-real gate's [4M, 320] over 4.
-        (N_MAIN, 160, torch.float32, 2, False),
-        (N_MAIN, 320, torch.float32, 4, False),
-        # The lockstep sweeps: a batch apply folds [b, n, k] into one
-        # [b n, k] block over b * 2 segments, at the block width and the
-        # norm estimates' width (no operator packs two blocks: every one
-        # answers apply_width_ok True).
-        *((b * n, k, torch.float32, 2 * b, False)
-          for b, n in ((len(BATCH_BARRIERS), N_BATCH),
-                       (len(LOCK_SMALL_BARRIERS), LOCK_SMALL_N))
-          for k in (SS_BATCH, NORM_BLOCK)),
-    ]
-    scale = 1.0
-    out = []
-    for n, k, dt, seg, with_edges in cases:
-        X = (torch.rand((n, k), generator=gen, device=dev) - 0.5).to(dt)
-        E = (
-            (torch.rand((2, k), generator=gen, device=dev) - 0.5).to(dt)
-            if with_edges else None
-        )
-        Y = k1.stencil_matmat(X, scale, E, num_segments=seg)
-        Yp = k1.stencil_matmat_reference(X, scale, E, num_segments=seg)
-        torch.cuda.synchronize()
-        err = max_abs(Y, Yp)
-        # 2 ulp of the storage dtype x |scale| x max|X|.
-        tol = 2 * torch.finfo(dt).eps * abs(scale) * float(
-            torch.max(torch.abs(X.float()))
-        )
-        if not err <= tol:
-            raise AssertionError(
-                f"stencil kernel disagrees at n={n} k={k} {dt}: "
-                f"max_abs_err {err} > {tol}"
-            )
-        del Y, Yp
-        ms = timed_untracked(
-            lambda: k1.stencil_matmat(X, scale, E, num_segments=seg))
-        plain_ms = time_ms(
-            lambda: k1.stencil_matmat_reference(X, scale, E, num_segments=seg)
-        )
-        nbytes = 2 * n * k * X.element_size()
-        rec = {
-            "phase": "kernel", "name": "stencil1d", "n": n, "k": k,
-            "dtype": str(dt).replace("torch.", ""), "segments": seg,
-            "edge_rows": with_edges, "max_abs_err": err, "tol": tol,
-            "ms": ms, "gbps": nbytes / ms / 1e6,
-            "plain_ms": plain_ms, "plain_gbps": nbytes / plain_ms / 1e6,
-            # 2x, two subtractions, one scale: 4 operations per element.
-            **bound(nbytes, 4 * n * k), "library_ms": None,
-        }
-        if dt == torch.float32 and k in (64, 160, 320) and not with_edges:
-            lib = conv1d_stencil(X, scale, seg)
-            tf32 = torch.backends.cudnn.allow_tf32
-            torch.backends.cudnn.allow_tf32 = False
-            try:
-                lib_err = max_abs(
-                    lib().permute(0, 2, 1).reshape(n, k),
-                    k1.stencil_matmat_reference(X, scale, None,
-                                                num_segments=seg))
-                # 8 ulp of the largest output, 4 |scale| max|X|.
-                lib_tol = 16 * tol
-                if not lib_err <= lib_tol:
-                    raise AssertionError(f"conv1d yardstick computes another "
-                                         f"function: {lib_err} > {lib_tol}")
-                rec["library_max_abs_err"] = lib_err
-                rec["library_tol"] = lib_tol
-                rec["library_ms"] = time_ms(lib)
-            finally:
-                torch.backends.cudnn.allow_tf32 = tf32
-        emit(rec)
-        out.append(rec)
-        del X, E
-        free()
-    return out
+    """K1 against its plain version and cuDNN's conv1d
+    (tools/stencil_widths.py): the main path's shapes, the headline
+    gates' widths, the lockstep sweeps' folded blocks, a row-sliced X
+    with edge rows and the width sweep at ~256 MiB of X; raises on a
+    disagreement, and if an f32 point with X >= 64 MiB runs under half
+    its bound."""
+    return stencil_widths.sweep(
+        dev, emit=lambda line: print(line, flush=True),
+        # A batch apply folds [b, n, k] into one [b n, k] block over b * 2
+        # segments, at the block width and the norm estimates' width (no
+        # operator packs two blocks: every one answers apply_width_ok).
+        lockstep=((len(BATCH_BARRIERS), N_BATCH),
+                  (len(LOCK_SMALL_BARRIERS), LOCK_SMALL_N)),
+        lockstep_widths=(SS_BATCH, NORM_BLOCK))
 
 
 def quickstart_phase(dev) -> None:

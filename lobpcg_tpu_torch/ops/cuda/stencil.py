@@ -10,7 +10,12 @@ replaces the zeros above row 0 and below row n-1.
 ``stencil_matmat`` launches the kernel for a CUDA tensor and runs the
 plain version ``stencil_matmat_reference`` only for a CPU tensor.  The
 kernel takes any k >= 1 (the TPU gate ``k % 128 == 0`` is a fact about
-TPU lanes), f32, and bf16 with f32 arithmetic.
+TPU lanes), any element-aligned base (a row slice ``X[1:]`` included),
+f32, and bf16 with f32 arithmetic, all at its streaming rate through one
+design (the header of ``csrc/stencil1d.cu``): X's flat run of n * k
+elements in items of up to one 16-byte vector.  The item width is chosen
+here, by ``items_per_load``, so that the CPU tests can check it; the
+kernel checks it again and refuses one that does not hold.
 """
 
 from __future__ import annotations
@@ -35,9 +40,32 @@ _SYMBOLS = {
 # returns an int cudaError_t).
 SIGNATURES = {
     sym: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
-          ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+          ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+          ctypes.c_void_p]
     for sym in _SYMBOLS.values()
 }
+
+THREADS = 256  # threads a block (csrc/stencil1d.cu: kThreads)
+# X bytes a thread loads before it computes, in at most MAX_ITEMS items
+# (kBytesInFlight, kMaxItems).
+BYTES_IN_FLIGHT, MAX_ITEMS = 32, 8
+
+
+def items_per_load(k: int, itemsize: int, *ptrs: int) -> int:
+    """Elements the kernel loads and stores at once (an item): the largest
+    power of two up to one 16-byte vector that divides k and puts every
+    base in ``ptrs`` (X, Y and the edge rows' addresses) on an item
+    boundary.  An item never straddles two rows."""
+    w = 16 // itemsize
+    while w > 1 and (k % w or any(p % (w * itemsize) for p in ptrs)):
+        w //= 2
+    return w
+
+
+def items_per_thread(w: int, itemsize: int) -> int:
+    """Items a thread loads before it computes: BYTES_IN_FLIGHT of X, in
+    at most MAX_ITEMS."""
+    return min(BYTES_IN_FLIGHT // (w * itemsize), MAX_ITEMS)
 
 
 @functools.cache
@@ -124,19 +152,32 @@ def stencil_matmat(
         raise ValueError("stencil_matmat: X must be contiguous")
     if edge_rows is not None:
         edge_rows = edge_rows.to(X.dtype).contiguous()
-    lib = _lib()
     n, k = X.shape
     Y = torch.empty_like(X)
+    ptrs = [X.data_ptr(), Y.data_ptr()]
+    if edge_rows is not None:
+        ptrs.append(edge_rows.data_ptr())
+    code = launch(X, Y, scale, edge_rows, n // num_segments,
+                  items_per_load(k, X.element_size(), *ptrs))
+    stencil_matmat.launches += 1
+    check(_lib(), code, "stencil1d launch")
+    return Y
+
+
+def launch(X, Y, scale, edge_rows, seg_rows: int, w: int) -> int:
+    """One launch of the kernel on CUDA tensors X, Y (and edge_rows, of
+    X's dtype) in items of ``w`` elements; returns the cudaError_t.  It
+    counts no launch and checks no argument: ``stencil_matmat`` does, and
+    the kernel refuses a ``w`` that does not hold."""
+    lib = _lib()
+    n, k = X.shape
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
-        code = getattr(lib, _SYMBOLS[X.dtype])(
+        return getattr(lib, _SYMBOLS[X.dtype])(
             X.data_ptr(), Y.data_ptr(),
             None if edge_rows is None else edge_rows.data_ptr(),
-            float(scale), n, k, n // num_segments, stream,
+            float(scale), n, k, seg_rows, w, stream,
         )
-    stencil_matmat.launches += 1
-    check(lib, code, "stencil1d launch")
-    return Y
 
 
 stencil_matmat.launches = 0

@@ -30,26 +30,73 @@ def cuda_device():
     return torch.device("cuda", 0)
 
 
+# K1's widths: whole 16-byte vectors or not, the sweeps' 30 and the
+# README's 6 among them.
+K1_WIDTHS = [1, 2, 3, 6, 7, 8, 15, 16, 30, 31, 33, 64, 78, 129, 256]
+
+
+def _k1_check(X, E, segments):
+    """K1 launched once, held to its plain version within 2 ulp of the
+    storage dtype x |scale| x max|X| (the kernel and the plain version do
+    the same f32 operations in the same order)."""
+    before = k1.stencil_matmat.launches
+    y = k1.stencil_matmat(X, SCALE, E, num_segments=segments)
+    assert k1.stencil_matmat.launches == before + 1
+    want = k1.stencil_matmat_reference(X, SCALE, E, num_segments=segments)
+    torch.cuda.synchronize()
+    tol = 2 * torch.finfo(X.dtype).eps * SCALE * float(X.float().abs().max())
+    assert y.dtype == X.dtype and y.shape == X.shape
+    assert float((y.float() - want.float()).abs().max()) <= tol
+
+
 @pytest.mark.gpu
-@pytest.mark.parametrize("k", [1, 8, 64, 78, 256])
+@pytest.mark.parametrize("k", K1_WIDTHS)
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("edges", [False, True])
-def test_kernel_matches_plain_on_card(cuda_device, k, dtype, edges):
-    """Tolerance: 2 ulp of the storage dtype x |scale| x max|X| (the
-    kernel and the plain version do the same f32 operations in the same
-    order)."""
+@pytest.mark.parametrize("sliced", [False, True])
+def test_kernel_matches_plain_on_card(cuda_device, k, dtype, edges, sliced):
+    """Every width, with and without edge rows, on an aligned X and on a
+    row slice X[1:] (k * itemsize bytes past the allocation's start)."""
     rng = np.random.default_rng(k)
-    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (512, k))).to(cuda_device, dtype)
+    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (513, k))).to(cuda_device, dtype)
+    X = X[1:] if sliced else X[:512]
     E = (torch.from_numpy(rng.uniform(-0.5, 0.5, (2, k))).to(cuda_device, dtype)
          if edges else None)
-    before = k1.stencil_matmat.launches
-    y = k1.stencil_matmat(X, SCALE, E, num_segments=2)
-    assert k1.stencil_matmat.launches == before + 1
-    want = k1.stencil_matmat_reference(X, SCALE, E, num_segments=2)
+    _k1_check(X, E, 2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,k,segments", [
+    (3_000_000, 1, 8),     # thousands of blocks
+    (1_000_000, 3, 64),
+    (300_000, 30, 16),
+    (4096, 3000, 4),       # rows longer than a block's chunk
+    (64, 9000, 2),
+    (1024, 7, 1024),       # one-row segments
+])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernel_many_blocks_and_wide_rows_on_card(cuda_device, n, k, segments,
+                                                  dtype):
+    """A row slice X[1:] (items narrowed to its alignment) with edge rows."""
+    gen = torch.Generator(device=cuda_device).manual_seed(n + k)
+    X = (torch.rand((n + 1, k), generator=gen, device=cuda_device) - 0.5)
+    X = X.to(dtype)[1:]
+    E = (torch.rand((2, k), generator=gen, device=cuda_device) - 0.5).to(dtype)
+    _k1_check(X, E, segments)
+
+
+@pytest.mark.gpu
+def test_kernel_refuses_items_its_bases_do_not_hold(cuda_device):
+    """X[1:] of [n, 30] f32 lies 120 bytes past its allocation: items of
+    2 elements (8 bytes) fit it, items of 4 do not, and the kernel
+    returns cudaErrorInvalidValue for them rather than reading across."""
+    X = torch.zeros((65, 30), device=cuda_device)[1:]
+    Y = torch.empty_like(X)
+    assert k1.items_per_load(30, 4, X.data_ptr(), Y.data_ptr()) == 2
+    assert k1.launch(X, Y, 1.0, None, 64, 2) == 0
+    assert k1.launch(X, Y, 1.0, None, 64, 4) != 0
+    assert k1.launch(X, Y, 1.0, None, 64, 3) != 0
     torch.cuda.synchronize()
-    tol = 2 * torch.finfo(dtype).eps * SCALE * float(X.float().abs().max())
-    assert y.dtype == dtype and y.shape == X.shape
-    assert float((y.float() - want.float()).abs().max()) <= tol
 
 
 @pytest.mark.gpu

@@ -45,6 +45,7 @@ def test_import_pulls_in_no_jax():
         "import lobpcg_tpu_torch.tools.plan_anchors\n"
         "import lobpcg_tpu_torch.tools.profile_well\n"
         "import lobpcg_tpu_torch.tools.convergence_trace\n"
+        "import lobpcg_tpu_torch.tools.stencil_widths\n"
         "import lobpcg_tpu_torch.ops.rows\n"
         "import lobpcg_tpu_torch.solvers.batched\n"
         "import lobpcg_tpu_torch.parallel, lobpcg_tpu_torch.parallel.mesh\n"
