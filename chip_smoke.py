@@ -38,15 +38,32 @@ non-zero; there is no CPU fallback):
                 through its split-real embedding, n 1,000,000, nev 16:
                 16/16 complex pairs within 1e-5; must go through K1.
 10. kernel K2  — the fused 3-D stencil against its plain version at the
-                160^3 grid (k 16, 48, 128 f32; 16 bf16) and an odd grid.
+                160^3 grid (k 16, 48, 128 f32; 16 bf16) and an odd grid;
+                then one launch over a batch [4, 160^3, 16] (the
+                lockstep_nd block) against its plain version, its 4 lone
+                launches (bit for bit) and cuDNN conv3d with N 4.
 11. host / kernel K3 — the 160^3 Laplacian's CSR and BSROperator (host
                 seconds on their own lines); K3 on its block-ELL at k 16
-                and 48.
+                and 48, and one launch over a batch of 4 at k 16 against
+                its plain version, its 4 lone launches and
+                torch.sparse.mm on the block folded to [n, 64].
 12. laplacian3d — standard lobpcg at the 160^3 grid (n 4,096,000), nev 10,
                 size_sub 16, tol 1e-5, max_iter 2000, f32, twice from one
                 X0: through
                 LaplacianND (K2) and through BSROperator.from_csr (K3),
                 against laplacian_nd_eigs.
+    lockstep_nd — 4 problems on that grid as one lockstep lobpcg: A_p =
+                the shared LaplacianND + DiagonalOperator [4, n] of the
+                separable anisotropic trap c_p ((x-1/2)^2 + 1.3 (y-1/2)^2
+                + 1.7 (z-1/2)^2), c_p in TRAP_C (c 0: the laplacian3d
+                problem), laplacian3d's config and X0: 10/10 each within
+                tol * lam_max of its separable oracle (three 1-D
+                tridiagonal spectra), K2 launched once a batch apply (the
+                longest problem's applies); problem 0's iterations beside
+                the lone solve's, the wall beside it, the peak beside 4 x
+                estimate_peak_gb, the host syncs an iteration.
+    lockstep_bsr — the same sweep through the BSROperator (K3), over the
+                first 2 strengths (LOCK3_BSR_PROBLEMS).
     k3_frame  — that BSROperator sharded at world size 1 (no window plan):
                 one apply must launch K3 once, on its halo frame; timed
                 beside the gather + einsum it replaced and the unsharded
@@ -67,7 +84,12 @@ non-zero; there is no CPU fallback):
                 rows; torch.sparse.mm beside them) and on the band-72
                 matrix (window 512): the crossing behind
                 BSROperator.window_pays, with one matmat apply at each
-                width that must launch the kernel the rule names.
+                width that must launch the kernel the rule names; then K5
+                over a batch [4, n, 16] on the band-72 matrix against its
+                plain version, its 4 lone launches and torch.sparse.mm
+                on the folded block, and a batch of 4 through its
+                BSROperator.matmat at k 16 and 48 (one K3, one K5 launch:
+                the rule asked at one problem's width).
 14. k6        — that SPD band cut into 4 virtual row shards by
                 parallel.plan_shards (halo 3 blocks, window 384 rows), the
                 halos cut from the global X: per shard K6 equal to K5 on
@@ -140,6 +162,15 @@ non-zero; there is no CPU fallback):
                 K1 held to the same count), beside lt.batched on 4 of
                 them (its wall, and each problem's wall and host syncs
                 inside it).
+21. lockstep_callable — examples/fft_matrix_free.py's CallableOperator
+                (and its Fourier-space preconditioner) over 3 shifts of
+                its spectrum (mapped, in_axes (0,)) as one lockstep
+                solve, against each shift's lone solve and exact spectrum.
+22. lockstep_realify — the realify phase's complex pencil over 4
+                barriers at n 262,144 (cut from 1M) through
+                realify_problem (RealEmbeddedDiagonalOperator [4, m]) as
+                one lockstep split-real ilobpcg: 16/16 pairs each within
+                1e-5 of its oracle and of its lone solve.
 
 Every kernel wrapper counts its launches; each path runs with every
 count set to 0 just before it and read just after.  The second-to-last
@@ -154,6 +185,7 @@ import functools
 import json
 import math
 import time
+import types
 import warnings
 
 import numpy as np
@@ -223,6 +255,25 @@ LOCK_SMALL_BARRIERS = tuple(float(b) for b in np.linspace(1.0, 4.0, 32))
 LOCK_SMALL_SEQ = 4
 NORM_BLOCK = lt.SolverConfig.norm_block  # the norm estimates' block width (default)
 WELL_MARGIN = 2048  # solve_bdg.well_eigs_oracle's barrier sites each side
+# The lockstep 3-D sweeps: problems on the 160^3 grid, A_p = the shared
+# Laplacian (LaplacianND, K2; BSROperator, K3) + the separable anisotropic
+# trap c_p ((x-1/2)^2 + 1.3 (y-1/2)^2 + 1.7 (z-1/2)^2); c_0 = 0 is the
+# laplacian3d problem.  To first order the trap lifts the lowest
+# eigenvalue (29.6 at c 0) by 0.131 c (<(x-1/2)^2> = 1/12 - 1/(2 pi^2)
+# on each axis, weighted 1 + 1.3 + 1.7), so each strength moves the low
+# spectrum by more than its spacing; the phases print each oracle's.
+TRAP_C = (0.0, 300.0, 1000.0, 3000.0)
+TRAP_W = (1.0, 1.3, 1.7)
+# The lockstep_bsr sweep: the first 2 of TRAP_C.  At 4 it took 95.4 s
+# (NVIDIA H100 80GB HBM3, 700.00 W; PERF.md), which put the new phases
+# over their ~150 s; problem 0 sets the sweep's length either way.
+LOCK3_BSR_PROBLEMS = 2
+# The small lockstep runs of the other routes: the FFT example's operator
+# over three shifts, and the realify phase's pencil over four barriers at
+# n cut from 1M.
+FFT_SHIFTS = (0.0, 1.5, 4.0)
+REALIFY_BATCH_N = 262_144
+REALIFY_BARRIERS = (1.0, 1.5, 2.5, 4.0)
 
 # Published H100 SXM peaks, the bound of each kernel's time, its error
 # and the card's nvidia-smi line, shared with the K1 width sweep.
@@ -472,14 +523,15 @@ def well_solve_phase(dev, phase: str, n: int, nev: int, size_sub: int,
 
 def conv3d_stencil(X, scale, grid):
     """The yardstick: one depthwise cuDNN conv3d over the same bytes, X
-    viewed as a channels-last [1, k, nx, ny, nz] volume (TF32 off)."""
+    ([n, k] or a batch [b, n, k]) viewed as a channels-last
+    [b, k, nx, ny, nz] volume (TF32 off)."""
     nx, ny, nz = grid
-    k = X.shape[1]
+    k = X.shape[-1]
     w = torch.zeros((k, 1, 3, 3, 3), dtype=X.dtype, device=X.device)
     w[:, 0, 1, 1, 1] = 6.0 * scale
     for idx in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
         w[(slice(None), 0) + idx] = -scale
-    Xc = X.view(1, nx, ny, nz, k).permute(0, 4, 1, 2, 3)
+    Xc = X.view(-1, nx, ny, nz, k).permute(0, 4, 1, 2, 3)
     return lambda: torch.nn.functional.conv3d(Xc, w, padding=1, groups=k)
 
 
@@ -531,6 +583,93 @@ def k2_phase(dev) -> list[dict]:
         del X
         free()
     return out
+
+
+def batched_check(name, b, launch, lone, plain, tol, nbytes, ops, lib,
+                  info=None) -> dict:
+    """A batched launch [b, n, k] (b problems sharing the grid or the
+    matrix) against its plain version (within ``tol``) and against its b
+    lone launches (each problem's Y equal to the bit); timed beside the b
+    lone launches, the plain version and the library call ``lib``; its
+    bound from ``nbytes`` and ``ops``; ``info``: keys added."""
+    Y, Yp = launch(), plain()
+    L = [lone(i) for i in range(b)]
+    torch.cuda.synchronize()
+    rec = {"phase": "kernel", "name": name, "batch": b,
+           "shape": list(Y.shape), "max_abs_err": max_abs(Y, Yp), "tol": tol,
+           "equal_to_lone_launches": all(torch.equal(Y[i], L[i])
+                                         for i in range(b)), **(info or {})}
+    finite = bool(torch.isfinite(Y).all())
+    del Y, Yp, L
+    free()
+    if not (finite and rec["max_abs_err"] <= tol
+            and rec["equal_to_lone_launches"]):
+        emit(rec)
+        raise AssertionError(f"batched {name}: {rec}")
+    rec.update({"ms": timed_untracked(launch),
+                "lone_launches_ms": timed_untracked(
+                    lambda: [lone(i) for i in range(b)]),
+                "plain_ms": time_ms(plain), **bound(nbytes, ops),
+                "library_ms": time_ms(lib)})
+    emit(rec)
+    return rec
+
+
+def k2_batched_check(dev) -> dict:
+    """K2 over the lockstep_nd phase's block, len(TRAP_C) problems on the
+    160^3 grid at k 16: one launch against its plain version, the lone
+    launches and cuDNN's conv3d over the batch (N 4)."""
+    h = 1.0 / (GRID3[0] + 1)
+    scale = 1.0 / (h * h)
+    b, n, k = len(TRAP_C), math.prod(GRID3), SS3
+    gen = torch.Generator(device=dev).manual_seed(7)
+    X = torch.rand((b, n, k), generator=gen, device=dev) - 0.5
+    lib = conv3d_stencil(X, scale, GRID3)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rec = batched_check(
+            "stencil3d", b, lambda: k2.stencil3d_matmat(X, scale, GRID3),
+            lambda i: k2.stencil3d_matmat(X[i], scale, GRID3),
+            lambda: k2.stencil3d_matmat_reference(X, scale, GRID3),
+            # 4 ulp x the largest output, 12 |scale| max|X| (as k2_phase).
+            4 * torch.finfo(torch.float32).eps * 12 * scale
+            * float(X.abs().max()),
+            2 * X.numel() * 4, 8 * X.numel(), lib,
+            info={"grid": list(GRID3), "k": k, "dtype": "float32"})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del X, lib
+    free()
+    return rec
+
+
+def bsr_batched_check(name, b, idx, vals, X, A_csr, nnz, depth, info) -> dict:
+    """K3 (``name`` bsr_ell: idx the block columns, vals the blocks) or K5
+    (bsr_window: the window starts and values) over a batch X [b, n, k]:
+    one launch against its plain version (spmm_check's tolerance), the b
+    lone launches and torch.sparse.mm on the block folded to [n, b k];
+    beside the nonzero bound its format's floor (the stored values once,
+    each problem's X and Y)."""
+    n, k = X.shape[1], X.shape[2]
+    if name == "bsr_ell":
+        fn = lambda Z: kb.bsr_matmat(idx, vals, Z)
+        ref = lambda V, Z: kb.bsr_matmat_reference(idx, V, Z)
+    else:
+        fn = lambda Z: kb.bsr_window_matmat(idx, vals, Z, bs=BAND_BS)
+        ref = lambda V, Z: kb.bsr_window_matmat_reference(idx, V, Z, bs=BAND_BS)
+    tol = 2 * depth * torch.finfo(torch.float32).eps * float(
+        ref(vals.abs(), X.abs()).max())
+    folded = X.permute(1, 0, 2).reshape(n, b * k)
+    rec = batched_check(
+        name, b, lambda: fn(X), lambda i: fn(X[i]), lambda: ref(vals, X), tol,
+        4 * nnz + 2 * 4 * X.numel(), 2 * nnz * k * b,
+        lambda: torch.sparse.mm(A_csr, folded),
+        info={"n": n, "k": k, "nnz": nnz, "depth": depth, **info,
+              **format_floor(vals, b * n, k)})
+    del folded
+    free()
+    return rec
 
 
 # --- K3/K4/K5: the block-sparse SpMMs -----------------------------------------
@@ -663,6 +802,8 @@ def laplacian_host_phase(dev):
 
 
 def k3_laplacian_phase(dev, op, A_csr, nnz) -> list[dict]:
+    """K3 on the 160^3 block-ELL at k 16 and 48, then over the
+    lockstep_bsr phase's batch, len(TRAP_C) problems at k 16 (last)."""
     gen = torch.Generator(device=dev).manual_seed(2)
     out = []
     for k in (16, 48):
@@ -671,6 +812,14 @@ def k3_laplacian_phase(dev, op, A_csr, nnz) -> list[dict]:
         out[-1]["matrix"] = "laplacian3d_160"
         del X
         free()
+    b = len(TRAP_C)
+    X = torch.rand((b, op.n, SS3), generator=gen, device=dev) - 0.5
+    R, bs = op.blocks.shape[1], op.blocks.shape[2]
+    out.append(bsr_batched_check("bsr_ell", b, op.block_cols, op.blocks, X,
+                                 A_csr, nnz, R * bs,
+                                 {"matrix": "laplacian3d_160"}))
+    del X
+    free()
     return out
 
 
@@ -696,7 +845,8 @@ def laplacian3d_phase(dev, name, A, X0, kernel) -> dict:
     rec = {"phase": "laplacian3d", "operator": name, "grid": list(GRID3),
            "n": A.shape[0], "nev": NEV3, "size_sub": SS3, "tol": TOL3,
            "dtype": "float32", "converged": r.converged,
-           "iterations": r.iterations, "wall_s": wall, "launches": counts,
+           "iterations": r.iterations, "ortho_retries": r.ortho_retries,
+           "wall_s": wall, "launches": counts,
            "max_abs_err": float(err.max()),
            "max_err_over_lam_max": float(err.max() / lam_max),
            "max_rel_err": float((err / exact).max()),
@@ -905,33 +1055,41 @@ def band_phase(dev) -> dict:
 def dispatch_check(op, X, matrix):
     """One BSROperator.matmat apply, counted: it must launch the kernel its
     rule (window_pays) names, once, and no other.  Returns the output."""
-    want = "bsr_window" if op.window_pays(X.shape[1]) else "bsr_ell"
+    want = "bsr_window" if op.window_pays(X.shape[-1]) else "bsr_ell"
     zero_counts()
     Y = op.matmat(X)
     counts = read_counts()
     torch.cuda.synchronize()
-    emit({"phase": "dispatch", "matrix": matrix, "k": X.shape[1], "picks": want,
+    emit({"phase": "dispatch", "matrix": matrix, "k": X.shape[-1],
+          "batch": X.shape[0] if X.dim() == 3 else None, "picks": want,
           "launches": counts})
     if counts[want] != 1 or sum(counts.values()) != 1:
         raise AssertionError(f"BSROperator.matmat dispatched {counts}, not {want}")
     return Y
 
 
-def window_sweep_phase(dev, op, S) -> None:
+def window_sweep_phase(dev, op, S) -> dict:
     """K5 beside K3 at SWEEP_KS on the SPD band (window 384 rows; S its
     CSR, timed through torch.sparse.mm beside them) and on
     benchmarks/bsr_spmm.py's matrix at band BAND_WIDE (window 512 rows):
     the crossing behind BSROperator.matmat's rule.  Both kernels are held
-    against the window plain version at spmm_check's tolerance."""
+    against the window plain version at spmm_check's tolerance.  Then K5
+    over a batch of len(TRAP_C) problems at k 16 on the band-BAND_WIDE
+    matrix (its record is returned), and that batch through matmat at
+    k 16 and 48."""
     t0 = time.perf_counter()
     cols, vals = banded_bsr(BAND_N, BAND_BS, BAND_WIDE)
     lo, wv = kb.ell_to_strip_window(cols, vals, strip=STRIP)
     to = lambda a: torch.from_numpy(a).to(dev)
     wide = lt.BSROperator(block_cols=to(cols), blocks=to(vals), win_lo=to(lo),
                           win_vals=to(wv), n=BAND_N)
+    t_build = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    M_wide = ell_to_csr(cols, vals)
     emit({"phase": "host", "what": f"band {BAND_WIDE} and its window",
           "ell_R": int(cols.shape[1]), "window_W": int(wv.shape[2]),
-          "window_gib": wv.nbytes / 2**30, "build_s": time.perf_counter() - t0})
+          "window_gib": wv.nbytes / 2**30, "build_s": t_build,
+          "to_csr_s": time.perf_counter() - t0, "nnz": int(M_wide.nnz)})
     del cols, vals, lo, wv
     gen = torch.Generator(device=dev).manual_seed(6)
     eps = torch.finfo(torch.float32).eps
@@ -967,8 +1125,28 @@ def window_sweep_phase(dev, op, S) -> None:
             del X
             free()
         del wvabs
-    del wide, S_csr
+    del S_csr
     free()
+    b = len(TRAP_C)
+    X = torch.rand((b, BAND_N, SS3), generator=gen, device=dev) - 0.5
+    wide_csr = csr_tensor(M_wide, dev)
+    rec = bsr_batched_check("bsr_window", b, wide.win_lo, wide.win_vals, X,
+                            wide_csr, int(M_wide.nnz), wide.win_vals.shape[2],
+                            {"matrix": f"band{BAND_WIDE}",
+                             "matmat_picks": "bsr_window"
+                             if wide.window_pays(SS3) else "bsr_ell"})
+    del wide_csr, X, M_wide
+    free()
+    # A batch through BSROperator.matmat: the kernel its rule names at one
+    # problem's width (K3 at k 16, K5 at k 48), one launch for the batch.
+    for k in (16, 48):
+        X = torch.rand((b, BAND_N, k), generator=gen, device=dev) - 0.5
+        dispatch_check(wide, X, f"band{BAND_WIDE}")
+        del X
+        free()
+    del wide
+    free()
+    return rec
 
 
 # --- K6 and the row-sharded layer ---------------------------------------------
@@ -1697,6 +1875,294 @@ def lockstep_phase(dev, batched_rec) -> list[dict]:
     return recs
 
 
+# --- The lockstep batch over the other operators that jax.vmap maps ----------
+
+
+def trap_potential(c: float, dev) -> torch.Tensor:
+    """The separable anisotropic trap c ((x-1/2)^2 + 1.3 (y-1/2)^2 +
+    1.7 (z-1/2)^2) on the 160^3 grid's interior points (x = (i+1) h), f32,
+    flat C-order."""
+    x = (torch.arange(GRID3[0], dtype=torch.float64, device=dev) + 1) \
+        / (GRID3[0] + 1) - 0.5
+    wx, wy, wz = TRAP_W
+    V = (wx * x[:, None, None] ** 2 + wy * x[None, :, None] ** 2
+         + wz * x[None, None, :] ** 2)
+    return (c * V).reshape(-1).to(torch.float32)
+
+
+def trap_oracle(scale: float, c: float) -> np.ndarray:
+    """The NEV3 smallest eigenvalues of scale * (3-D Laplacian) + the trap
+    at strength c: the potential is separable, so they are the smallest
+    sums of the three 1-D spectra of scale tridiag[-1, 2, -1] +
+    diag(c w_a (x - 1/2)^2), from LAPACK's tridiagonal eigensolver,
+    combined as laplacian_nd_eigs combines the Laplacian's."""
+    import scipy.linalg as sla
+
+    acc = None
+    for g, w in zip(GRID3, TRAP_W):
+        x = (np.arange(g) + 1.0) / (g + 1) - 0.5
+        lam = sla.eigh_tridiagonal(2.0 * scale + c * w * x ** 2,
+                                   -scale * np.ones(g - 1), eigvals_only=True,
+                                   select="i", select_range=(0, min(g, 64) - 1))
+        acc = lam if acc is None else np.sort(
+            (acc[:, None] + lam[None, :]).ravel())[: max(NEV3 * 4, 64)]
+    return np.sort(acc)[:NEV3]
+
+
+def lockstep3d_phase(dev, phase, shared, kernel, lone_rec, problems) -> dict:
+    """One lockstep lobpcg over the first ``problems`` trap strengths on
+    the 160^3 grid: A_p = ``shared`` (LaplacianND or BSROperator) +
+    DiagonalOperator [b, n], laplacian3d's config and X0 for every
+    problem.  NEV3/NEV3 for each problem within TOL3 * lam_max of its
+    separable oracle; ``kernel`` launched once a batch apply, as often as
+    the longest problem's applies (the laplacian3d solve ``lone_rec`` of
+    problem 0 gives the applies before the loop and an iteration); the
+    wall beside the lone solve's, the peak beside b x estimate_peak_gb,
+    the host syncs an iteration."""
+    h = 1.0 / (GRID3[0] + 1)
+    scale = 1.0 / (h * h)
+    n = math.prod(GRID3)
+    cs = TRAP_C[:problems]
+    cfg = lt.SolverConfig(nev=NEV3, size_sub=SS3, tol=TOL3, max_iter=MAX_ITER3,
+                          gram_precision="highest")
+    V = torch.stack([trap_potential(c, dev) for c in cs])
+    X1 = torch.from_numpy(np.random.RandomState(0).uniform(
+        -0.5, 0.5, (n, SS3)).astype(np.float32)).to(dev)
+    X0 = X1.expand(problems, n, SS3).contiguous()
+    # The applies before the loop (norm estimates, the start's RR and
+    # residual): problem 0 alone, it_cap 0.
+    zero_counts()
+    lt.lobpcg(shared + lt.DiagonalOperator(V[0]), X1, config=cfg, it_cap=0,
+              generator=torch.Generator(device=dev).manual_seed(0))
+    fixed = read_counts()[kernel]
+    del X1
+    A = shared + lt.DiagonalOperator(V)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with SyncCount() as syncs:
+        r = lt.lobpcg(A, X0, config=cfg,
+                      generator=torch.Generator(device=dev).manual_seed(0))
+        lam = r.eigenvalues.double().cpu().numpy()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts = read_counts()
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    t0 = time.perf_counter()
+    exact = [trap_oracle(scale, c) for c in cs]
+    t_oracle = time.perf_counter() - t0
+    lam_lap = lt.laplacian_nd_eigs(GRID3, scale, NEV3)
+    oracle_vs_lap = float(np.max(np.abs(exact[0] - lam_lap) / lam_lap))
+    lam_max = [4 * scale * sum(math.sin(g * math.pi / (2 * (g + 1))) ** 2
+                               for g in GRID3) + float(V[i].max())
+               for i in range(problems)]
+    err = [float(np.max(np.abs(lam[i] - exact[i]))) for i in range(problems)]
+    # Applies: the longest problem's, fixed + per_it an iteration, plus the
+    # RR's applies again (per_it - 1) in each iteration in which a problem
+    # retried its RR (between the most retries of one problem and all).
+    its = r.iterations.tolist()
+    retries = r.ortho_retries.tolist()
+    lone_ret = lone_rec["ortho_retries"]
+    per_it = (lone_rec["launches"][kernel] - fixed + lone_ret) \
+        / (lone_rec["iterations"] + lone_ret)
+    loop = fixed + per_it * max(its)
+    expect = (loop + (per_it - 1) * max(retries),
+              loop + (per_it - 1) * sum(retries))
+    cfg_peak = lt.estimate_peak_gb(n, SS3, torch.float32, cfg)
+    rec = {"phase": phase, "operator": type(shared).__name__,
+           "grid": list(GRID3), "n": n, "problems": problems,
+           "trap_c": list(cs), "nev": NEV3, "size_sub": SS3, "tol": TOL3,
+           "converged": r.converged.tolist(), "iterations": its,
+           "ortho_retries": retries, "oracle_lowest": [float(e[0]) for e in exact],
+           "max_abs_err": err,
+           "max_err_over_lam_max": [e / m for e, m in zip(err, lam_max)],
+           "oracle_s": t_oracle, "oracle0_vs_laplacian_nd_eigs": oracle_vs_lap,
+           "lone_problem0": {"iterations": lone_rec["iterations"],
+                             "wall_s": lone_rec["wall_s"],
+                             "launches": lone_rec["launches"][kernel],
+                             "ortho_retries": lone_ret,
+                             "peak_gib": lone_rec["max_memory_allocated_gib"]},
+           "problem0_iterations_minus_lone": its[0] - lone_rec["iterations"],
+           "wall_s": wall, "launches": counts,
+           "launches_before_loop": fixed, "launches_per_iteration": per_it,
+           "launches_expected": list(expect),
+           "max_memory_allocated_gib": peak,
+           "estimate_peak_gib": cfg_peak,
+           "b_x_estimate_peak_gib": problems * cfg_peak,
+           "host_syncs": syncs.count,
+           "host_syncs_per_iteration": syncs.count / max(max(its), 1)}
+    emit(rec)
+    del r, A, V, X0
+    free()
+    if not oracle_vs_lap <= 1e-12:
+        raise AssertionError(f"{phase}: the trap oracle at c 0 is off the "
+                             f"Laplacian's by {oracle_vs_lap}")
+    if not np.all(np.isfinite(lam)) or lam.shape != (problems, NEV3):
+        raise AssertionError(f"{phase}: bad eigenvalues {lam.shape}")
+    if rec["converged"] != [NEV3] * problems:
+        raise AssertionError(f"{phase}: converged {rec['converged']}")
+    for i in range(problems):
+        if not err[i] <= TOL3 * lam_max[i]:
+            raise AssertionError(f"{phase} problem {i}: max |theta - lambda| "
+                                 f"{err[i]} > tol * lam_max {TOL3 * lam_max[i]}")
+    if not expect[0] <= counts[kernel] <= expect[1]:
+        raise AssertionError(f"{phase}: {kernel} launched {counts[kernel]} "
+                             f"times, the longest problem's applies are "
+                             f"{expect}")
+    return rec
+
+
+def lockstep_callable_phase(dev) -> dict:
+    """examples/fft_matrix_free.py's operator (A = F^H diag(s) F through
+    CallableOperator, T its Fourier-space inverse) over FFT_SHIFTS, the
+    spectrum s + shift mapped (in_axes (0,)), as one lockstep solve
+    (complex64, rr_dtype float64, one X0), against each shift's lone
+    solve and its exact spectrum."""
+    n, nev, ss = 2048, 8, 12  # the example's
+    s = 0.5 + torch.arange(n, dtype=torch.float32, device=dev)
+    S = torch.stack([s + sh for sh in FFT_SHIFTS])
+    cfg = lt.SolverConfig(nev=nev, size_sub=ss, tol=1e-5, max_iter=200,
+                          rr_dtype="float64")
+    dt = fft_matrix_free.DTYPE
+    gen = torch.Generator(device=dev).manual_seed(1)
+    X1 = torch.complex(torch.rand((n, ss), generator=gen, device=dev) - 0.5,
+                       torch.rand((n, ss), generator=gen, device=dev) - 0.5)
+
+    def ops(spec, axes):
+        return (lt.CallableOperator(args=(spec,), fn=fft_matrix_free.apply_A,
+                                    n=n, _dtype=dt, in_axes=axes),
+                lt.CallableOperator(args=(spec,), fn=fft_matrix_free.apply_T,
+                                    n=n, _dtype=dt, in_axes=axes))
+
+    def solve(spec, X, axes=None):
+        A, T = ops(spec, axes)
+        return lt.lobpcg(A, X, T=T, config=cfg,
+                         generator=torch.Generator(device=dev).manual_seed(0))
+
+    b = len(FFT_SHIFTS)
+    lone, lone_wall = [], 0.0
+    for i in range(b):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ri = solve(S[i], X1)
+        lone.append((ri.eigenvalues.double().cpu().numpy(), ri.converged,
+                     ri.iterations))
+        lone_wall += time.perf_counter() - t0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    r = solve(S, X1.expand(b, n, ss).contiguous(), axes=(0,))
+    lam = r.eigenvalues.double().cpu().numpy()
+    wall = time.perf_counter() - t0
+    exact = [s[:nev].double().cpu().numpy() + sh for sh in FFT_SHIFTS]
+    rel = [float(np.max(np.abs(lam[i] - exact[i]) / exact[i])) for i in range(b)]
+    rel_lone = [float(np.max(np.abs(lam[i] - lone[i][0]) / exact[i]))
+                for i in range(b)]
+    rec = {"phase": "lockstep_callable", "n": n, "nev": nev, "size_sub": ss,
+           "dtype": "complex64", "shifts": list(FFT_SHIFTS),
+           "converged": r.converged.tolist(), "iterations": r.iterations.tolist(),
+           "lone_converged": [x[1] for x in lone],
+           "lone_iterations": [x[2] for x in lone],
+           "max_rel_err_vs_exact": rel, "max_rel_diff_vs_lone": rel_lone,
+           "wall_s": wall, "lone_wall_s": lone_wall}
+    emit(rec)
+    if rec["converged"] != [nev] * b or rec["lone_converged"] != [nev] * b:
+        raise AssertionError(f"lockstep_callable: converged {rec['converged']}")
+    if not (max(rel) <= 1e-5 and max(rel_lone) <= 1e-5):
+        raise AssertionError(f"lockstep_callable: {rel} / {rel_lone} > 1e-5")
+    return rec
+
+
+def lockstep_realify_phase(dev) -> dict:
+    """The realify phase's pencil (the well specified in complex128,
+    solved through its split-real embedding in f32, nev 16, Chebyshev
+    degree 3) over REALIFY_BARRIERS as one lockstep ilobpcg at n
+    REALIFY_BATCH_N (cut from 1M): the complex diagonal [b, m] realifies
+    to RealEmbeddedDiagonalOperator ([b, m] dr, di), X0 [b, 2n, 60].  Each
+    problem (derealify on its slice) within ORACLE_RTOL of its barrier's
+    oracle, and against its lone split-real solve."""
+    n, nev = REALIFY_BATCH_N, NEV_REALIFY
+    m, ss = n // 2, NEV_REALIFY + 14
+    c128, b = torch.complex128, len(REALIFY_BARRIERS)
+    V = torch.stack([torch.as_tensor(solve_bdg._well_potential(m, bar)[0],
+                                     dtype=c128, device=dev)
+                     for bar in REALIFY_BARRIERS])
+    lo = solve_bdg._well_potential(m)[1]
+    X0c = torch.as_tensor(solve_bdg._well_start(m, ss, lo), device=dev).to(c128)
+    cfg = lt.SolverConfig(nev=nev, size_sub=ss, tol=TOL, max_iter=MAX_ITER,
+                          gram_precision="highest")
+    his = [solve_bdg.cheb_hi(bar) for bar in REALIFY_BARRIERS]
+
+    def problem(d, X, hi):
+        Kc = lt.Laplacian1D(scale=1.0, n=m, dtype=c128) + lt.DiagonalOperator(d)
+        A, X0, B, _, rcfg = lt.realify_problem(
+            lt.BlockDiagOperator(inner=Kc, copies=2), X,
+            lt.BlockAntiDiagOperator(d=torch.ones((m,), dtype=c128, device=dev)),
+            config=cfg, rdt=torch.float32)
+        T = lt.ChebyshevFilter(op=A, lo=solve_bdg.CHEB_LO, hi=hi,
+                               degree=CHEB_DEGREE)
+        return A, X0, B, T, rcfg
+
+    def solve(d, X, hi):
+        A, X0, B, T, rcfg = problem(d, X, hi)
+        r = lt.ilobpcg(A, X0, B, T, config=rcfg,
+                       generator=torch.Generator(device=dev).manual_seed(0))
+        return r, A
+
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    r, A = solve(V, X0c.expand(b, *X0c.shape).contiguous(),
+                 torch.tensor(his, dtype=torch.float64, device=dev))
+    lams = [lt.derealify(types.SimpleNamespace(
+        eigenvalues=r.eigenvalues[i], eigenvectors=r.eigenvectors[i],
+        residual_norms=r.residual_norms[i]), nev)[0] for i in range(b)]
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    kinds = sorted({type(o).__name__ for o in _operator_tree(A)})
+    its, conv = r.iterations.tolist(), r.converged.tolist()
+    del r, A
+    free()
+    lone, lone_wall = [], 0.0
+    for i in range(b):
+        t0 = time.perf_counter()
+        ri, _ = solve(V[i], X0c, his[i])
+        lone.append((lt.derealify(ri, nev)[0], ri.converged, ri.iterations))
+        lone_wall += time.perf_counter() - t0
+        del ri
+    exact = [well_oracle(bar) for bar in REALIFY_BARRIERS]
+    rel = [float(np.max(np.abs(lams[i] - e) / np.abs(e)))
+           for i, e in enumerate(exact)]
+    rel_lone = [float(np.max(np.abs(lams[i] - lone[i][0]) / np.abs(exact[i])))
+                for i in range(b)]
+    rec = {"phase": "lockstep_realify", "n_complex": n, "n_real": 2 * n,
+           "nev": nev, "size_sub_real": 2 * ss, "barriers": list(REALIFY_BARRIERS),
+           "operators": kinds, "converged_real": conv, "iterations": its,
+           "lone_converged_real": [x[1] for x in lone],
+           "lone_iterations": [x[2] for x in lone],
+           "max_rel_err": rel, "max_rel_diff_vs_lone": rel_lone,
+           "wall_s": wall, "lone_wall_s": lone_wall,
+           "max_memory_allocated_gib": peak}
+    emit(rec)
+    if "RealEmbeddedDiagonalOperator" not in kinds:
+        raise AssertionError(f"lockstep_realify: operators {kinds}")
+    if conv != [2 * nev] * b or not max(rel) <= ORACLE_RTOL:
+        raise AssertionError(f"lockstep_realify: converged {conv}, rel {rel}")
+    if not max(rel_lone) <= ORACLE_RTOL:
+        raise AssertionError(f"lockstep_realify: lone differs by {rel_lone}")
+    return rec
+
+
+def _operator_tree(op):
+    """The operators held anywhere in an operator tree."""
+    yield op
+    if dataclasses.is_dataclass(op):
+        for f in dataclasses.fields(op):
+            v = getattr(op, f.name)
+            if isinstance(v, lt.LinearOperator):
+                yield from _operator_tree(v)
+
+
 def kernel_entry(name, launches, recs, at) -> dict:
     """One kernel's record in the kernels line: its launches on its path,
     the largest error over its checks, and the numbers at `at`, the
@@ -1739,7 +2205,7 @@ def main() -> None:
     well_solve_phase(dev, "realify", N_SUB, NEV_REALIFY, 0, realify=True)
     free()
 
-    k2_recs = k2_phase(dev)
+    k2_recs = k2_phase(dev) + [k2_batched_check(dev)]
     op3, A_csr3, nnz3 = laplacian_host_phase(dev)
     k3_lap = k3_laplacian_phase(dev, op3, A_csr3, nnz3)
     del A_csr3
@@ -1754,11 +2220,16 @@ def main() -> None:
     bsr_rec = laplacian3d_phase(dev, "BSROperator", op3, X0, "bsr_ell")
     del X0
     free()
+    lockstep3d_phase(dev, "lockstep_nd",
+                     lt.LaplacianND(scale=1.0 / (h * h), grid=GRID3),
+                     "stencil3d", st_rec, len(TRAP_C))
+    lockstep3d_phase(dev, "lockstep_bsr", op3, "bsr_ell", bsr_rec,
+                     LOCK3_BSR_PROBLEMS)
     k3_frame_phase(dev, op3)
     del op3
     free()
     band, op_spd, S_spd, X_band = band_phase(dev)
-    window_sweep_phase(dev, op_spd, S_spd)
+    k5_batch = window_sweep_phase(dev, op_spd, S_spd)
     k6_recs = k6_phase(dev, op_spd, S_spd, X_band)
     sharded_rec = sharded_phase(dev, main_rec, op_spd, X_band)
     blockdiag2_phase(dev, sharded_rec, op_spd, X_band)
@@ -1772,16 +2243,22 @@ def main() -> None:
     free()
     lockstep_phase(dev, batched_rec)
     free()
+    lockstep_callable_phase(dev)
+    free()
+    lockstep_realify_phase(dev)
+    free()
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         # K1 at the BdG solve's shape, [4M, 64] f32.
         kernel_entry("stencil1d", main_rec["launches"]["stencil1d"], k1_recs,
                      k1_recs[0]),
-        # K2 at the 3-D solve's shape, 160^3 x 16 f32.
+        # K2 at the 3-D solve's shape, 160^3 x 16 f32 (its batched launch
+        # among the checks).
         kernel_entry("stencil3d", st_rec["launches"]["stencil3d"], k2_recs,
                      k2_recs[0]),
-        # K3 at the BSR solve's shape, the 160^3 block-ELL x 16.
+        # K3 at the BSR solve's shape, the 160^3 block-ELL x 16 (its
+        # batched launch among the checks).
         kernel_entry("bsr_ell", bsr_rec["launches"]["bsr_ell"],
                      k3_lap + [band["bsr_ell"]], k3_lap[0]),
         # K4 on the SpMM path's band x 128 (no operator dispatches it).
@@ -1790,7 +2267,7 @@ def main() -> None:
         # K5 on the SpMM path's band x 128 (BSROperator.matmat sends k 128
         # on the bands of width 24 to K3, on the band-72 matrix to K5).
         kernel_entry("bsr_window", band["spmm_path_launches"]["bsr_window"],
-                     [band["bsr_window"], band["bsr_window_spd"]],
+                     [band["bsr_window"], band["bsr_window_spd"], k5_batch],
                      band["bsr_window"]),
         # K6 at an interior shard of the symmetric band x 128 cut in four,
         # launched on the world-size-1 sharded BSR apply.

@@ -5,6 +5,14 @@ The same solvers, operators and config knobs as the JAX package
 PyTorch, and every TPU kernel on the ported path a kernel written by
 hand for Hopper (``csrc/``, built with nvcc at first use).  This package
 imports torch, numpy and scipy, never jax.
+
+``lobpcg``/``ilobpcg`` given an X0 of [b, n, m] solve b problems in
+lockstep (the counterpart of ``jax.vmap`` over a solve): the operators
+of ``operators/linop.py`` with shared or per-problem data,
+``CallableOperator`` (``in_axes`` marks its mapped arguments),
+``LaplacianND`` and ``BSROperator`` over a shared grid or matrix, the
+realified operators, and a shared P0.  ``batched`` maps any function
+over problems one at a time.
 """
 
 from lobpcg_tpu_torch.config import SolverConfig

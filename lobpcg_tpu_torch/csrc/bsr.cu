@@ -86,6 +86,21 @@
 //   (fewer barriers per byte of values); the 128-wide tile favours short
 //   row tiles (fewer columns per tile, so more chunks skipped).
 //
+// Batches (K3 and K5).  X [batch, n, k] and Y [batch, n_out, k], one
+// problem after another, all sharing the matrix (what jax.vmap makes of
+// the Pallas kernels over an unmapped matrix).  The column-tile axis runs
+// over batch x ctiles tiles, ctiles = ceil(k / BN) per problem: tile t
+// belongs to problem t / ctiles and starts at column (t % ctiles) * BN of
+// that problem, so a tile never straddles two problems, whatever k is,
+// and its X and Y rows are the problem's own (the base pointers move by
+// one problem's X and Y).  The column tile stays the fastest index of the
+// grid, so the CTAs of one row tile, every problem's, run together and
+// re-read the tile's matrix values from L2: the matrix leaves DRAM about
+// once per batch apply, and a batch apply moves the matrix once plus each
+// problem's X and Y.  Each output sums its terms in the unbatched order,
+// so each problem's Y equals its lone launch bit for bit.  K4 and K6 take
+// no batch (batch 1).
+//
 // K3: a block-row tile kernel (ell_tile_kernel).
 // - The floor.  On the 160^3 Laplacian (nb 512,000, R 7, bs 8) 87% of the
 //   stored block values are zeros (tridiagonal diagonal blocks, diagonal
@@ -230,6 +245,8 @@ struct ContiguousAt {
   int64_t k;
   __device__ const float* row(int64_t w) const { return src + w * k; }
   __device__ const float* any() const { return src; }
+  // The same rows of problem p of a batch, xs elements a problem.
+  __device__ ContiguousAt problem(int64_t p, int64_t xs) const { return {src + p * xs, k}; }
 };
 
 struct GatheredAt {  // tab: the strip's X row of each column, in shared memory
@@ -238,6 +255,7 @@ struct GatheredAt {  // tab: the strip's X row of each column, in shared memory
   int64_t k;
   __device__ const float* row(int64_t w) const { return X + (int64_t)tab[w] * k; }
   __device__ const float* any() const { return X; }
+  __device__ GatheredAt problem(int64_t p, int64_t xs) const { return {tab, X + p * xs, k}; }
 };
 
 // The window of strip s starts at row start = lo[s]*bs of the frame
@@ -303,10 +321,12 @@ struct WinTile {
   static_assert(P >= 1 && E >= 1 && E < 32, "prefetch depth and lag");
 };
 
-// One CTA: row tile (blockIdx / ctiles) of the strips, column tile
-// (blockIdx % ctiles).  va: W % 4 == 0 and vals 16-byte aligned (float4
-// loads of the values).  nonfinite: the flag of nonfinite_kernel (set:
-// no chunk is skipped).
+// One CTA: row tile (blockIdx / (batch * ctiles)) of the strips, column
+// tile ct = blockIdx % (batch * ctiles): problem ct / ctiles, its column
+// tile ct % ctiles.  xs, ys: one problem's X and Y elements.  va: W % 4
+// == 0 and vals 16-byte aligned (float4 loads of the values).  nonfinite:
+// the flag of nonfinite_kernel over the whole batch (set: no chunk is
+// skipped).
 //
 // Chunk j of the strip's columns: its values slice reaches registers P
 // chunks ahead (plain loads); at step j every thread tests its part,
@@ -319,8 +339,8 @@ template <int BN, bool VB, class Map>
 __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
     strip_tile_kernel(Map map, const float* __restrict__ vals, float* __restrict__ Y,
                       int64_t n_out, int64_t strip, int64_t W, int64_t k,
-                      int64_t rtiles, int64_t ctiles, int va,
-                      const int* __restrict__ nonfinite) {
+                      int64_t rtiles, int64_t ctiles, int64_t batch, int64_t xs,
+                      int64_t ys, int va, const int* __restrict__ nonfinite) {
   using T = WinTile<BN>;
   constexpr int BM = T::BM, BK = T::BK, P = T::P, E = T::E, TM = T::TM, TN = T::TN;
   constexpr int RT = T::RT, CT = T::CT, NT = T::NT, AV = T::AV, AP = T::APITCH;
@@ -330,8 +350,11 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
 
   const int tid = threadIdx.x;
   const int ty = tid / CT, tx = tid - ty * CT;
-  const int64_t tile = blockIdx.x / ctiles;
-  const int64_t c0 = (blockIdx.x - tile * ctiles) * BN;
+  const int64_t tile = blockIdx.x / (batch * ctiles);
+  const int64_t ct = blockIdx.x - tile * (batch * ctiles);
+  const int64_t prob = ct / ctiles;
+  const int64_t c0 = (ct - prob * ctiles) * BN;
+  Y += prob * ys;
   const int64_t s = tile / rtiles;
   const int64_t r0 = (tile - s * rtiles) * BM;  // first row of the tile in strip s
   const int64_t row0 = s * strip + r0;          // its output row
@@ -340,7 +363,8 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
   if (nrows <= 0) return;  // the whole CTA: rows past n_out
 
   // (K4's row table follows the tiles; the barrier of step 0 publishes it.)
-  const auto rows = rows_of(map, s, reinterpret_cast<int*>(Bs + (E + 1) * T::B_ELEMS), W);
+  const auto rows =
+      rows_of(map, s, reinterpret_cast<int*>(Bs + (E + 1) * T::B_ELEMS), W).problem(prob, xs);
   const bool keep_all = *nonfinite != 0;
   const float* const arow = vals + row0 * W;  // values row row0
   const int64_t nchunks = (W + BK - 1) / BK;
@@ -490,12 +514,12 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
 
 template <int BN, bool VB, class Map>
 cudaError_t launch_strip_tile(const Map& map, const float* vals, float* Y, int64_t n_out,
-                              int64_t strip, int64_t W, int64_t k, const int* flag,
-                              cudaStream_t s) {
+                              int64_t strip, int64_t W, int64_t k, int64_t batch,
+                              int64_t xs, const int* flag, cudaStream_t s) {
   using T = WinTile<BN>;
   const int64_t rtiles = (strip + T::BM - 1) / T::BM;
   const int64_t ctiles = (k + BN - 1) / BN;
-  const int64_t blocks = (n_out + strip - 1) / strip * rtiles * ctiles;
+  const int64_t blocks = (n_out + strip - 1) / strip * rtiles * ctiles * batch;
   if (blocks > INT_MAX) return cudaErrorInvalidConfiguration;
   const int64_t smem = T::SMEM + map_smem<Map>(W);
   if (smem > kSmemMax) return cudaErrorInvalidValue;
@@ -505,19 +529,25 @@ cudaError_t launch_strip_tile(const Map& map, const float* vals, float* Y, int64
   if (e != cudaSuccess) return e;
   const int va = W % 4 == 0 && aligned16(vals);
   kernel<<<(unsigned)blocks, T::NT, (size_t)smem, s>>>(map, vals, Y, n_out, strip, W, k,
-                                                        rtiles, ctiles, va, flag);
+                                                        rtiles, ctiles, batch, xs,
+                                                        n_out * k, va, flag);
   return cudaGetLastError();
 }
 
-// The tile width from k alone, so K5 and K6 pick the same tiles.
+// The tile width from k alone (one problem's columns), so K5 and K6, and
+// a batch and its lone problems, pick the same tiles.  batch, xs: the
+// problems and one problem's X elements (batch 1, xs 0: one product).
 template <bool VB, class Map>
 cudaError_t launch_strip(const Map& map, const float* vals, float* Y, int64_t n_out,
-                         int64_t strip, int64_t W, int64_t k, const int* flag,
-                         cudaStream_t s) {
-  if (k <= 16) return launch_strip_tile<16, VB>(map, vals, Y, n_out, strip, W, k, flag, s);
-  if (k <= 32) return launch_strip_tile<32, VB>(map, vals, Y, n_out, strip, W, k, flag, s);
-  if (k <= 64) return launch_strip_tile<64, VB>(map, vals, Y, n_out, strip, W, k, flag, s);
-  return launch_strip_tile<128, VB>(map, vals, Y, n_out, strip, W, k, flag, s);
+                         int64_t strip, int64_t W, int64_t k, int64_t batch, int64_t xs,
+                         const int* flag, cudaStream_t s) {
+  if (k <= 16)
+    return launch_strip_tile<16, VB>(map, vals, Y, n_out, strip, W, k, batch, xs, flag, s);
+  if (k <= 32)
+    return launch_strip_tile<32, VB>(map, vals, Y, n_out, strip, W, k, batch, xs, flag, s);
+  if (k <= 64)
+    return launch_strip_tile<64, VB>(map, vals, Y, n_out, strip, W, k, batch, xs, flag, s);
+  return launch_strip_tile<128, VB>(map, vals, Y, n_out, strip, W, k, batch, xs, flag, s);
 }
 
 // --- K3: the block-row tile product -------------------------------------------
@@ -567,15 +597,17 @@ EllShape ell_shape(int64_t bs) {
   return sh;
 }
 
-// One CTA: block rows tile * BR .. + BR (blockIdx / ctiles), column tile
-// blockIdx % ctiles.  av: bs*bs % 4 == 0 and blocks 16-byte aligned
-// (16-byte copies of the blocks).
+// One CTA: block rows tile * BR .. + BR (blockIdx / (batch * ctiles)),
+// column tile ct = blockIdx % (batch * ctiles): problem ct / ctiles, its
+// column tile ct % ctiles.  xs: one problem's X elements (its Y holds
+// nb*bs*k).  av: bs*bs % 4 == 0 and blocks 16-byte aligned (16-byte
+// copies of the blocks).
 template <int BN, bool VB>
 __global__ void __launch_bounds__(256, 2)
     ell_tile_kernel(const int32_t* __restrict__ cols, const float* __restrict__ blocks,
                     const float* __restrict__ X, float* __restrict__ Y, int64_t nb,
                     int64_t R, int64_t bs, int64_t k, int BR, int RG, int SA, int SX,
-                    int64_t ctiles, int av) {
+                    int64_t ctiles, int64_t batch, int64_t xs, int av) {
   using T = EllTile<BN>;
   constexpr int TM = T::TM, TN = T::TN, CT = T::CT, S = T::STAGES;
   extern __shared__ float4 smem4[];
@@ -585,8 +617,12 @@ __global__ void __launch_bounds__(256, 2)
   const int tx = tid % CT, rest = tid / CT;
   const int rg = rest % RG, il = rest / RG;
   const int tpb = RG * CT, q0 = rg * CT + tx;  // the block row's threads, this one's rank
-  const int64_t tile = blockIdx.x / ctiles;
-  const int64_t c0 = (blockIdx.x - tile * ctiles) * BN;
+  const int64_t tile = blockIdx.x / (batch * ctiles);
+  const int64_t ct = blockIdx.x - tile * (batch * ctiles);
+  const int64_t prob = ct / ctiles;
+  const int64_t c0 = (ct - prob * ctiles) * BN;
+  X += prob * xs;
+  Y += prob * (nb * bs * k);
   const int64_t i = tile * BR + il;
   const bool live = i < nb;
   float* const as0 = sm + il * SA;
@@ -693,12 +729,12 @@ __global__ void __launch_bounds__(256, 2)
 template <int BN, bool VB>
 cudaError_t launch_ell_tile(const int32_t* cols, const float* blocks, const float* X,
                             float* Y, int64_t nb, int64_t R, int64_t bs, int64_t k,
-                            cudaStream_t s) {
+                            int64_t batch, int64_t xs, cudaStream_t s) {
   const EllShape sh = ell_shape<BN>(bs);
   const int nt = sh.BR * sh.RG * EllTile<BN>::CT;
   if (sh.smem > kSmemMax || nt > 256) return cudaErrorInvalidValue;
   const int64_t ctiles = (k + BN - 1) / BN;
-  const int64_t blocks_n = (nb + sh.BR - 1) / sh.BR * ctiles;
+  const int64_t blocks_n = (nb + sh.BR - 1) / sh.BR * ctiles * batch;
   if (blocks_n > INT_MAX) return cudaErrorInvalidConfiguration;
   auto kernel = ell_tile_kernel<BN, VB>;
   cudaError_t e = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -707,22 +743,23 @@ cudaError_t launch_ell_tile(const int32_t* cols, const float* blocks, const floa
   const int av = nb > 0 && (bs * bs) % 4 == 0 && aligned16(blocks);
   kernel<<<(unsigned)blocks_n, nt, (size_t)sh.smem, s>>>(cols, blocks, X, Y, nb, R, bs, k,
                                                         sh.BR, sh.RG, sh.SA, sh.SX, ctiles,
-                                                        av);
+                                                        batch, xs, av);
   return cudaGetLastError();
 }
 
-// BN from k, as for K5; narrower where a wide tile of one block row does
-// not fit a CTA (bs above 64).
+// BN from k (one problem's columns), as for K5; narrower where a wide tile
+// of one block row does not fit a CTA (bs above 64).
 template <bool VB>
 cudaError_t launch_ell(const int32_t* cols, const float* blocks, const float* X, float* Y,
-                       int64_t nb, int64_t R, int64_t bs, int64_t k, cudaStream_t s) {
+                       int64_t nb, int64_t R, int64_t bs, int64_t k, int64_t batch,
+                       int64_t xs, cudaStream_t s) {
   if (k > 64 && ell_fits<128>(bs))
-    return launch_ell_tile<128, VB>(cols, blocks, X, Y, nb, R, bs, k, s);
+    return launch_ell_tile<128, VB>(cols, blocks, X, Y, nb, R, bs, k, batch, xs, s);
   if (k > 32 && ell_fits<64>(bs))
-    return launch_ell_tile<64, VB>(cols, blocks, X, Y, nb, R, bs, k, s);
+    return launch_ell_tile<64, VB>(cols, blocks, X, Y, nb, R, bs, k, batch, xs, s);
   if (k > 16 && ell_fits<32>(bs))
-    return launch_ell_tile<32, VB>(cols, blocks, X, Y, nb, R, bs, k, s);
-  return launch_ell_tile<16, VB>(cols, blocks, X, Y, nb, R, bs, k, s);
+    return launch_ell_tile<32, VB>(cols, blocks, X, Y, nb, R, bs, k, batch, xs, s);
+  return launch_ell_tile<16, VB>(cols, blocks, X, Y, nb, R, bs, k, batch, xs, s);
 }
 
 }  // namespace
@@ -730,20 +767,22 @@ cudaError_t launch_ell(const int32_t* cols, const float* blocks, const float* X,
 extern "C" {
 
 // K3.  cols: [nb, R] int32 block columns (padding blocks zero at column
-// 0); blocks: [nb, R, bs, bs]; X, Y: [nb*bs, k].  Returns
-// cudaGetLastError() after the launch (0 = ok).
+// 0); blocks: [nb, R, bs, bs]; X: [batch, x_rows, k] (x_rows whole block
+// rows that cols index; nb*bs unless X is a shard's frame); Y: [batch,
+// nb*bs, k].  Returns cudaGetLastError() after the launch (0 = ok).
 int lobpcg_bsr_ell_f32(const void* cols, const void* blocks, const void* X,
                        void* Y, int64_t nb, int64_t R, int64_t bs, int64_t k,
-                       void* stream) {
-  if (nb <= 0 || R <= 0 || bs <= 0 || k <= 0) return (int)cudaErrorInvalidValue;
+                       int64_t batch, int64_t x_rows, void* stream) {
+  if (nb <= 0 || R <= 0 || bs <= 0 || k <= 0 || batch <= 0 || x_rows <= 0)
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int32_t* cp = static_cast<const int32_t*>(cols);
   const float* bp = static_cast<const float*>(blocks);
   const float* xp = static_cast<const float*>(X);
   float* yp = static_cast<float*>(Y);
   if (k % 4 == 0 && aligned16(X) && aligned16(Y))
-    return (int)launch_ell<true>(cp, bp, xp, yp, nb, R, bs, k, s);
-  return (int)launch_ell<false>(cp, bp, xp, yp, nb, R, bs, k, s);
+    return (int)launch_ell<true>(cp, bp, xp, yp, nb, R, bs, k, batch, x_rows * k, s);
+  return (int)launch_ell<false>(cp, bp, xp, yp, nb, R, bs, k, batch, x_rows * k, s);
 }
 
 // The non-finite flag of K4/K5/K6: *flag = 1 if any of the na, nb, nc
@@ -776,17 +815,19 @@ int lobpcg_bsr_strip_f32(const void* strip_cols, int64_t Rs, const void* strip_v
   const StripRows map{static_cast<const int32_t*>(strip_cols), xp, Rs, bs, k};
   const float* vp = static_cast<const float*>(strip_vals);
   if (k % 4 == 0 && aligned16(X) && aligned16(Y))
-    return (int)launch_strip<true>(map, vp, yp, n_out, strip, Rs * bs, k, fp, s);
-  return (int)launch_strip<false>(map, vp, yp, n_out, strip, Rs * bs, k, fp, s);
+    return (int)launch_strip<true>(map, vp, yp, n_out, strip, Rs * bs, k, 1, 0, fp, s);
+  return (int)launch_strip<false>(map, vp, yp, n_out, strip, Rs * bs, k, 1, 0, fp, s);
 }
 
 // K5.  lo: [ns] int32 window starts in blocks; win_vals: [ns, strip, W];
-// X: [rows, k] with lo[s]*bs + W <= rows; Y: [n_out, k], n_out <=
-// ns*strip.  flag: the non-finite flag of X.
+// X: [batch, rows, k] with lo[s]*bs + W <= rows; Y: [batch, n_out, k],
+// n_out <= ns*strip.  flag: the non-finite flag of the whole batch's X.
 int lobpcg_bsr_window_f32(const void* lo, const void* win_vals, const void* X,
                           void* Y, int64_t n_out, int64_t strip, int64_t W,
-                          int64_t bs, int64_t k, const void* flag, void* stream) {
-  if (n_out <= 0 || strip <= 0 || W <= 0 || bs <= 0 || k <= 0)
+                          int64_t bs, int64_t k, int64_t batch, int64_t rows,
+                          const void* flag, void* stream) {
+  if (n_out <= 0 || strip <= 0 || W <= 0 || bs <= 0 || k <= 0 || batch <= 0 ||
+      rows <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(X);
@@ -795,8 +836,8 @@ int lobpcg_bsr_window_f32(const void* lo, const void* win_vals, const void* X,
   const WindowRows map{static_cast<const int32_t*>(lo), xp, xp, xp, bs, k, 0, INT64_MAX};
   const float* vp = static_cast<const float*>(win_vals);
   if (k % 4 == 0 && aligned16(X) && aligned16(Y))
-    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, fp, s);
-  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, fp, s);
+    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, batch, rows * k, fp, s);
+  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, batch, rows * k, fp, s);
 }
 
 // K6.  lo: [ns] int32 window starts in blocks of the extended frame
@@ -824,8 +865,8 @@ int lobpcg_bsr_window_edges_f32(const void* lo, const void* win_vals, const void
   const float* vp = static_cast<const float*>(win_vals);
   if (k % 4 == 0 && aligned16(X) && aligned16(edge_top) && aligned16(edge_bot) &&
       aligned16(Y))
-    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, fp, s);
-  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, fp, s);
+    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, 1, 0, fp, s);
+  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, 1, 0, fp, s);
 }
 
 const char* lobpcg_cuda_error_string(int code) {

@@ -9,10 +9,12 @@ Batched blocks (a lockstep batched solve, ``solvers/lobpcg.py``): the
 operators of this module take X as [b, n, k] too.  Their data may carry
 a leading batch dimension, one problem each (``DenseOperator.A``
 [b, n, n], ``DiagonalOperator.d`` / ``JacobiPreconditioner.d`` /
-``BlockAntiDiagOperator.d`` [b, n], ``Laplacian1D.scale`` [b]); data
-without one is shared by the whole batch, as ``jax.vmap`` shares an
-unmapped operand.  An operator of another module that has no batched
-form raises ``NotImplementedError`` on a 3-D X (``unbatched``).
+``BlockAntiDiagOperator.d`` [b, n], ``Laplacian1D.scale`` [b],
+``CallableOperator.args`` marked by ``in_axes``); data without one is
+shared by the whole batch, as ``jax.vmap`` shares an unmapped operand.
+So do ``LaplacianND``, ``BSROperator`` and the realified operators; an
+operator without a batched form (the sharded ones of ``parallel/``)
+raises ``NotImplementedError`` on a 3-D X (``unbatched``).
 """
 
 from __future__ import annotations
@@ -143,16 +145,41 @@ class JacobiPreconditioner(LinearOperator):
 @dataclasses.dataclass
 class CallableOperator(LinearOperator):
     """Matrix-free operator from a user-supplied block function
-    ``fn(X, *args) -> Y`` with X, Y of shape [n, k]."""
+    ``fn(X, *args) -> Y`` with X, Y of shape [n, k].
+
+    A batched X [b, n, k] calls ``fn`` once per problem on its [n, k]
+    block, as ``jax.vmap`` maps ``fn``, and stacks the results.
+    ``in_axes`` says, per entry of ``args``, what ``jax.vmap``'s
+    ``in_axes`` would: 0 for a tensor mapped over its leading dimension
+    (problem i sees ``arg[i]``), None for an argument every problem
+    shares.  ``in_axes`` None shares every argument."""
 
     args: Any
     fn: Callable = None
     n: int = 0
     _dtype: Any = torch.float32
+    in_axes: Any = None
 
     def matmat(self, X):
-        unbatched(self, X)
-        return self.fn(X, *self.args)
+        if X.dim() == 2:
+            return self.fn(X, *self.args)
+        args = tuple(self.args)
+        axes = (None,) * len(args) if self.in_axes is None \
+            else tuple(self.in_axes)
+        if len(axes) != len(args) or any(a not in (0, None) for a in axes):
+            raise ValueError(f"CallableOperator: in_axes {self.in_axes} must "
+                             f"give 0 or None for each of the {len(args)} "
+                             f"args")
+        b = X.shape[0]
+        for a, ax in zip(args, axes):
+            if ax == 0 and not (isinstance(a, torch.Tensor) and a.dim() >= 1
+                                and a.shape[0] == b):
+                raise ValueError(f"CallableOperator: a mapped argument must "
+                                 f"be a tensor of leading size {b}")
+        return torch.stack([
+            self.fn(X[i], *(a[i] if ax == 0 else a
+                            for a, ax in zip(args, axes)))
+            for i in range(b)])
 
     @property
     def shape(self):

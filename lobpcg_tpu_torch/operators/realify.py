@@ -25,6 +25,14 @@ block embedding), ``realify_problem`` converts (A, B, T, X0) and the
 solver config, and ``derealify`` folds a real result back to complex
 eigenpairs on the host.
 
+A batch of complex problems (a lockstep batched solve, what
+``jax.vmap`` over ``realify_problem`` and the solver gives the JAX
+package) realifies the same way: the realified operators take X
+[b, 2n, k] with their data shared ([n, n] / [n]) or per problem
+([b, n, n] / [b, n]), and ``realify_x0`` turns [b, n, k] into
+[b, 2n, 2k].  ``derealify`` stays per problem (host code, never mapped
+in the JAX package): pass it one problem's slice of the result.
+
 Caveat: for complex eigenvalues of multiplicity >= 2 the folded complex
 eigenvectors within the cluster may need re-orthonormalization.
 """
@@ -46,28 +54,27 @@ from lobpcg_tpu_torch.operators.linop import (
     JacobiPreconditioner,
     Laplacian1D,
     LinearOperator,
-    unbatched,
 )
 
 
 @dataclasses.dataclass
 class RealEmbeddedDenseOperator(LinearOperator):
-    """M = [[Ar, -Ai], [Ai, Ar]] applied to stacked [x; y] blocks."""
+    """M = [[Ar, -Ai], [Ai, Ar]] applied to stacked [x; y] blocks (the
+    halves on dim -2, so X may be [2n, k] or a batch [b, 2n, k])."""
 
-    Ar: torch.Tensor  # [n, n] real part (symmetric for Hermitian A)
-    Ai: torch.Tensor  # [n, n] imag part (antisymmetric)
+    Ar: torch.Tensor  # [n, n] real part (symmetric for Hermitian A), or [b, n, n]
+    Ai: torch.Tensor  # [n, n] imag part (antisymmetric), or [b, n, n]
 
     def matmat(self, X):
-        unbatched(self, X)
-        n = self.Ar.shape[0]
-        x, y = X[:n], X[n:]
+        n = self.Ar.shape[-1]
+        x, y = X[..., :n, :], X[..., n:, :]
         return torch.cat(
-            [self.Ar @ x - self.Ai @ y, self.Ai @ x + self.Ar @ y], dim=0
+            [self.Ar @ x - self.Ai @ y, self.Ai @ x + self.Ar @ y], dim=-2
         )
 
     @property
     def shape(self):
-        n = 2 * self.Ar.shape[0]
+        n = 2 * self.Ar.shape[-1]
         return (n, n)
 
     @property
@@ -77,21 +84,21 @@ class RealEmbeddedDenseOperator(LinearOperator):
 
 @dataclasses.dataclass
 class RealEmbeddedDiagonalOperator(LinearOperator):
-    """diag(d) with complex d, realified (di = 0 for Hermitian)."""
+    """diag(d) with complex d, realified (di = 0 for Hermitian); the
+    halves on dim -2, so X may be [2n, k] or a batch [b, 2n, k]."""
 
-    dr: torch.Tensor
-    di: torch.Tensor
+    dr: torch.Tensor  # [n], or [b, n]
+    di: torch.Tensor  # [n], or [b, n]
 
     def matmat(self, X):
-        unbatched(self, X)
-        n = self.dr.shape[0]
-        x, y = X[:n], X[n:]
-        dr, di = self.dr[:, None], self.di[:, None]
-        return torch.cat([dr * x - di * y, di * x + dr * y], dim=0)
+        n = self.dr.shape[-1]
+        x, y = X[..., :n, :], X[..., n:, :]
+        dr, di = self.dr[..., None], self.di[..., None]
+        return torch.cat([dr * x - di * y, di * x + dr * y], dim=-2)
 
     @property
     def shape(self):
-        n = 2 * self.dr.shape[0]
+        n = 2 * self.dr.shape[-1]
         return (n, n)
 
     @property
@@ -219,13 +226,15 @@ def realify_operator(op: LinearOperator, rdt=None) -> LinearOperator:
 
 def realify_x0(X0: torch.Tensor, rdt=None) -> torch.Tensor:
     """Complex [n, k] start block -> real [2n, 2k]: columns [x; y] and
-    [-y; x] per complex column, spanning both copies of each eigenspace."""
+    [-y; x] per complex column, spanning both copies of each eigenspace.
+    A batch [b, n, k] gives [b, 2n, 2k], each problem its own block."""
     rdt = as_torch_dtype(rdt) if rdt is not None else real_dtype(X0.dtype)
     x = (X0.real if X0.is_complex() else X0).to(rdt)
     y = X0.imag.to(rdt) if X0.is_complex() else torch.zeros_like(x)
-    w1 = torch.cat([x, y], dim=0)
-    w2 = torch.cat([-y, x], dim=0)
-    return torch.stack([w1, w2], dim=2).reshape(2 * X0.shape[0], 2 * X0.shape[1])
+    w1 = torch.cat([x, y], dim=-2)
+    w2 = torch.cat([-y, x], dim=-2)
+    *lead, n, k = X0.shape
+    return torch.stack([w1, w2], dim=-1).reshape(*lead, 2 * n, 2 * k)
 
 
 def realify_config(config: SolverConfig) -> SolverConfig:

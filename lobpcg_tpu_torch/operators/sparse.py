@@ -9,6 +9,10 @@ format.  On the card an f32 block goes through the strip-window kernel
 (``BSROperator.window_pays``), else the block-ELL kernel (K3); a CPU
 tensor, or a dtype the kernels do not take (f64, complex), runs the
 plain gather + einsum.
+
+A batched X [b, n, k] (a lockstep batched solve) shares the matrix, as
+``jax.vmap`` shares an unmapped operand: one K3 or K5 launch for the
+batch, the kernel chosen at the width of one problem, k.
 """
 
 from __future__ import annotations
@@ -20,7 +24,7 @@ import numpy as np
 import torch
 
 from lobpcg_tpu_torch.config import resolve_device
-from lobpcg_tpu_torch.operators.linop import LinearOperator, unbatched
+from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops.cuda.bsr import (
     bsr_matmat,
     bsr_matmat_reference,
@@ -94,11 +98,19 @@ class BSROperator(LinearOperator):
         return R * bs > theta * self.win_vals.shape[2]
 
     def matmat(self, X):
-        unbatched(self, X)
+        """Y = A @ X for X [n, k], or [b, n, k] for b problems sharing A.
+
+        A batch asks ``window_pays`` at k, one problem's width, not at
+        b*k: ``jax.vmap`` maps the JAX package's dispatch over the
+        problems, each choosing at its own width, and the batched kernels
+        tile each problem's columns alone (``csrc/bsr.cu``), so a batch
+        runs each problem's lone product in one launch.  Asked at b*k, a
+        batch would take K5 on the band-72 matrix from b*k >= 48 where its
+        lone problems take K3."""
         bs = self.blocks.shape[2]
         if X.dtype == torch.float32 and self.blocks.dtype == torch.float32:
             X = X.contiguous()
-            if self.window_pays(X.shape[1]):
+            if self.window_pays(X.shape[-1]):
                 return bsr_window_matmat(self.win_lo, self.win_vals, X, bs=bs)
             return bsr_matmat(self.block_cols, self.blocks, X)
         return bsr_matmat_reference(self.block_cols, self.blocks, X)

@@ -8,6 +8,12 @@ take one separable pass per axis through the segmented 1-D stencil
 kernel (``ops/cuda/stencil.py``, K1); f64 and complex take the plain
 pad/slice formula.  Each wrapper runs its plain version for a CPU
 tensor.  Matches ``operators.sparse.laplacian_3d_csr`` numerically.
+
+A batched X [b, n, k] (a lockstep batched solve) shares the grid and
+the scale, as ``jax.vmap`` shares an unmapped operand: a 3-D grid is one
+K2 launch over the batch; on a 1-D or 2-D grid the batch is a leading
+grid axis that is never stenciled, so each axis pass is one K1 launch
+for the batch.
 """
 
 from __future__ import annotations
@@ -18,7 +24,7 @@ import math
 import numpy as np
 import torch
 
-from lobpcg_tpu_torch.operators.linop import LinearOperator, unbatched
+from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 from lobpcg_tpu_torch.ops.cuda.stencil import KERNEL_DTYPES, stencil_matmat
 from lobpcg_tpu_torch.ops.cuda.stencil3d import lap_along
@@ -26,17 +32,20 @@ from lobpcg_tpu_torch.ops.cuda.stencil3d import lap_along
 
 def _axis_pass(X: torch.Tensor, grid, axis: int, k: int,
                force_jnp: bool = False) -> torch.Tensor:
-    """tridiag[-1, 2, -1] along one grid axis of flattened X, returned
-    flat [n, k]: K1 on the [prod(grid[:axis+1]), rest * k] view, one
-    segment per line along the axis.  (The JAX package's VMEM gate on the
-    view's width is a TPU fact and is dropped.)"""
-    rows = math.prod(grid[: axis + 1])
-    width = (math.prod(grid) // rows) * k
+    """tridiag[-1, 2, -1] along one grid axis of flattened X ([n, k] or
+    [b, n, k]), returned in X's shape: K1 on the
+    [b * prod(grid[:axis+1]), rest * k] view, one segment per line along
+    the axis (b * rows / grid[axis] of them).  (The JAX package's VMEM
+    gate on the view's width is a TPU fact and is dropped.)"""
+    lead = tuple(X.shape[:-2])
+    rows = math.prod(lead) * math.prod(grid[: axis + 1])
+    width = (math.prod(grid) // math.prod(grid[: axis + 1])) * k
     if not force_jnp and X.dtype in KERNEL_DTYPES:
         return stencil_matmat(
             X.reshape(rows, width), 1.0, num_segments=rows // grid[axis]
         ).reshape(X.shape)
-    return lap_along(X.reshape(*grid, k), axis).reshape(X.shape)
+    return lap_along(X.reshape(*lead, *grid, k),
+                     len(lead) + axis).reshape(X.shape)
 
 
 @dataclasses.dataclass
@@ -48,7 +57,8 @@ class LaplacianND(LinearOperator):
     operator's dtype.  Eigenvalues are sums of per-axis
     4*scale*sin^2(k*pi/(2*(n_axis+1))) terms (``laplacian_nd_eigs``).
     ``force_jnp`` (the JAX package's name, kept for API parity) selects
-    the plain formula for every dtype.
+    the plain formula for every dtype.  X is [n, k], or [b, n, k] for b
+    problems on this grid and scale (see the module docstring).
     """
 
     scale: float
@@ -57,8 +67,7 @@ class LaplacianND(LinearOperator):
     dtype: torch.dtype = torch.float32
 
     def matmat(self, X):
-        unbatched(self, X)
-        k = X.shape[1]
+        k = X.shape[-1]
         grid = tuple(int(g) for g in self.grid)
         use_kernels = not self.force_jnp and X.dtype in KERNEL_DTYPES
         if use_kernels:
@@ -69,7 +78,7 @@ class LaplacianND(LinearOperator):
         for ax in range(len(grid)):
             p = _axis_pass(X, grid, ax, k, force_jnp=not use_kernels)
             Y = p if Y is None else Y + p
-        return (self.scale * Y).reshape(math.prod(grid), k)
+        return (self.scale * Y).reshape(X.shape)
 
     @property
     def shape(self):

@@ -20,7 +20,10 @@ Port of the TPU kernels of ``lobpcg_tpu/ops/pallas/bsr.py``:
 Each wrapper launches its kernel for a CUDA tensor (f32, contiguous, any
 k >= 1, int32 indices; full f32 FFMA, no TF32) and runs its plain
 version only for a CPU tensor; each counts its launches in
-``.launches``.  Index arrays are not range-checked on the card (that
+``.launches``.  K3 and K5 also take a batch X [b, n, k] of problems that
+share the matrix (a lockstep batched solve, ``operators/sparse.py``):
+one launch for the batch, with each problem's Y equal to its lone
+launch's, and plain versions equal to b lone plain products.  Index arrays are not range-checked on the card (that
 would cost a host sync): they must address rows of X, as the formats
 built here do.  K4, K5 and K6 skip column chunks whose values are all
 zero unless X holds a NaN or Inf (``nonfinite_flag``: a device-side
@@ -60,12 +63,13 @@ _P, _I64 = ctypes.c_void_p, ctypes.c_int64
 # The C entry points of csrc/bsr.cu and their argument types (each
 # returns an int cudaError_t).
 SIGNATURES = {
-    "lobpcg_bsr_ell_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _P],
+    "lobpcg_bsr_ell_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                           _P],
     "lobpcg_nonfinite_f32": [_P, _I64, _P, _I64, _P, _I64, _P, _P],
     "lobpcg_bsr_strip_f32": [_P, _I64, _P, _P, _P, _I64, _I64, _I64, _I64, _P,
                              _P],
-    "lobpcg_bsr_window_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _P,
-                              _P],
+    "lobpcg_bsr_window_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
+                              _I64, _P, _P],
     "lobpcg_bsr_window_edges_f32": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
                                     _I64, _I64, _I64, _I64, _P, _P],
 }
@@ -262,11 +266,19 @@ def _result_dtype(vals, X):
     return torch.promote_types(vals.dtype, X.dtype)
 
 
+def _per_problem(fn, *args, X, **kwargs):
+    """A plain product of a batch X [b, n, k]: fn(*args, X[i]) for each
+    problem, stacked, so the batch equals b lone products bit for bit."""
+    return torch.stack([fn(*args, x, **kwargs) for x in X])
+
+
 def bsr_matmat_reference(
     block_cols: torch.Tensor, blocks: torch.Tensor, X: torch.Tensor
 ) -> torch.Tensor:
     """Block-ELL SpMM as gather + einsum (``lobpcg_tpu/ops/pallas/bsr.py:
-    bsr_matmat_reference``)."""
+    bsr_matmat_reference``); a batch [b, n, k] one problem at a time."""
+    if X.dim() == 3:
+        return _per_problem(bsr_matmat_reference, block_cols, blocks, X=X)
     nb, R, bs, _ = blocks.shape
     k = X.shape[1]
     dt = _result_dtype(blocks, X)
@@ -297,8 +309,12 @@ def bsr_strip_matmat_reference(strip_cols, strip_vals, X, *, bs: int = 8,
 def bsr_window_matmat_reference(lo, win_vals, X, *, bs: int = 8,
                                 out_rows: Optional[int] = None):
     """Strip-window SpMM: each strip's values times the contiguous X rows
-    [lo[s]*bs, lo[s]*bs + W), as one batched product."""
+    [lo[s]*bs, lo[s]*bs + W), as one batched product; a batch [b, n, k]
+    one problem at a time."""
     _check_window(lo, win_vals, X, bs, out_rows)
+    if X.dim() == 3:
+        return _per_problem(bsr_window_matmat_reference, lo, win_vals, X=X,
+                            bs=bs, out_rows=out_rows)
     W = win_vals.shape[2]
     rows = lo.long()[:, None] * bs + torch.arange(W, device=X.device)
     return _strip_product(rows, win_vals, X, _out_rows(X, out_rows))
@@ -322,18 +338,20 @@ def bsr_window_matmat_edges_reference(lo, win_vals, X, edge_top, edge_bot, *,
 
 
 def _out_rows(X, out_rows):
-    return X.shape[0] if out_rows is None else int(out_rows)
+    return X.shape[-2] if out_rows is None else int(out_rows)
 
 
-def _check_common(what, vals, X, idx):
-    if X.dim() != 2 or X.shape[1] < 1:
-        raise ValueError(f"{what}: X must be [n, k], got {tuple(X.shape)}")
+def _check_common(what, vals, X, idx, batch=False):
+    if X.dim() not in ((2, 3) if batch else (2,)) or X.shape[-1] < 1:
+        raise ValueError(f"{what}: X must be [n, k]"
+                         f"{' or [b, n, k]' if batch else ''}, got "
+                         f"{tuple(X.shape)}")
     if vals.device != X.device or idx.device != X.device:
         raise ValueError(f"{what}: operands on different devices")
 
 
 def _check_ell(block_cols, blocks, X, frame=False):
-    _check_common("bsr_matmat", blocks, X, block_cols)
+    _check_common("bsr_matmat", blocks, X, block_cols, batch=True)
     if blocks.dim() != 4 or blocks.shape[2] != blocks.shape[3]:
         raise ValueError(f"bsr_matmat: blocks must be [nb, R, bs, bs], got "
                          f"{tuple(blocks.shape)}")
@@ -341,12 +359,13 @@ def _check_ell(block_cols, blocks, X, frame=False):
     if tuple(block_cols.shape) != (nb, R):
         raise ValueError(f"bsr_matmat: block_cols must be [{nb}, {R}], got "
                          f"{tuple(block_cols.shape)}")
+    rows = X.shape[-2]
     if frame:
-        if X.shape[0] < bs or X.shape[0] % bs:
+        if rows < bs or rows % bs:
             raise ValueError(f"bsr_matmat: a frame X has whole block rows, "
-                             f"got {X.shape[0]} rows at bs={bs}")
-    elif X.shape[0] != nb * bs:
-        raise ValueError(f"bsr_matmat: X has {X.shape[0]} rows, expected "
+                             f"got {rows} rows at bs={bs}")
+    elif rows != nb * bs:
+        raise ValueError(f"bsr_matmat: X has {rows} rows, expected "
                          f"{nb * bs}")
 
 
@@ -370,13 +389,13 @@ def _check_strip(strip_cols, strip_vals, X, bs, out_rows):
 
 
 def _check_window(lo, win_vals, X, bs, out_rows):
-    _check_common("bsr_window_matmat", win_vals, X, lo)
+    _check_common("bsr_window_matmat", win_vals, X, lo, batch=True)
     if lo.dim() != 1 or win_vals.dim() != 3 or win_vals.shape[0] != lo.shape[0]:
         raise ValueError("bsr_window_matmat: lo must be [ns] and win_vals "
                          "[ns, strip, W]")
-    if win_vals.shape[2] > X.shape[0]:
+    if win_vals.shape[2] > X.shape[-2]:
         raise ValueError(f"bsr_window_matmat: window width {win_vals.shape[2]} "
-                         f"exceeds X's {X.shape[0]} rows")
+                         f"exceeds X's {X.shape[-2]} rows")
     _check_strip_rows("bsr_window_matmat", win_vals, X, out_rows)
 
 
@@ -414,7 +433,8 @@ def _kernel_operands(what, vals, X, idx):
 
 
 def _empty_out(X, rows):
-    return torch.empty((rows, X.shape[1]), dtype=X.dtype, device=X.device)
+    return torch.empty((*X.shape[:-2], rows, X.shape[-1]), dtype=X.dtype,
+                       device=X.device)
 
 
 def nonfinite_flag(*bufs: torch.Tensor) -> torch.Tensor:
@@ -437,12 +457,15 @@ def nonfinite_flag(*bufs: torch.Tensor) -> torch.Tensor:
 
 def bsr_matmat(block_cols: torch.Tensor, blocks: torch.Tensor,
                X: torch.Tensor, *, frame: bool = False) -> torch.Tensor:
-    """K3: Y = block-ELL(block_cols, blocks) @ X, [nb*bs, k].
+    """K3: Y = block-ELL(block_cols, blocks) @ X, [nb*bs, k]; for a batch
+    X [b, n, k] (b problems sharing the matrix), Y [b, nb*bs, k].
 
     X has nb*bs rows, or with ``frame`` any whole number of block rows
     that ``block_cols`` index into (a shard's halo-extended frame,
     ``parallel/spmd_bsr.py``): the kernel reads X only through the
-    column indices.  CUDA tensor: launches
+    column indices.  A batch is one launch whose column tiles run over
+    the b problems' columns, each tile inside one problem
+    (``csrc/bsr.cu``).  CUDA tensor: launches
     ``csrc/bsr.cu:lobpcg_bsr_ell_f32`` on the
     current stream without synchronising and counts it in
     ``bsr_matmat.launches``; it stages a block row's blocks and X slabs in
@@ -461,7 +484,8 @@ def bsr_matmat(block_cols: torch.Tensor, blocks: torch.Tensor,
     with torch.cuda.device(X.device):
         code = lib.lobpcg_bsr_ell_f32(
             block_cols.data_ptr(), blocks.data_ptr(), X.data_ptr(),
-            Y.data_ptr(), nb, R, bs, X.shape[1],
+            Y.data_ptr(), nb, R, bs, X.shape[-1],
+            X.shape[0] if X.dim() == 3 else 1, X.shape[-2],
             torch.cuda.current_stream().cuda_stream,
         )
     bsr_matmat.launches += 1
@@ -507,9 +531,11 @@ def bsr_strip_matmat(strip_cols: torch.Tensor, strip_vals: torch.Tensor,
 def bsr_window_matmat(lo: torch.Tensor, win_vals: torch.Tensor,
                       X: torch.Tensor, *, bs: int = 8,
                       out_rows: Optional[int] = None) -> torch.Tensor:
-    """K5: strip-window SpMM, [out_rows (default X's rows), k].
+    """K5: strip-window SpMM, [out_rows (default X's rows), k]; for a batch
+    X [b, n, k] (b problems sharing the matrix), [b, out_rows, k].
 
-    CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_window_f32`` and
+    CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_window_f32`` (once for
+    a batch, after one non-finite flag pass over the whole batch) and
     counts it in ``bsr_window_matmat.launches``.  CPU tensor: the plain
     version.  The kernel skips window chunks whose values are all zero
     when X is finite (the full sum; at most a zero's sign differs) and
@@ -528,7 +554,8 @@ def bsr_window_matmat(lo: torch.Tensor, win_vals: torch.Tensor,
     with torch.cuda.device(X.device):
         code = lib.lobpcg_bsr_window_f32(
             lo.data_ptr(), win_vals.data_ptr(), X.data_ptr(), Y.data_ptr(),
-            nr, strip, W, bs, X.shape[1], flag.data_ptr(),
+            nr, strip, W, bs, X.shape[-1], X.shape[0] if X.dim() == 3 else 1,
+            X.shape[-2], flag.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     bsr_window_matmat.launches += 1

@@ -4,7 +4,9 @@ kernel ``csrc/stencil3d.cu`` and its plain PyTorch version.
 Port of the TPU kernel ``lobpcg_tpu/ops/pallas/stencil3d.py:
 stencil3d_matmat_pallas``: Y = scale * (6 X - the six grid neighbours)
 on the flat C-order [nx*ny*nz, k] block, every neighbour outside the
-grid zero.
+grid zero; or on a batch [b, nx*ny*nz, k] of such blocks, each problem
+its own grid (the map ``jax.vmap`` makes of the Pallas kernel), in one
+launch.
 
 ``stencil3d_matmat`` launches the kernel for a CUDA tensor and runs the
 plain version ``stencil3d_matmat_reference`` only for a CPU tensor.  The
@@ -35,7 +37,8 @@ _SYMBOLS = {
 # returns an int cudaError_t).
 SIGNATURES = {
     sym: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float, ctypes.c_int64,
-          ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
+          ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
+          ctypes.c_void_p]
     for sym in _SYMBOLS.values()
 }
 
@@ -56,10 +59,11 @@ def _check_args(X, grid_shape):
     if len(grid_shape) != 3 or min(grid_shape) < 1:
         raise ValueError(f"stencil3d_matmat: grid_shape must be 3 sizes >= 1, "
                          f"got {grid_shape}")
-    if X.dim() != 2 or X.shape[1] < 1:
-        raise ValueError(f"stencil3d_matmat: X must be [n, k], got {tuple(X.shape)}")
-    if X.shape[0] != math.prod(grid_shape):
-        raise ValueError(f"stencil3d_matmat: X has {X.shape[0]} rows, grid "
+    if X.dim() not in (2, 3) or X.shape[-1] < 1:
+        raise ValueError(f"stencil3d_matmat: X must be [n, k] or [b, n, k], "
+                         f"got {tuple(X.shape)}")
+    if X.shape[-2] != math.prod(grid_shape):
+        raise ValueError(f"stencil3d_matmat: X has {X.shape[-2]} rows, grid "
                          f"{grid_shape} has {math.prod(grid_shape)} points")
 
 
@@ -77,28 +81,32 @@ def stencil3d_matmat_reference(
 ) -> torch.Tensor:
     """Plain version: scale times the sum of the three separable passes,
     ((axis 0 + axis 1) + axis 2), as the JAX package's separable
-    ``LaplacianND`` computes it.  Any dtype; bf16 computes in f32 and
+    ``LaplacianND`` computes it; a batch [b, n, k] passes along the grid
+    axes after its leading one.  Any dtype; bf16 computes in f32 and
     rounds once, as the kernel does."""
     _check_args(X, grid_shape)
-    n, k = X.shape
     out_dtype = X.dtype
+    shape = X.shape
     if X.dtype == torch.bfloat16:
         X = X.float()
-    Xg = X.reshape(*grid_shape, k)
-    Y = lap_along(Xg, 0) + lap_along(Xg, 1)
-    Y = Y + lap_along(Xg, 2)
-    return (scale * Y).reshape(n, k).to(out_dtype)
+    lead = shape[:-2]
+    Xg = X.reshape(*lead, *grid_shape, shape[-1])
+    Y = lap_along(Xg, len(lead)) + lap_along(Xg, len(lead) + 1)
+    Y = Y + lap_along(Xg, len(lead) + 2)
+    return (scale * Y).reshape(shape).to(out_dtype)
 
 
 def stencil3d_matmat(
     X: torch.Tensor, scale: float, grid_shape: tuple[int, int, int]
 ) -> torch.Tensor:
-    """Y = scale * (7-point Dirichlet Laplacian) X on a 3-D grid.
+    """Y = scale * (7-point Dirichlet Laplacian) X on a 3-D grid; X is
+    [n, k], or [b, n, k] for b problems on the same grid.
 
     CUDA tensor: launches ``csrc/stencil3d.cu`` on the current stream
-    (f32 or bf16, contiguous, any grid and k), without synchronising, and
-    counts the launch in ``stencil3d_matmat.launches``; anything the
-    kernel does not take raises.  CPU tensor: the plain version.
+    (f32 or bf16, contiguous, any grid and k, the whole batch in one
+    launch), without synchronising, and counts the launch in
+    ``stencil3d_matmat.launches``; anything the kernel does not take
+    raises.  CPU tensor: the plain version.
     """
     _check_args(X, grid_shape)
     if X.device.type == "cpu":
@@ -111,12 +119,13 @@ def stencil3d_matmat(
         raise ValueError("stencil3d_matmat: X must be contiguous")
     lib = _lib()
     nx, ny, nz = (int(g) for g in grid_shape)
+    batch = X.shape[0] if X.dim() == 3 else 1
     Y = torch.empty_like(X)
     with torch.cuda.device(X.device):
         stream = torch.cuda.current_stream().cuda_stream
         code = getattr(lib, _SYMBOLS[X.dtype])(
-            X.data_ptr(), Y.data_ptr(), float(scale), nx, ny, nz,
-            X.shape[1], stream,
+            X.data_ptr(), Y.data_ptr(), float(scale), batch, nx, ny, nz,
+            X.shape[-1], stream,
         )
     stencil3d_matmat.launches += 1
     check(lib, code, "stencil3d launch")

@@ -9,10 +9,17 @@ Under ``jax.vmap`` the JAX package's ``lax.while_loop`` becomes one
 program whose iterations are masked per problem.  That program is the
 port's lockstep route: ``lobpcg``/``ilobpcg`` given an X0 of [b, n, m]
 (``solvers/lobpcg.py``) run the batch as one loop, one set of launches
-for the batch, with per-problem masks.  ``batched`` stays the generic
-map for any function (and for the operators the lockstep route does not
-take): each problem runs the unbatched host loop on the card, one after
-another, and gets exactly its own solve's result.
+for the batch, with per-problem masks.  That route takes every operator
+``jax.vmap`` maps in the JAX package: those of ``operators/linop.py``
+(``CallableOperator`` with its arguments shared or mapped by
+``in_axes``), ``LaplacianND`` and ``BSROperator`` over a grid or matrix
+the batch shares (one K2, K3 or K5 launch a batch apply), the realified
+operators, and a P0 [n, m] the batch shares; not the sharded operators,
+a sharded solve, or a P0 per problem (which ``jax.vmap`` of the JAX
+solve refuses too).  ``batched`` stays the generic map for any function
+(and for what the lockstep route does not take): each problem runs the
+unbatched host loop on the card, one after another, and gets exactly
+its own solve's result.
 
 Random draws: ``jax.vmap`` over a solve with an unbatched key gives every
 problem the same draws.  Pass the generators the solve draws from as

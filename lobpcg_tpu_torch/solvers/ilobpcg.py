@@ -47,6 +47,7 @@ from lobpcg_tpu_torch.solvers.lobpcg import (
     _local_rows,
     _norms,
     _start_block,
+    _start_momentum,
     solve_entry,
 )
 from lobpcg_tpu_torch.solvers.state import ILOBPCGResult
@@ -92,11 +93,7 @@ def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
     W = get_residual(X, AX, lam, A, B)
     res = res_norm(W, lam)
 
-    P = (
-        torch.zeros(lead + (n_loc, m), dtype=dtype, device=device)
-        if P0 is None else P0.to(device=device, dtype=dtype)
-    )
-    p_cnt = p0_cnt if P0 is not None else lanes.zeros(nb, device)
+    P, p_cnt = _start_momentum(P0, p0_cnt, lead, n_loc, m, dtype, device)
     conv = it = q5 = stall = lanes.zeros(nb, device)
     rr_fail = lanes.as_int(lanes.not_(lanes.read(rr_ok0)))
     res_best = lanes.read(torch.amax(res, dim=-1))

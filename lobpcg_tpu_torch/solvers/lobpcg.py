@@ -73,12 +73,19 @@ def _prepare_p0(P0, A, config, lead=()):
     """Validate and prefix-compact a warm-restart momentum block (this
     rank's rows under a row group): the live P columns must form a
     zero-padded prefix, so nonzero columns move to the front (stable) and
-    are counted.  Returns (P0, count)."""
+    are counted.  Returns (P0, count).
+
+    A lockstep batch (``lead`` (b,)) takes one P0 [n, m] shared by its
+    problems, as ``jax.vmap`` shares an unmapped P0: it is compacted
+    once here and every problem starts from it."""
     if P0 is None:
         return None, 0
-    if lead:
+    if lead and P0.dim() != 2:
         raise NotImplementedError(
-            "P0 (a warm restart) is not taken by the lockstep batched solve")
+            f"P0 of shape {tuple(P0.shape)}: the lockstep batched solve takes "
+            "one P0 [n, size_sub] shared by the batch, not a warm restart per "
+            "problem; jax.vmap of the JAX package's solve refuses a mapped P0 "
+            "too (its _prepare_p0 reads P0 on the host)")
     n_loc, _ = _local_rows(A.shape[0])
     if tuple(P0.shape) != (n_loc, config.size_sub):
         raise ValueError(
@@ -114,6 +121,20 @@ def _start_block(X0, rng, n, m, dtype, device):
     if X0 is None:
         return rng.fill("x0", (n, m), dtype, device)
     return X0.to(device=device, dtype=dtype)
+
+
+def _start_momentum(P0, p0_cnt, lead, n_loc, m, dtype, device):
+    """(P, its live-column count) at the start of a solve: zeros and 0,
+    or the prepared P0 and its count; a lockstep batch starts every
+    problem from its one shared P0."""
+    if P0 is None:
+        return (torch.zeros(lead + (n_loc, m), dtype=dtype, device=device),
+                lanes.zeros(lead[0] if lead else None, device))
+    P = P0.to(device=device, dtype=dtype)
+    if not lead:
+        return P, p0_cnt
+    return (P.expand(lead + (n_loc, m)).contiguous(),
+            torch.full(lead, p0_cnt, dtype=torch.int64, device=device))
 
 
 def _check_inputs(A, X0, config, it_cap, device):
@@ -240,11 +261,7 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
     if not config.use_ax_cache:
         AX = None
 
-    P = (
-        torch.zeros(lead + (n_loc, m), dtype=dtype, device=device)
-        if P0 is None else P0.to(device=device, dtype=dtype)
-    )
-    p_cnt = p0_cnt if P0 is not None else lanes.zeros(nb, device)
+    P, p_cnt = _start_momentum(P0, p0_cnt, lead, n_loc, m, dtype, device)
     conv = use_ortho = it = retries = lanes.zeros(nb, device)
     hist = observe.history_init(config, m, lam.dtype, res.dtype, device, lead)
     cache_b = config.use_b_cache and B is not None
@@ -388,8 +405,9 @@ def lobpcg(
     B=None gives the standard problem, T is an optional preconditioner,
     X0 an optional initial guess ([n, size_sub]); an X0 of
     [b, n, size_sub] solves b problems in lockstep (operator data with a
-    leading batch dimension, ``operators/linop.py``) and every field of
-    the result gains a leading batch dimension.  The solve runs on
+    leading batch dimension, ``operators/linop.py``; a P0 [n, size_sub]
+    shared by the batch) and every field of the result gains a leading
+    batch dimension.  The solve runs on
     X0's device, or on ``device`` when X0 is None, or on the CUDA card
     when neither is given.  Random fills come
     from ``generator`` (a ``torch.Generator`` on that device; None = the

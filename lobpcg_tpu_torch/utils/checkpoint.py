@@ -96,8 +96,15 @@ def solve_checkpointed(
     ``iterations`` the cumulative count across chunks (including any
     from resumed snapshots).  The first chunk passes no momentum; the
     JAX package passes a zero block there to keep one compile, which the
-    solvers treat the same as none.
+    solvers treat the same as none.  One problem only: a lockstep batch
+    (an X0 of [b, n, m]) raises, as its snapshots are host I/O that
+    ``jax.vmap`` cannot map in the JAX package either.
     """
+    if X0 is not None and X0.dim() == 3:
+        raise NotImplementedError(
+            "solve_checkpointed takes one problem, an X0 of [n, size_sub]: "
+            "its snapshots are host I/O, which jax.vmap of the JAX "
+            "package's solve_checkpointed cannot map either")
     path = pathlib.Path(path)
     total_it = 0
     X, P = X0, None

@@ -608,6 +608,120 @@ def test_small_3d_solves_run_through_k2_and_k3(cuda_device):
         assert np.abs(lam - exact).max() <= 1e-5 * 12 / h**2
 
 
+# --- The batched launches (a lockstep batch of problems sharing the grid
+# or the matrix): one launch for the batch, each problem's Y equal to its
+# lone launch's bit for bit (the same f32 operations in the same order),
+# the batch within the lone tolerance of the batched plain version.
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("grid", [(1, 1, 1), (5, 7, 9), (3, 16, 8), (2, 3, 1)])
+@pytest.mark.parametrize("k", [1, 3, 16, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_stencil3d_batched_launch_on_card(cuda_device, grid, k, dtype):
+    b = 3
+    n = int(np.prod(grid))
+    X = torch.from_numpy(np.random.default_rng(k).uniform(-0.5, 0.5, (b, n, k))
+                         ).to(cuda_device, dtype)
+    before = k2.stencil3d_matmat.launches
+    y = k2.stencil3d_matmat(X, SCALE, grid)
+    assert k2.stencil3d_matmat.launches == before + 1
+    want = k2.stencil3d_matmat_reference(X, SCALE, grid)
+    lone = [k2.stencil3d_matmat(X[i], SCALE, grid) for i in range(b)]
+    torch.cuda.synchronize()
+    tol = 4 * torch.finfo(dtype).eps * 12 * SCALE * float(X.float().abs().max())
+    assert y.shape == X.shape
+    assert float((y.float() - want.float()).abs().max()) <= tol
+    for i in range(b):
+        assert torch.equal(y[i], lone[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,bs", [(96, 8), (99, 3), (360, 8)])
+@pytest.mark.parametrize("k", [1, 5, 16, 48, 130])
+def test_bsr_ell_batched_launch_on_card(cuda_device, n, bs, k):
+    b = 3
+    A = _banded(n, 2 * bs, n)
+    op = tl.BSROperator.from_dense(A, block_size=bs, device=cuda_device)
+    X = torch.from_numpy(np.random.default_rng(k).uniform(-1, 1, (b, n, k))
+                         ).to(cuda_device, torch.float32)
+    before = kb.bsr_matmat.launches
+    y = kb.bsr_matmat(op.block_cols, op.blocks, X)
+    assert kb.bsr_matmat.launches == before + 1
+    lone = [kb.bsr_matmat(op.block_cols, op.blocks, X[i]) for i in range(b)]
+    want = kb.bsr_matmat_reference(op.block_cols, op.blocks, X)
+    torch.cuda.synchronize()
+    tol = _bsr_tol(lambda B, Z: kb.bsr_matmat_reference(op.block_cols, B, Z),
+                   op.blocks.abs(), X, op.blocks.shape[1] * bs)
+    assert float((y - want).abs().max()) <= tol
+    for i in range(b):
+        assert torch.equal(y[i], lone[i])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,bs,band", [(256, 8, 8), (384, 24, 30), (99, 3, 6)])
+@pytest.mark.parametrize("k", [1, 5, 16, 48, 130])
+def test_bsr_window_batched_launch_on_card(cuda_device, n, bs, band, k):
+    b = 3
+    A = _banded(n, band, band)
+    op = tl.BSROperator.from_dense(A, block_size=bs, device="cpu")
+    lo, wv = kb.ell_to_strip_window(op.block_cols.numpy(), op.blocks.numpy(),
+                                    strip=bs * (-(-256 // bs)))
+    lo, wv = (torch.from_numpy(a).to(cuda_device) for a in (lo, wv))
+    X = torch.from_numpy(np.random.default_rng(k).uniform(-1, 1, (b, n, k))
+                         ).to(cuda_device, torch.float32)
+    X[1, n // 2, 0] = float("nan")  # one problem's NaN: the flag is the batch's
+    before = kb.bsr_window_matmat.launches
+    y = kb.bsr_window_matmat(lo, wv, X, bs=bs)
+    assert kb.bsr_window_matmat.launches == before + 1
+    lone = [kb.bsr_window_matmat(lo, wv, X[i], bs=bs) for i in range(b)]
+    want = kb.bsr_window_matmat_reference(lo, wv, X, bs=bs)
+    torch.cuda.synchronize()
+    fin = torch.nan_to_num(X, nan=0.0)
+    tol = _bsr_tol(lambda V, Z: kb.bsr_window_matmat_reference(lo, V, Z, bs=bs),
+                   wv.abs(), fin, wv.shape[2])
+    _same_nonfinite(y, want, tol)
+    for i in (0, 2):  # the finite problems: their lone launches' bits
+        assert torch.equal(y[i], lone[i])
+
+
+@pytest.mark.gpu
+def test_lockstep_3d_solves_run_through_batched_k2_and_k3(cuda_device):
+    """A lockstep batch of 2 on the 12^3 grid (the Laplacian, and it plus
+    a trap) through LaplacianND and BSROperator: converged, and the
+    kernel launched once a batch apply (as often as the longest problem
+    alone applies A)."""
+    g, nev, ss = (12, 12, 12), 3, 6
+    n = int(np.prod(g))
+    h = 1.0 / 13
+    x = (np.arange(12) + 1) * h - 0.5
+    trap = (x[:, None, None] ** 2 + 1.3 * x[None, :, None] ** 2
+            + 1.7 * x[None, None, :] ** 2).ravel()
+    V = torch.from_numpy(np.stack([0 * trap, 400 * trap])).to(cuda_device,
+                                                            torch.float32)
+    X0 = torch.from_numpy(np.random.RandomState(0).uniform(-0.5, 0.5, (n, ss))
+                          ).to(cuda_device, torch.float32)
+    for A, fn in (
+            (tl.LaplacianND(scale=1.0 / h**2, grid=g), k2.stencil3d_matmat),
+            (tl.BSROperator.from_csr(*tl.laplacian_3d_csr(*g), block_size=8,
+                                     device=cuda_device), kb.bsr_matmat)):
+        counts = []
+        for Ai, X in ((A + tl.DiagonalOperator(V), X0.expand(2, n, ss)),
+                      (A + tl.DiagonalOperator(V[0]), X0),
+                      (A + tl.DiagonalOperator(V[1]), X0)):
+            before = fn.launches
+            r = tl.lobpcg(Ai, X.contiguous(), nev=nev, size_sub=ss, tol=1e-5,
+                          max_iter=500, generator=torch.Generator(
+                              device=cuda_device).manual_seed(0))
+            counts.append((fn.launches - before, r.iterations))
+            assert (torch.as_tensor(r.converged) == nev).all()
+        (batch, its), lone = counts[0], counts[1:]
+        longest = max(range(2), key=lambda i: lone[i][1])
+        if int(its.max()) == lone[longest][1]:
+            assert batch == lone[longest][0]
+        assert batch < lone[0][0] + lone[1][0]
+
+
 @pytest.mark.gpu
 def test_entry_points_default_to_the_card(cuda_device):
     A = tl.Laplacian1D(scale=1.0, n=64)

@@ -14,8 +14,9 @@ same numpy inputs (f64, the CPU):
   rr-flag-2 retry, the stall reset, the quality-5 dual basis), each
   problem equal to its lone solve;
 - the batched operator applies (Laplacian1D as one K1 launch over
-  b*segments segments), and the operators without a batched form
-  refusing a 3-D block.
+  b*segments segments), and the operators without a batched form (the
+  sharded ones) and a per-problem P0 refusing a batch.  The other
+  operators' lockstep solves are test_torch_lockstep_operators.py's.
 
 The JAX solves draw from their default key, unbatched under vmap: every
 problem gets the same draws, and the port's problems get those draws
@@ -486,13 +487,11 @@ def test_batched_operator_data():
 
 
 def test_operators_without_a_batched_form_refuse_a_batch():
-    """Every operator the lockstep solve does not take raises
-    NotImplementedError naming itself on a [b, n, k] block; so does a
-    batched solve over a sharded problem."""
-    from lobpcg_tpu_torch.operators.realify import (
-        RealEmbeddedDenseOperator,
-        RealEmbeddedDiagonalOperator,
-    )
+    """Every operator the lockstep solve does not take (the sharded
+    forms) raises NotImplementedError naming itself on a [b, n, k] block;
+    so does a batched solve over a sharded problem, one given a
+    per-problem P0 [b, n, m] (jax.vmap of the JAX solve refuses a mapped
+    P0 too), and solve_checkpointed given a batch."""
     from lobpcg_tpu_torch.parallel.sharding import (
         BSRRowPanelOperator,
         GatheredOperator,
@@ -512,13 +511,6 @@ def test_operators_without_a_batched_form_refuse_a_batch():
                                     device="cpu")
     mesh = RowMesh(group=None, rank=0, size=2, device=torch.device("cpu"))
     ops = [
-        bsr,
-        tl.LaplacianND(1.0, (2, 2, 4), dtype=F64),
-        tl.CallableOperator(args=(), fn=lambda X: X, n=16, _dtype=F64),
-        RealEmbeddedDenseOperator(torch.eye(8, dtype=F64),
-                                  torch.zeros(8, 8, dtype=F64)),
-        RealEmbeddedDiagonalOperator(torch.ones(8, dtype=F64),
-                                     torch.zeros(8, dtype=F64)),
         shard_operator(tl.DiagonalOperator(torch.ones(16, dtype=F64)), mesh),
         shard_operator(tl.DenseOperator(torch.eye(16, dtype=F64)), mesh),
         shard_operator(tl.BlockAntiDiagOperator(torch.ones(8, dtype=F64)),
@@ -531,9 +523,7 @@ def test_operators_without_a_batched_form_refuse_a_batch():
                                mesh),
     ]
     kinds = {type(op) for op in ops}
-    assert {tl.BSROperator, tl.LaplacianND, tl.CallableOperator,
-            RealEmbeddedDenseOperator, RealEmbeddedDiagonalOperator,
-            LocalRows, RowPanelOperator, ShardedBlockAntiDiagOperator,
+    assert {LocalRows, RowPanelOperator, ShardedBlockAntiDiagOperator,
             SpmdLaplacian1D, SpmdLaplacianND, ShardedBSROperator,
             BSRRowPanelOperator, GatheredOperator} <= kinds
     X = torch.zeros((2, 16, 3), dtype=F64)
@@ -548,5 +538,10 @@ def test_operators_without_a_batched_form_refuse_a_batch():
     with pytest.raises(NotImplementedError, match="P0"):
         tl.lobpcg(tl.DiagonalOperator(torch.ones(16, dtype=F64)),
                   torch.ones((2, 16, 3), dtype=F64),
-                  P0=torch.zeros((16, 3), dtype=F64), nev=2, size_sub=3,
+                  P0=torch.zeros((2, 16, 3), dtype=F64), nev=2, size_sub=3,
                   device="cpu")
+    with pytest.raises(NotImplementedError, match="one problem"):
+        tl.solve_checkpointed(
+            tl.lobpcg, tl.DiagonalOperator(torch.ones(16, dtype=F64)),
+            torch.ones((2, 16, 3), dtype=F64),
+            config=tl.SolverConfig(nev=2, size_sub=3), path="unused.npz")
