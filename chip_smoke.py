@@ -61,7 +61,9 @@ non-zero; there is no CPU fallback):
                 tridiagonal spectra), K2 launched once a batch apply (the
                 longest problem's applies); problem 0's iterations beside
                 the lone solve's, the wall beside it, the peak beside 4 x
-                estimate_peak_gb, the host syncs an iteration.
+                estimate_peak_gb and estimate_peak_gb(batch=4) (a solver
+                outside the lockstep term's fit), the host syncs an
+                iteration.
     lockstep_bsr — the same sweep through the BSROperator (K3), over the
                 first 2 strengths (LOCK3_BSR_PROBLEMS).
     k3_frame  — that BSROperator sharded at world size 1 (no window plan):
@@ -152,14 +154,17 @@ non-zero; there is no CPU fallback):
                 apply: as often as the longest-running problem applies A
                 alone (its lone solve's launches, fixed plus per
                 iteration); per-problem iterations, the wall beside the
-                batched phase's, the peak, the host syncs an iteration
+                batched phase's, the peak beside estimate_peak_gb(batch=8)
+                (fitted on lockstep_sharded's peaks), the host syncs an
+                iteration
                 (torch's CUDA sync debug mode), and the tall Gram at its
                 shape three ways (split over rows as ops/gram.py runs
                 it, one strided-batched GEMM, one GEMM per problem: ms
                 and error against float64).  Then 32 barriers in
                 [1, 4] at n 65,536 the same way (oracles through the
                 tridiagonal eigensolver on well_eigs_oracle's matrix,
-                K1 held to the same count), beside lt.batched on 4 of
+                K1 held to the same count; the peak beside the estimate,
+                a shape outside its fit), beside lt.batched on 4 of
                 them (its wall, and each problem's wall and host syncs
                 inside it).
 21. lockstep_callable — examples/fft_matrix_free.py's CallableOperator
@@ -171,6 +176,34 @@ non-zero; there is no CPU fallback):
                 realify_problem (RealEmbeddedDiagonalOperator [4, m]) as
                 one lockstep split-real ilobpcg: 16/16 pairs each within
                 1e-5 of its oracle and of its lone solve.
+23. k3_frame_batched — after the K3 kernel phase: the 160^3 BSROperator
+                sharded at world size 1 applied to [2, n, 16], one K3
+                launch on the frame, equal to its 2 lone applies bit for
+                bit; against its gather + einsum, timed beside them and
+                torch.sparse.mm on the folded [n, 32].
+24. k6_batched — after the k6 phase: K6 on its interior shard at [4,
+                262,144, 32], each problem's halos cut from its own global
+                X: one launch against its plain version, its 4 lone
+                launches (bit for bit) and torch.sparse.mm of the shard's
+                CSR rows on the folded frame; the non-finite flag pass's
+                own time beside it.
+25. k1_edges_batched — after the lockstep phase: K1 on [8, 1M, 30] over
+                16 segments with random nonzero edge rows [8, 2, 30]: one
+                launch against its plain version (error 0), its 8 lone
+                launches with their own edge pairs (bit for bit), the
+                unbatched [8M, 30] launch, the plain version and conv1d.
+26. lockstep_sharded — the lockstep phase's 8 barriers x 1M x 30 through
+                parallel.shard_problem on row_mesh(1) (NCCL), X0
+                [8, n_loc, 30]: the lockstep phase's record bit for bit
+                (each problem's iterations, the eigenvalues, K1's
+                launches); the wall, all-reduces an iteration beside the
+                sharded flagship's, halo exchanges, the peak beside
+                estimate_peak_gb(batch=8) and the host syncs an iteration.
+27. lockstep_sharded_4m — 4 barriers {1, 2, 3, 4} of the well at the
+                flagship's n 4,000,000 (nev 16, size_sub 30, Chebyshev 3,
+                tol 1e-5, f32) the same way: 16/16 each within 1e-5 of its
+                oracle, K1 once a batch apply, the wall and the peak beside
+                the estimate.
 
 Every kernel wrapper counts its launches; each path runs with every
 count set to 0 just before it and read just after.  The second-to-last
@@ -274,6 +307,9 @@ LOCK3_BSR_PROBLEMS = 2
 FFT_SHIFTS = (0.0, 1.5, 4.0)
 REALIFY_BATCH_N = 262_144
 REALIFY_BARRIERS = (1.0, 1.5, 2.5, 4.0)
+# The lockstep batch under a row group at the flagship's n: 4 barriers.
+SHARDED_4M_BARRIERS = (1.0, 2.0, 3.0, 4.0)
+K6_BATCH, K6_BATCH_K = 4, 32  # K6 over a batch: problems and columns
 
 # Published H100 SXM peaks, the bound of each kernel's time, its error
 # and the card's nvidia-smi line, shared with the K1 width sweep.
@@ -823,6 +859,43 @@ def k3_laplacian_phase(dev, op, A_csr, nnz) -> list[dict]:
     return out
 
 
+def k3_frame_batched_check(dev, op, A_csr, nnz) -> dict:
+    """The 160^3 block-ELL sharded at world size 1 (no window: K3 on the
+    frame) applied to a batch [2, n, 16]: one K3 launch, each problem its
+    lone apply's bits, against its gather + einsum (pallas "off") and
+    torch.sparse.mm on the block folded to [n, 32]."""
+    mesh = parallel.row_mesh(1)
+    try:
+        sop = parallel.ShardedBSROperator.shard(op, mesh)
+        plain = dataclasses.replace(sop, pallas="off")
+        b, k = 2, SS3
+        gen = torch.Generator(device=dev).manual_seed(8)
+        X = torch.rand((b, op.n, k), generator=gen, device=dev) - 0.5
+        zero_counts()
+        sop.matmat(X)
+        counts = read_counts()
+        if counts["bsr_ell"] != 1 or sum(counts.values()) != 1:
+            raise AssertionError(f"sharded 160^3 batch apply launched {counts}")
+        R, bs = op.blocks.shape[1], op.blocks.shape[2]
+        tol = 2 * R * bs * torch.finfo(torch.float32).eps * float(
+            kb.bsr_matmat_reference(op.block_cols, op.blocks.abs(),
+                                    X.abs()).max())
+        folded = X.permute(1, 0, 2).reshape(op.n, b * k)
+        rec = batched_check(
+            "bsr_ell", b, lambda: sop.matmat(X), lambda i: sop.matmat(X[i]),
+            lambda: plain.matmat(X), tol, 4 * nnz + 2 * 4 * X.numel(),
+            2 * nnz * k * b, lambda: torch.sparse.mm(A_csr, folded),
+            info={"phase_of": "k3_frame_batched", "matrix": "laplacian3d_160",
+                  "sharded": True, "window": sop.win_vals is not None,
+                  "launches": counts, "n": op.n, "k": k, "nnz": nnz,
+                  **format_floor(op.blocks, b * op.n, k)})
+        del sop, plain, X, folded
+        free()
+        return rec
+    finally:
+        torch.distributed.destroy_process_group()
+
+
 def laplacian3d_phase(dev, name, A, X0, kernel) -> dict:
     """Standard lobpcg on the 160^3 Laplacian through operator A."""
     h = 1.0 / (GRID3[0] + 1)
@@ -1256,7 +1329,56 @@ def k6_phase(dev, op, S, X) -> list[dict]:
         raise AssertionError(f"K6 shards against the global product: {err} > {tol}")
     del Y, Yp, Yabs, Xabs
     free()
-    return recs
+    return recs, plan
+
+
+def k6_batched_check(dev, plan, S) -> dict:
+    """K6 over a batch: the k6 phase's interior shard 1 of the SPD band at
+    [K6_BATCH, 262,144, K6_BATCH_K], each problem's halos cut from its own
+    global X: one launch against its plain version, its lone launches (bit
+    for bit) and torch.sparse.mm of the shard's CSR rows on the frame
+    folded to [rows, b k]; the non-finite flag pass (over X and the edge
+    buffers) timed on its own."""
+    bs, H, nd, d = BAND_BS, plan.halo, K6_SHARDS, 1
+    hrows, n_loc, W = H * bs, BAND_N // nd, plan.width * bs
+    b, k = K6_BATCH, K6_BATCH_K
+    gen = torch.Generator(device=dev).manual_seed(9)
+    Xg = torch.rand((b, BAND_N, k), generator=gen, device=dev) - 0.5
+    r0, r1 = d * n_loc, (d + 1) * n_loc
+    xs = Xg[:, r0:r1].contiguous()
+    x_ext = Xg[:, r0 - hrows : r1 + hrows].contiguous()
+    del Xg
+    top = torch.cat([x_ext[:, :hrows], xs[:, :W]], dim=1)
+    bot = torch.cat([xs[:, -W:], x_ext[:, -hrows:]], dim=1)
+    lo = torch.from_numpy(plan.lo[d]).to(dev)
+    wv = torch.from_numpy(plan.win[d]).to(dev)
+    M = S[r0:r1, r0 - hrows : r1 + hrows].tocsr()
+    M_csr = csr_tensor(M, dev)
+    nnz = int(M.nnz)
+    folded = x_ext.permute(1, 0, 2).reshape(n_loc + 2 * hrows, b * k)
+    tol = 2 * W * torch.finfo(torch.float32).eps * float(
+        kb.bsr_window_matmat_edges_reference(
+            lo, wv.abs(), xs.abs(), top.abs(), bot.abs(), bs=bs,
+            hrows=hrows).max())
+    flag_ms = time_ms(lambda: kb.nonfinite_flag(xs, top, bot))
+    rec = batched_check(
+        "bsr_window_edges", b,
+        lambda: kb.bsr_window_matmat_edges(lo, wv, xs, top, bot, bs=bs,
+                                           hrows=hrows),
+        lambda i: kb.bsr_window_matmat_edges(lo, wv, xs[i], top[i], bot[i],
+                                             bs=bs, hrows=hrows),
+        lambda: kb.bsr_window_matmat_edges_reference(lo, wv, xs, top, bot,
+                                                     bs=bs, hrows=hrows),
+        tol, 4 * nnz + 4 * x_ext.numel() + 4 * xs.numel(), 2 * nnz * k * b,
+        lambda: torch.sparse.mm(M_csr, folded),
+        info={"matrix": "band_spd", "shard": d, "n_loc": n_loc, "k": k,
+              "hrows": hrows, "window_W": W, "nnz": nnz,
+              "nonfinite_flag_ms": flag_ms,
+              **format_floor(wv, b * n_loc, k,
+                             extra_bytes=4 * 2 * b * (hrows + W) * k)})
+    del xs, x_ext, top, bot, lo, wv, M_csr, folded
+    free()
+    return rec
 
 
 def sharded_phase(dev, main_rec, op, X) -> dict:
@@ -1718,6 +1840,8 @@ def lockstep_sweep(dev, n: int, barriers, cfg, oracle) -> tuple[dict, object]:
             "rr_failed": r.rr_fail_count.tolist(), "wall_s": wall,
             "launches": counts,
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+            "estimate_peak_gib": lt.estimate_peak_gb(
+                n, SS_BATCH, torch.float32, cfg, batch=len(barriers)),
             "host_syncs": syncs.count,
             "host_syncs_per_iteration": syncs.count / max(lock_iters, 1)}, r
 
@@ -1806,6 +1930,7 @@ def lockstep_phase(dev, batched_rec) -> list[dict]:
                           max_iter=MAX_ITER, gram_precision="highest")
     rec, r = lockstep_sweep(dev, N_BATCH, BATCH_BARRIERS, cfg, well_oracle)
     longest = int(torch.argmax(r.iterations))
+    lam = r.eigenvalues.cpu()
     del r
     free()
     rec = {"phase": "lockstep", **rec,
@@ -1872,6 +1997,157 @@ def lockstep_phase(dev, batched_rec) -> list[dict]:
     emit(rec)
     check_sweep(rec)
     recs.append(rec)
+    return recs, lam
+
+
+def k1_edges_batched_check(dev) -> dict:
+    """K1's batched edge form at the lockstep_sharded sweep's folded block:
+    [8, 1M, 30] as [8M, 30] over 16 segments (two a problem), with random
+    nonzero edge rows [8, 2, 30]: one launch against its plain version
+    (error 0) and its 8 lone launches with their own edge pairs (bit for
+    bit); timed beside them, the unbatched [8M, 30] launch without edge
+    rows, the plain version and cuDNN's conv1d over the same bytes."""
+    b, n, k = len(BATCH_BARRIERS), N_BATCH, SS_BATCH
+    segs = 2 * b
+    gen = torch.Generator(device=dev).manual_seed(11)
+    X = torch.rand((b * n, k), generator=gen, device=dev) - 0.5
+    E = torch.rand((b, 2, k), generator=gen, device=dev) + 0.5
+    lib = stencil_widths.conv1d_stencil(X, 1.0, segs)
+    tf32 = torch.backends.cudnn.allow_tf32
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        rec = batched_check(
+            "stencil1d", b,
+            lambda: k1.stencil_matmat(X, 1.0, E, num_segments=segs).view(b, n, k),
+            lambda i: k1.stencil_matmat(X[i * n : (i + 1) * n], 1.0, E[i],
+                                        num_segments=2),
+            lambda: k1.stencil_matmat_reference(
+                X, 1.0, E, num_segments=segs).view(b, n, k),
+            0.0, 2 * X.numel() * 4 + E.numel() * 4, 4 * X.numel(), lib,
+            info={"edge_rows": list(E.shape), "segments": segs,
+                  "dtype": "float32",
+                  "unbatched_ms": timed_untracked(
+                      lambda: k1.stencil_matmat(X, 1.0, num_segments=segs)),
+                  "unbatched_edges_ms": timed_untracked(
+                      lambda: k1.stencil_matmat(X, 1.0, E[0],
+                                                num_segments=segs))})
+    finally:
+        torch.backends.cudnn.allow_tf32 = tf32
+    del X, E, lib
+    free()
+    return rec
+
+
+def sharded_sweep(dev, mesh, n, barriers, cfg, oracle):
+    """One lockstep ilobpcg over ``barriers`` through shard_problem on
+    ``mesh``, X0 [b, n_loc, 30]: its record (converged, iterations, errors
+    against ``oracle``, wall, peak beside estimate_peak_gb, launches,
+    collectives, host syncs) and the eigenvalues on the host."""
+    A, B, T, X0 = lockstep_problem(n, barriers, dev)
+    As, X0s, Bs, Ts = parallel.shard_problem(mesh, A, X0, B, T)
+    del A, B, T, X0
+    gen = torch.Generator(device=dev).manual_seed(0)
+    free()
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    t0 = time.perf_counter()
+    with SyncCount() as syncs, mesh:
+        r = lt.ilobpcg(As, X0s, Bs, Ts, config=cfg, generator=gen)
+        lam = r.eigenvalues.cpu()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    counts, coll = read_counts(), read_collectives()
+    lam64 = lam.double().numpy()
+    rel = [float(np.max(np.abs(lam64[i] - e) / np.abs(e)))
+           for i, e in enumerate(oracle(b) for b in barriers)]
+    lock_iters = int(r.iterations.max())
+    b = len(barriers)
+    rec = {"world_size": mesh.size, "n": n, "n_loc": X0s.shape[-2],
+           "nev": NEV_BATCH, "size_sub": SS_BATCH, "cheb_degree": CHEB_DEGREE,
+           "tol": TOL, "problems": b, "barriers": list(barriers),
+           "converged": r.converged.tolist(), "iterations": r.iterations.tolist(),
+           "lockstep_iterations": lock_iters, "max_rel_err": rel,
+           "quality5": r.quality5_count.tolist(),
+           "rr_failed": r.rr_fail_count.tolist(), "wall_s": wall,
+           "launches": counts, "collectives": coll,
+           "all_reduces_per_iteration": coll["all_reduce"] / max(lock_iters, 1),
+           "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "estimate_peak_gib": lt.estimate_peak_gb(
+               n, SS_BATCH, torch.float32, cfg, batch=b, ranks=mesh.size),
+           "host_syncs": syncs.count,
+           "host_syncs_per_iteration": syncs.count / max(lock_iters, 1)}
+    del As, X0s, Bs, Ts, r
+    free()
+    return rec, lam
+
+
+def lockstep_sharded_phase(dev, lock_rec, lock_lam, sharded_rec) -> list[dict]:
+    """The lockstep sweep under a row group at world size 1 (NCCL): the
+    lockstep phase's 8 x 1M problems, which must take that phase's
+    trajectory bit for bit, then SHARDED_4M_BARRIERS at the flagship's n."""
+    cfg = lt.SolverConfig(nev=NEV_BATCH, size_sub=SS_BATCH, tol=TOL,
+                          max_iter=MAX_ITER, gram_precision="highest")
+    mesh = parallel.row_mesh(1)
+    mesh.all_reduce(torch.zeros(1, device=dev))  # NCCL sets up its communicator
+    recs = []
+    try:
+        rec, lam = sharded_sweep(dev, mesh, N_BATCH, BATCH_BARRIERS, cfg,
+                                 well_oracle)
+        flagship_ar = sharded_rec["collectives"]["all_reduce"] \
+            / sharded_rec["iterations"]
+        rec = {"phase": "lockstep_sharded", **rec,
+               "equal_to_lockstep": {
+                   "eigenvalues": bool(torch.equal(lam, lock_lam)),
+                   "iterations": rec["iterations"] == lock_rec["iterations"],
+                   "k1_launches": rec["launches"]["stencil1d"]
+                   == lock_rec["launches"]["stencil1d"]},
+               "lockstep_wall_s": lock_rec["wall_s"],
+               "lockstep_k1_launches": lock_rec["launches"]["stencil1d"],
+               "lockstep_max_memory_allocated_gib":
+                   lock_rec["max_memory_allocated_gib"],
+               "lockstep_host_syncs_per_iteration":
+                   lock_rec["host_syncs_per_iteration"],
+               "sharded_flagship_all_reduces_per_iteration": flagship_ar}
+        emit(rec)
+        recs.append(rec)
+        if not np.all(np.isfinite(lam.numpy())) or \
+                tuple(lam.shape) != (len(BATCH_BARRIERS), NEV_BATCH):
+            raise AssertionError("lockstep_sharded: eigenvalues not finite")
+        if not all(rec["equal_to_lockstep"].values()):
+            raise AssertionError(f"lockstep_sharded is not the lockstep "
+                                 f"phase's run: {rec['equal_to_lockstep']}")
+        if rec["converged"] != [NEV_BATCH] * len(BATCH_BARRIERS) or \
+                not max(rec["max_rel_err"]) <= ORACLE_RTOL:
+            raise AssertionError(f"lockstep_sharded: {rec['converged']}, "
+                                 f"{rec['max_rel_err']}")
+        free()
+
+        rec, lam = sharded_sweep(dev, mesh, N_MAIN, SHARDED_4M_BARRIERS, cfg,
+                                 well_oracle)
+        lone = lock_rec["lone"]
+        expected = lone["k1_before_loop"] \
+            + lone["k1_per_iteration"] * rec["lockstep_iterations"]
+        rec = {"phase": "lockstep_sharded_4m", **rec,
+               "k1_launches_expected": expected,
+               "lockstep_8x1m_max_memory_allocated_gib":
+                   lock_rec["max_memory_allocated_gib"]}
+        emit(rec)
+        recs.append(rec)
+        if rec["converged"] != [NEV_BATCH] * len(SHARDED_4M_BARRIERS) or \
+                not max(rec["max_rel_err"]) <= ORACLE_RTOL:
+            raise AssertionError(f"lockstep_sharded_4m: {rec['converged']}, "
+                                 f"{rec['max_rel_err']}")
+        # One K1 launch a batch apply: the longest problem's applies, and
+        # more only where a problem took a branch that re-applies A (the
+        # dual basis or an RR failure, computed for the whole batch).
+        k1_count = rec["launches"]["stencil1d"]
+        branched = sum(rec["quality5"]) + sum(rec["rr_failed"])
+        if k1_count < expected or (branched == 0 and k1_count != expected):
+            raise AssertionError(f"lockstep_sharded_4m: K1 launched {k1_count} "
+                                 f"times, the longest problem's applies are "
+                                 f"{expected}")
+    finally:
+        torch.distributed.destroy_process_group()
     return recs
 
 
@@ -1917,8 +2193,8 @@ def lockstep3d_phase(dev, phase, shared, kernel, lone_rec, problems) -> dict:
     separable oracle; ``kernel`` launched once a batch apply, as often as
     the longest problem's applies (the laplacian3d solve ``lone_rec`` of
     problem 0 gives the applies before the loop and an iteration); the
-    wall beside the lone solve's, the peak beside b x estimate_peak_gb,
-    the host syncs an iteration."""
+    wall beside the lone solve's, the peak beside b x estimate_peak_gb
+    and estimate_peak_gb(batch=b), the host syncs an iteration."""
     h = 1.0 / (GRID3[0] + 1)
     scale = 1.0 / (h * h)
     n = math.prod(GRID3)
@@ -1990,6 +2266,8 @@ def lockstep3d_phase(dev, phase, shared, kernel, lone_rec, problems) -> dict:
            "max_memory_allocated_gib": peak,
            "estimate_peak_gib": cfg_peak,
            "b_x_estimate_peak_gib": problems * cfg_peak,
+           "lockstep_estimate_peak_gib": lt.estimate_peak_gb(
+               n, SS3, torch.float32, cfg, batch=problems),
            "host_syncs": syncs.count,
            "host_syncs_per_iteration": syncs.count / max(max(its), 1)}
     emit(rec)
@@ -2208,6 +2486,7 @@ def main() -> None:
     k2_recs = k2_phase(dev) + [k2_batched_check(dev)]
     op3, A_csr3, nnz3 = laplacian_host_phase(dev)
     k3_lap = k3_laplacian_phase(dev, op3, A_csr3, nnz3)
+    k3_frame_batch = k3_frame_batched_check(dev, op3, A_csr3, nnz3)
     del A_csr3
     free()
     X0 = torch.from_numpy(np.random.RandomState(0).uniform(
@@ -2230,7 +2509,9 @@ def main() -> None:
     free()
     band, op_spd, S_spd, X_band = band_phase(dev)
     k5_batch = window_sweep_phase(dev, op_spd, S_spd)
-    k6_recs = k6_phase(dev, op_spd, S_spd, X_band)
+    k6_recs, k6_plan = k6_phase(dev, op_spd, S_spd, X_band)
+    k6_batch = k6_batched_check(dev, k6_plan, S_spd)
+    del k6_plan
     sharded_rec = sharded_phase(dev, main_rec, op_spd, X_band)
     blockdiag2_phase(dev, sharded_rec, op_spd, X_band)
     del op_spd, S_spd, X_band
@@ -2241,7 +2522,11 @@ def main() -> None:
     free()
     batched_rec = batched_phase(dev)
     free()
-    lockstep_phase(dev, batched_rec)
+    lock_recs, lock_lam = lockstep_phase(dev, batched_rec)
+    free()
+    k1_batch = k1_edges_batched_check(dev)
+    lockstep_sharded_phase(dev, lock_recs[0], lock_lam, sharded_rec)
+    del lock_lam
     free()
     lockstep_callable_phase(dev)
     free()
@@ -2251,8 +2536,8 @@ def main() -> None:
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     emit({"kernels": [
         # K1 at the BdG solve's shape, [4M, 64] f32.
-        kernel_entry("stencil1d", main_rec["launches"]["stencil1d"], k1_recs,
-                     k1_recs[0]),
+        kernel_entry("stencil1d", main_rec["launches"]["stencil1d"],
+                     k1_recs + [k1_batch], k1_recs[0]),
         # K2 at the 3-D solve's shape, 160^3 x 16 f32 (its batched launch
         # among the checks).
         kernel_entry("stencil3d", st_rec["launches"]["stencil3d"], k2_recs,
@@ -2260,7 +2545,7 @@ def main() -> None:
         # K3 at the BSR solve's shape, the 160^3 block-ELL x 16 (its
         # batched launch among the checks).
         kernel_entry("bsr_ell", bsr_rec["launches"]["bsr_ell"],
-                     k3_lap + [band["bsr_ell"]], k3_lap[0]),
+                     k3_lap + [band["bsr_ell"], k3_frame_batch], k3_lap[0]),
         # K4 on the SpMM path's band x 128 (no operator dispatches it).
         kernel_entry("bsr_strip", band["spmm_path_launches"]["bsr_strip"],
                      [band["bsr_strip"]], band["bsr_strip"]),
@@ -2273,7 +2558,7 @@ def main() -> None:
         # launched on the world-size-1 sharded BSR apply.
         kernel_entry("bsr_window_edges",
                      sharded_rec["bsr"]["launches"]["bsr_window_edges"],
-                     k6_recs, k6_recs[1]),
+                     k6_recs + [k6_batch], k6_recs[1]),
         # K7 at the headline's shape, [4M, 256] f32.
         kernel_entry("copy", bench_rec["launches"]["copy"], k7_recs,
                      k7_recs[0]),

@@ -86,20 +86,24 @@
 //   (fewer barriers per byte of values); the 128-wide tile favours short
 //   row tiles (fewer columns per tile, so more chunks skipped).
 //
-// Batches (K3 and K5).  X [batch, n, k] and Y [batch, n_out, k], one
+// Batches (K3, K5 and K6).  X [batch, n, k] and Y [batch, n_out, k], one
 // problem after another, all sharing the matrix (what jax.vmap makes of
-// the Pallas kernels over an unmapped matrix).  The column-tile axis runs
+// the Pallas kernels over an unmapped matrix); K6's edge buffers are
+// [batch, hrows + W, k] too, each problem's own halos.  The column-tile axis runs
 // over batch x ctiles tiles, ctiles = ceil(k / BN) per problem: tile t
 // belongs to problem t / ctiles and starts at column (t % ctiles) * BN of
 // that problem, so a tile never straddles two problems, whatever k is,
 // and its X and Y rows are the problem's own (the base pointers move by
-// one problem's X and Y).  The column tile stays the fastest index of the
+// one problem's X and Y, or for a K6 window in an edge buffer by one
+// problem's edge buffer: the row map carries each buffer's stride).  The column tile stays the fastest index of the
 // grid, so the CTAs of one row tile, every problem's, run together and
 // re-read the tile's matrix values from L2: the matrix leaves DRAM about
 // once per batch apply, and a batch apply moves the matrix once plus each
 // problem's X and Y.  Each output sums its terms in the unbatched order,
-// so each problem's Y equals its lone launch bit for bit.  K4 and K6 take
-// no batch (batch 1).
+// so each problem's Y equals its lone launch bit for bit.  One non-finite
+// flag pass covers the whole batch (a NaN in one problem turns the skip
+// off for all, which changes no finite problem's value).  K4 takes no
+// batch (batch 1).
 //
 // K3: a block-row tile kernel (ell_tile_kernel).
 // - The floor.  On the 160^3 Laplacian (nb 512,000, R 7, bs 8) 87% of the
@@ -216,20 +220,21 @@ cudaError_t mark_nonfinite(const float* x, int64_t n, int* flag, cudaStream_t s)
 // The row maps.  Each gives, per strip s, an object whose row(w) points at
 // the first element of the X row holding column w of the strip's values,
 // and whose any() is a valid address for zero-filled copies.
-// K5 / K6: row lo[s]*bs + w of the frame [top rows hrows | X | bot].
+// K5 / K6: row lo[s]*bs + w of the frame [top rows hrows | X | bot]; a
+// problem of a batch is xs elements further on in X and es in top and bot.
 struct WindowRows {
   const int32_t* lo;
   const float* X;
   const float* top;
   const float* bot;
-  int64_t bs, k, hrows, body_hi;
+  int64_t bs, k, hrows, body_hi, xs, es;
 };
 
-// K4: row strip_cols[s, w / bs]*bs + w % bs of X.
+// K4: row strip_cols[s, w / bs]*bs + w % bs of X (xs elements a problem).
 struct StripRows {
   const int32_t* cols;
   const float* X;
-  int64_t Rs, bs, k;
+  int64_t Rs, bs, k, xs;
 };
 
 // The shared memory a row map needs beyond the tiles: K4's row table,
@@ -242,20 +247,20 @@ constexpr int64_t map_smem(int64_t W) {
 
 struct ContiguousAt {
   const float* src;
-  int64_t k;
+  int64_t k, ps;  // ps: the source buffer's elements a problem
   __device__ const float* row(int64_t w) const { return src + w * k; }
   __device__ const float* any() const { return src; }
-  // The same rows of problem p of a batch, xs elements a problem.
-  __device__ ContiguousAt problem(int64_t p, int64_t xs) const { return {src + p * xs, k}; }
+  // The same rows of problem p of a batch.
+  __device__ ContiguousAt problem(int64_t p) const { return {src + p * ps, k, ps}; }
 };
 
 struct GatheredAt {  // tab: the strip's X row of each column, in shared memory
   const int* tab;
   const float* X;
-  int64_t k;
+  int64_t k, xs;
   __device__ const float* row(int64_t w) const { return X + (int64_t)tab[w] * k; }
   __device__ const float* any() const { return X; }
-  __device__ GatheredAt problem(int64_t p, int64_t xs) const { return {tab, X + p * xs, k}; }
+  __device__ GatheredAt problem(int64_t p) const { return {tab, X + p * xs, k, xs}; }
 };
 
 // The window of strip s starts at row start = lo[s]*bs of the frame
@@ -268,14 +273,9 @@ struct GatheredAt {  // tab: the strip's X row of each column, in shared memory
 __device__ __forceinline__ ContiguousAt rows_of(const WindowRows& m, int64_t s, int*,
                                                 int64_t) {
   const int64_t start = (int64_t)m.lo[s] * m.bs;
-  const float* src;
-  if (start < m.hrows)
-    src = m.top + start * m.k;
-  else if (start > m.body_hi)
-    src = m.bot + (start - m.body_hi) * m.k;
-  else
-    src = m.X + (start - m.hrows) * m.k;
-  return {src, m.k};
+  if (start < m.hrows) return {m.top + start * m.k, m.k, m.es};
+  if (start > m.body_hi) return {m.bot + (start - m.body_hi) * m.k, m.k, m.es};
+  return {m.X + (start - m.hrows) * m.k, m.k, m.xs};
 }
 
 // K4's row table, built by the CTA's threads before the first barrier:
@@ -289,7 +289,7 @@ __device__ __forceinline__ GatheredAt rows_of(const StripRows& m, int64_t s, int
     const int u = w / bs;
     tab[w] = cols[u] * bs + (w - u * bs);
   }
-  return {tab, m.X, m.k};
+  return {tab, m.X, m.k, m.xs};
 }
 
 // The tile of a BN-column launch.  RT row threads, each with TM rows;
@@ -323,7 +323,8 @@ struct WinTile {
 
 // One CTA: row tile (blockIdx / (batch * ctiles)) of the strips, column
 // tile ct = blockIdx % (batch * ctiles): problem ct / ctiles, its column
-// tile ct % ctiles.  xs, ys: one problem's X and Y elements.  va: W % 4
+// tile ct % ctiles.  ys: one problem's Y elements (the row map moves its
+// sources to the problem).  va: W % 4
 // == 0 and vals 16-byte aligned (float4 loads of the values).  nonfinite:
 // the flag of nonfinite_kernel over the whole batch (set: no chunk is
 // skipped).
@@ -339,8 +340,8 @@ template <int BN, bool VB, class Map>
 __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
     strip_tile_kernel(Map map, const float* __restrict__ vals, float* __restrict__ Y,
                       int64_t n_out, int64_t strip, int64_t W, int64_t k,
-                      int64_t rtiles, int64_t ctiles, int64_t batch, int64_t xs,
-                      int64_t ys, int va, const int* __restrict__ nonfinite) {
+                      int64_t rtiles, int64_t ctiles, int64_t batch, int64_t ys, int va,
+                      const int* __restrict__ nonfinite) {
   using T = WinTile<BN>;
   constexpr int BM = T::BM, BK = T::BK, P = T::P, E = T::E, TM = T::TM, TN = T::TN;
   constexpr int RT = T::RT, CT = T::CT, NT = T::NT, AV = T::AV, AP = T::APITCH;
@@ -364,7 +365,7 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
 
   // (K4's row table follows the tiles; the barrier of step 0 publishes it.)
   const auto rows =
-      rows_of(map, s, reinterpret_cast<int*>(Bs + (E + 1) * T::B_ELEMS), W).problem(prob, xs);
+      rows_of(map, s, reinterpret_cast<int*>(Bs + (E + 1) * T::B_ELEMS), W).problem(prob);
   const bool keep_all = *nonfinite != 0;
   const float* const arow = vals + row0 * W;  // values row row0
   const int64_t nchunks = (W + BK - 1) / BK;
@@ -515,7 +516,7 @@ __global__ void __launch_bounds__(WinTile<BN>::NT, 512 / WinTile<BN>::NT)
 template <int BN, bool VB, class Map>
 cudaError_t launch_strip_tile(const Map& map, const float* vals, float* Y, int64_t n_out,
                               int64_t strip, int64_t W, int64_t k, int64_t batch,
-                              int64_t xs, const int* flag, cudaStream_t s) {
+                              const int* flag, cudaStream_t s) {
   using T = WinTile<BN>;
   const int64_t rtiles = (strip + T::BM - 1) / T::BM;
   const int64_t ctiles = (k + BN - 1) / BN;
@@ -529,25 +530,25 @@ cudaError_t launch_strip_tile(const Map& map, const float* vals, float* Y, int64
   if (e != cudaSuccess) return e;
   const int va = W % 4 == 0 && aligned16(vals);
   kernel<<<(unsigned)blocks, T::NT, (size_t)smem, s>>>(map, vals, Y, n_out, strip, W, k,
-                                                        rtiles, ctiles, batch, xs,
+                                                        rtiles, ctiles, batch,
                                                         n_out * k, va, flag);
   return cudaGetLastError();
 }
 
 // The tile width from k alone (one problem's columns), so K5 and K6, and
-// a batch and its lone problems, pick the same tiles.  batch, xs: the
-// problems and one problem's X elements (batch 1, xs 0: one product).
+// a batch and its lone problems, pick the same tiles.  batch: the problems
+// (1: one product).
 template <bool VB, class Map>
 cudaError_t launch_strip(const Map& map, const float* vals, float* Y, int64_t n_out,
-                         int64_t strip, int64_t W, int64_t k, int64_t batch, int64_t xs,
+                         int64_t strip, int64_t W, int64_t k, int64_t batch,
                          const int* flag, cudaStream_t s) {
   if (k <= 16)
-    return launch_strip_tile<16, VB>(map, vals, Y, n_out, strip, W, k, batch, xs, flag, s);
+    return launch_strip_tile<16, VB>(map, vals, Y, n_out, strip, W, k, batch, flag, s);
   if (k <= 32)
-    return launch_strip_tile<32, VB>(map, vals, Y, n_out, strip, W, k, batch, xs, flag, s);
+    return launch_strip_tile<32, VB>(map, vals, Y, n_out, strip, W, k, batch, flag, s);
   if (k <= 64)
-    return launch_strip_tile<64, VB>(map, vals, Y, n_out, strip, W, k, batch, xs, flag, s);
-  return launch_strip_tile<128, VB>(map, vals, Y, n_out, strip, W, k, batch, xs, flag, s);
+    return launch_strip_tile<64, VB>(map, vals, Y, n_out, strip, W, k, batch, flag, s);
+  return launch_strip_tile<128, VB>(map, vals, Y, n_out, strip, W, k, batch, flag, s);
 }
 
 // --- K3: the block-row tile product -------------------------------------------
@@ -812,11 +813,11 @@ int lobpcg_bsr_strip_f32(const void* strip_cols, int64_t Rs, const void* strip_v
   const float* xp = static_cast<const float*>(X);
   float* yp = static_cast<float*>(Y);
   const int* fp = static_cast<const int*>(flag);
-  const StripRows map{static_cast<const int32_t*>(strip_cols), xp, Rs, bs, k};
+  const StripRows map{static_cast<const int32_t*>(strip_cols), xp, Rs, bs, k, 0};
   const float* vp = static_cast<const float*>(strip_vals);
   if (k % 4 == 0 && aligned16(X) && aligned16(Y))
-    return (int)launch_strip<true>(map, vp, yp, n_out, strip, Rs * bs, k, 1, 0, fp, s);
-  return (int)launch_strip<false>(map, vp, yp, n_out, strip, Rs * bs, k, 1, 0, fp, s);
+    return (int)launch_strip<true>(map, vp, yp, n_out, strip, Rs * bs, k, 1, fp, s);
+  return (int)launch_strip<false>(map, vp, yp, n_out, strip, Rs * bs, k, 1, fp, s);
 }
 
 // K5.  lo: [ns] int32 window starts in blocks; win_vals: [ns, strip, W];
@@ -833,26 +834,28 @@ int lobpcg_bsr_window_f32(const void* lo, const void* win_vals, const void* X,
   const float* xp = static_cast<const float*>(X);
   float* yp = static_cast<float*>(Y);
   const int* fp = static_cast<const int*>(flag);
-  const WindowRows map{static_cast<const int32_t*>(lo), xp, xp, xp, bs, k, 0, INT64_MAX};
+  const WindowRows map{static_cast<const int32_t*>(lo), xp, xp, xp, bs, k, 0, INT64_MAX,
+                       rows * k, 0};
   const float* vp = static_cast<const float*>(win_vals);
   if (k % 4 == 0 && aligned16(X) && aligned16(Y))
-    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, batch, rows * k, fp, s);
-  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, batch, rows * k, fp, s);
+    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, batch, fp, s);
+  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, batch, fp, s);
 }
 
 // K6.  lo: [ns] int32 window starts in blocks of the extended frame
 // (hrows + n_loc + hrows rows); win_vals: [ns, strip, W] with
-// W <= n_loc; X: [n_loc, k]; edge_top = [halo_up | X[:W]] and
-// edge_bot = [X[-W:] | halo_dn]: [hrows + W, k] each; Y: [n_out, k],
-// n_out <= ns*strip.  The 16-byte path needs all four row pointers
-// aligned.  flag: the non-finite flag of the frame (X and the halos).
+// W <= n_loc; X: [batch, n_loc, k]; edge_top = [halo_up | X[:W]] and
+// edge_bot = [X[-W:] | halo_dn] of each problem: [batch, hrows + W, k]
+// each; Y: [batch, n_out, k], n_out <= ns*strip.  The 16-byte path needs
+// all four row pointers aligned.  flag: the non-finite flag of the
+// frames (X and the edge buffers of the whole batch).
 int lobpcg_bsr_window_edges_f32(const void* lo, const void* win_vals, const void* X,
                                 const void* edge_top, const void* edge_bot, void* Y,
                                 int64_t n_out, int64_t strip, int64_t W, int64_t bs,
-                                int64_t k, int64_t hrows, int64_t n_loc,
+                                int64_t k, int64_t hrows, int64_t n_loc, int64_t batch,
                                 const void* flag, void* stream) {
   if (n_out <= 0 || strip <= 0 || W <= 0 || bs <= 0 || k <= 0 || hrows < 0 ||
-      W > n_loc)
+      W > n_loc || batch <= 0)
     return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float* xp = static_cast<const float*>(X);
@@ -861,12 +864,12 @@ int lobpcg_bsr_window_edges_f32(const void* lo, const void* win_vals, const void
   float* yp = static_cast<float*>(Y);
   const int* fp = static_cast<const int*>(flag);
   const WindowRows map{static_cast<const int32_t*>(lo), xp, tp, bp, bs, k, hrows,
-                       hrows + n_loc - W};
+                       hrows + n_loc - W, n_loc * k, (hrows + W) * k};
   const float* vp = static_cast<const float*>(win_vals);
   if (k % 4 == 0 && aligned16(X) && aligned16(edge_top) && aligned16(edge_bot) &&
       aligned16(Y))
-    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, 1, 0, fp, s);
-  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, 1, 0, fp, s);
+    return (int)launch_strip<true>(map, vp, yp, n_out, strip, W, k, batch, fp, s);
+  return (int)launch_strip<false>(map, vp, yp, n_out, strip, W, k, batch, fp, s);
 }
 
 const char* lobpcg_cuda_error_string(int code) {

@@ -7,7 +7,18 @@
 //
 // with X[-1] / X[n] taken from the optional edge rows ([2, k]: row 0 is
 // the row above X[0], row 1 the row below X[n-1]) and zero otherwise;
-// rows across a segment boundary never couple.  The operation order is
+// rows across a segment boundary never couple.
+//
+// Batched edge rows (a lockstep batch of a row-sharded solve): X holds
+// `batch` problems of n / batch rows each, one after another, and the
+// edge table is [batch, 2, k]: the row that starts problem t reads
+// edge[t, 0] above it, the row that ends it edge[t, 1] below it.  The
+// problems' boundaries are segment boundaries (seg_rows divides
+// n / batch), so each problem is the unbatched product on its own rows
+// with its own edge pair: the grid's y index is the problem, whose
+// blocks walk its rows only (blockIdx.y moves X, Y and the edge table
+// by one problem), and the edge test is the unbatched one on the
+// problem's rows.  The operation order is
 // that of the plain version (lobpcg_tpu_torch/ops/cuda/stencil.py:
 // stencil_matmat_reference).  f32 computes in f32; bf16 loads, upcasts
 // to f32, computes and rounds once to bf16.
@@ -31,7 +42,14 @@
 // column and place in its segment of an item are running counters
 // stepped by 256 items with a compare and a subtraction: one 64-bit
 // division per thread for the chunk's first row, none per item.
-// Everything inside a chunk is 32-bit; item indices are 64-bit.  bf16
+// Everything inside a chunk is 32-bit; item indices are 64-bit.  The
+// batched edge form adds one problem offset per thread (blockIdx.y) and
+// nothing per item; without a [batch, 2, k] table the grid's y extent is
+// 1 and the offset 0.  Measured at [8M, 30] on the H100, against forms
+// where each row found its problem itself: running problem counters
+// stepped per item were 23% slower, one more 64-bit division per thread
+// (the problem of the chunk's first row) 15% slower, and a 32-bit
+// division on the edge path 20% slower.  bf16
 // travels as its bits, two to a 32-bit word when W >= 2 (one conversion
 // instruction rounds a pair).
 //
@@ -61,6 +79,7 @@ struct ItemsPerThread {
       kBytesInFlight / ItemBytes < kMaxItems ? kBytesInFlight / ItemBytes : kMaxItems;
 };
 constexpr int64_t kMaxK = 1 << 30;  // columns + threads fit an int
+constexpr int64_t kMaxBatch = 65535;  // problems: the grid's y extent
 
 // How elements are carried: as words of their bits, unpacked to f32 for
 // the arithmetic and packed back.  bf16 goes two to a 32-bit word where an
@@ -152,7 +171,9 @@ __device__ __forceinline__ int64_t wrap(int64_t sp, int64_t seg) {
 }
 
 // C: how elements are carried; NW: words an item.  kw: items a row;
-// nitems: n * kw.
+// nitems: n * kw.  X and Y hold gridDim.y problems of n rows each and the
+// edge table one pair a problem; block (x, y) walks chunk x of problem y
+// (without batched edge rows gridDim.y is 1 and the edge table [2, k]).
 template <typename C, int NW>
 __global__ void __launch_bounds__(kThreads)
 stencil1d_kernel(const typename C::Word* __restrict__ X, typename C::Word* __restrict__ Y,
@@ -162,6 +183,10 @@ stencil1d_kernel(const typename C::Word* __restrict__ X, typename C::Word* __res
   using IT = Items<Word, NW>;
   constexpr int J = ItemsPerThread<sizeof(IT)>::value;
   constexpr int kChunk = kThreads * J;
+  const int64_t p = blockIdx.y;
+  X += p * nitems * NW;
+  Y += p * nitems * NW;
+  if (edge != nullptr) edge += p * 2 * kw * NW;
   const int64_t base = static_cast<int64_t>(blockIdx.x) * kChunk;
   const int64_t first = base + threadIdx.x;
   // This thread's first item: row r0 + r, item column c, place sp in its
@@ -216,58 +241,70 @@ stencil1d_kernel(const typename C::Word* __restrict__ X, typename C::Word* __res
   }
 }
 
-// Items of w elements as NW words of C.
+// Items of w elements as NW words of C; batch > 1 with edge rows: the
+// batched edge form, one grid row a problem.
 template <typename C, int NW>
 int start(const void* X, void* Y, const void* edge, float scale, int64_t n, int64_t k,
-          int64_t seg, cudaStream_t stream) {
+          int64_t seg, int64_t batch, cudaStream_t stream) {
   using Word = typename C::Word;
   constexpr int J = ItemsPerThread<sizeof(Items<Word, NW>)>::value;
   constexpr int W = NW * C::kPerWord;
-  const int64_t nitems = n * (k / W);
+  const int64_t problems = edge != nullptr ? batch : 1;
+  const int64_t rows = n / problems;  // one problem's
+  const int64_t nitems = rows * (k / W);
   const int64_t blocks = (nitems + kThreads * J - 1) / (kThreads * J);
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  stencil1d_kernel<C, NW><<<static_cast<unsigned>(blocks), kThreads, 0, stream>>>(
-      static_cast<const Word*>(X), static_cast<Word*>(Y), static_cast<const Word*>(edge),
-      scale, n, static_cast<int>(k / W), seg, nitems);
+  const auto x = static_cast<const Word*>(X);
+  const auto e = static_cast<const Word*>(edge);
+  const auto y = static_cast<Word*>(Y);
+  const int kw = static_cast<int>(k / W);
+  stencil1d_kernel<C, NW>
+      <<<dim3(static_cast<unsigned>(blocks), static_cast<unsigned>(problems)), kThreads, 0,
+         stream>>>(x, y, e, scale, rows, kw, seg, nitems);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool takes(int64_t n, int64_t k, int64_t seg_rows, int64_t w, size_t itemsize,
-           const void* X, const void* Y, const void* edge) {
+bool takes(int64_t n, int64_t k, int64_t seg_rows, int64_t batch, int64_t w,
+           size_t itemsize, const void* X, const void* Y, const void* edge) {
   const uintptr_t bases = reinterpret_cast<uintptr_t>(X) | reinterpret_cast<uintptr_t>(Y) |
                           reinterpret_cast<uintptr_t>(edge);
-  return n > 0 && k > 0 && k < kMaxK && seg_rows > 0 && n % seg_rows == 0 && w > 0 &&
-         w * itemsize <= 16 && (w & (w - 1)) == 0 && k % w == 0 &&
-         bases % (w * itemsize) == 0;
+  return n > 0 && k > 0 && k < kMaxK && seg_rows > 0 && batch > 0 && n % batch == 0 &&
+         (n / batch) % seg_rows == 0 && batch <= kMaxBatch && w > 0 && w * itemsize <= 16 &&
+         (w & (w - 1)) == 0 && k % w == 0 && bases % (w * itemsize) == 0;
 }
 
 }  // namespace
 
 extern "C" {
 
-// X, Y: [n, k] row-major on the device; edge: [2, k] or null; w: the
-// elements of an item (ops/cuda/stencil.py:items_per_load; a power of two
-// up to 16 bytes that divides k, with X, Y and edge on w-element
-// boundaries); stream: a cudaStream_t.  Returns cudaGetLastError() after
-// the launch (0 = ok), or cudaErrorInvalidValue for arguments the kernel
-// does not take.
+// X, Y: [n, k] row-major on the device; edge: [batch, 2, k] or null;
+// batch: the problems X holds, n / batch rows each (1: edge is [2, k] for
+// the whole block); w: the elements of an item (ops/cuda/stencil.py:
+// items_per_load; a power of two up to 16 bytes that divides k, with X, Y
+// and edge on w-element boundaries); stream: a cudaStream_t.  Returns
+// cudaGetLastError() after the launch (0 = ok), or cudaErrorInvalidValue
+// for arguments the kernel does not take.
 int lobpcg_stencil1d_f32(const void* X, void* Y, const void* edge, float scale,
-                         int64_t n, int64_t k, int64_t seg_rows, int64_t w, void* stream) {
+                         int64_t n, int64_t k, int64_t seg_rows, int64_t batch, int64_t w,
+                         void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (!takes(n, k, seg_rows, w, 4, X, Y, edge)) return static_cast<int>(cudaErrorInvalidValue);
-  if (w == 1) return start<F32, 1>(X, Y, edge, scale, n, k, seg_rows, s);
-  if (w == 2) return start<F32, 2>(X, Y, edge, scale, n, k, seg_rows, s);
-  return start<F32, 4>(X, Y, edge, scale, n, k, seg_rows, s);
+  if (!takes(n, k, seg_rows, batch, w, 4, X, Y, edge))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (w == 1) return start<F32, 1>(X, Y, edge, scale, n, k, seg_rows, batch, s);
+  if (w == 2) return start<F32, 2>(X, Y, edge, scale, n, k, seg_rows, batch, s);
+  return start<F32, 4>(X, Y, edge, scale, n, k, seg_rows, batch, s);
 }
 
 int lobpcg_stencil1d_bf16(const void* X, void* Y, const void* edge, float scale,
-                          int64_t n, int64_t k, int64_t seg_rows, int64_t w, void* stream) {
+                          int64_t n, int64_t k, int64_t seg_rows, int64_t batch, int64_t w,
+                          void* stream) {
   const auto s = static_cast<cudaStream_t>(stream);
-  if (!takes(n, k, seg_rows, w, 2, X, Y, edge)) return static_cast<int>(cudaErrorInvalidValue);
-  if (w == 1) return start<Bf16, 1>(X, Y, edge, scale, n, k, seg_rows, s);
-  if (w == 2) return start<Bf16Pair, 1>(X, Y, edge, scale, n, k, seg_rows, s);
-  if (w == 4) return start<Bf16Pair, 2>(X, Y, edge, scale, n, k, seg_rows, s);
-  return start<Bf16Pair, 4>(X, Y, edge, scale, n, k, seg_rows, s);
+  if (!takes(n, k, seg_rows, batch, w, 2, X, Y, edge))
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (w == 1) return start<Bf16, 1>(X, Y, edge, scale, n, k, seg_rows, batch, s);
+  if (w == 2) return start<Bf16Pair, 1>(X, Y, edge, scale, n, k, seg_rows, batch, s);
+  if (w == 4) return start<Bf16Pair, 2>(X, Y, edge, scale, n, k, seg_rows, batch, s);
+  return start<Bf16Pair, 4>(X, Y, edge, scale, n, k, seg_rows, batch, s);
 }
 
 const char* lobpcg_cuda_error_string(int code) {

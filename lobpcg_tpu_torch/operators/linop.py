@@ -12,9 +12,8 @@ a leading batch dimension, one problem each (``DenseOperator.A``
 ``BlockAntiDiagOperator.d`` [b, n], ``Laplacian1D.scale`` [b],
 ``CallableOperator.args`` marked by ``in_axes``); data without one is
 shared by the whole batch, as ``jax.vmap`` shares an unmapped operand.
-So do ``LaplacianND``, ``BSROperator`` and the realified operators; an
-operator without a batched form (the sharded ones of ``parallel/``)
-raises ``NotImplementedError`` on a 3-D X (``unbatched``).
+So do ``LaplacianND``, ``BSROperator``, the realified operators and the
+sharded forms of ``parallel/`` (each rank's rows [b, n_loc, k]).
 """
 
 from __future__ import annotations
@@ -30,16 +29,6 @@ from lobpcg_tpu_torch.ops.cuda.stencil import (
     stencil_matmat,
     stencil_matmat_reference,
 )
-
-
-def unbatched(op, X: torch.Tensor) -> None:
-    """Refuse a batched [b, n, k] block in an operator without a batched
-    form, naming it."""
-    if X.dim() != 2:
-        raise NotImplementedError(
-            f"{type(op).__name__} takes an [n, k] block, got "
-            f"{tuple(X.shape)}: the lockstep batched solve does not take "
-            f"this operator yet")
 
 
 class LinearOperator(abc.ABC):
@@ -190,6 +179,16 @@ class CallableOperator(LinearOperator):
         return self._dtype
 
 
+def apply_scale(stencil, scale):
+    """``stencil(scale)`` for a float ``scale``; for a [b] tensor of
+    per-problem scales, ``stencil(1.0)`` (a batch [b, n, k]) times each
+    problem's scale: one broadcast multiply after the stencil."""
+    if isinstance(scale, torch.Tensor) and scale.dim() == 1:
+        Y = stencil(1.0)
+        return Y * scale.to(Y.dtype)[:, None, None]
+    return stencil(scale)
+
+
 @dataclasses.dataclass
 class Laplacian1D(LinearOperator):
     """Segmented 1-D Dirichlet Laplacian: block-diag of `segments`
@@ -218,14 +217,9 @@ class Laplacian1D(LinearOperator):
         if X.dim() == 2:
             return self._apply(X, self.scale, self.segments)
         b, n, k = X.shape
-        per_problem = isinstance(self.scale, torch.Tensor) \
-            and self.scale.dim() == 1
-        Y = self._apply(X.reshape(b * n, k),
-                        1.0 if per_problem else self.scale,
-                        b * self.segments).reshape(b, n, k)
-        if per_problem:
-            Y = Y * self.scale.to(Y.dtype)[:, None, None]
-        return Y
+        return apply_scale(lambda s: self._apply(
+            X.reshape(b * n, k), s, b * self.segments).reshape(b, n, k),
+            self.scale)
 
     @staticmethod
     def _apply(X, scale, segments):

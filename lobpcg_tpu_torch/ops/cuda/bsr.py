@@ -20,10 +20,11 @@ Port of the TPU kernels of ``lobpcg_tpu/ops/pallas/bsr.py``:
 Each wrapper launches its kernel for a CUDA tensor (f32, contiguous, any
 k >= 1, int32 indices; full f32 FFMA, no TF32) and runs its plain
 version only for a CPU tensor; each counts its launches in
-``.launches``.  K3 and K5 also take a batch X [b, n, k] of problems that
-share the matrix (a lockstep batched solve, ``operators/sparse.py``):
-one launch for the batch, with each problem's Y equal to its lone
-launch's, and plain versions equal to b lone plain products.  Index arrays are not range-checked on the card (that
+``.launches``.  K3, K5 and K6 also take a batch X [b, n, k] of problems
+that share the matrix (a lockstep batched solve, ``operators/sparse.py``
+and ``parallel/spmd_bsr.py``): one launch for the batch, with each
+problem's Y equal to its lone launch's, and plain versions equal to b
+lone plain products.  Index arrays are not range-checked on the card (that
 would cost a host sync): they must address rows of X, as the formats
 built here do.  K4, K5 and K6 skip column chunks whose values are all
 zero unless X holds a NaN or Inf (``nonfinite_flag``: a device-side
@@ -71,7 +72,7 @@ SIGNATURES = {
     "lobpcg_bsr_window_f32": [_P, _P, _P, _P, _I64, _I64, _I64, _I64, _I64, _I64,
                               _I64, _P, _P],
     "lobpcg_bsr_window_edges_f32": [_P, _P, _P, _P, _P, _P, _I64, _I64, _I64,
-                                    _I64, _I64, _I64, _I64, _P, _P],
+                                    _I64, _I64, _I64, _I64, _I64, _P, _P],
 }
 
 
@@ -325,8 +326,14 @@ def bsr_window_matmat_edges_reference(lo, win_vals, X, edge_top, edge_bot, *,
                                       out_rows: Optional[int] = None):
     """K6's function: the strip-window product against the extended frame
     [edge_top[:hrows] | X | edge_bot[W:]] (= [halo_up | X | halo_dn]),
-    concatenated here and handed to the K5 plain version."""
+    concatenated here and handed to the K5 plain version; a batch one
+    problem at a time."""
     _check_edges(lo, win_vals, X, edge_top, edge_bot, hrows, out_rows)
+    if X.dim() == 3:
+        return torch.stack([
+            bsr_window_matmat_edges_reference(lo, win_vals, x, t, b, bs=bs,
+                                              hrows=hrows, out_rows=out_rows)
+            for x, t, b in zip(X, edge_top, edge_bot)])
     W = win_vals.shape[2]
     x_ext = torch.cat([edge_top[:hrows], X, edge_bot[W:]], dim=0)
     return bsr_window_matmat_reference(
@@ -401,18 +408,20 @@ def _check_window(lo, win_vals, X, bs, out_rows):
 
 def _check_edges(lo, win_vals, X, edge_top, edge_bot, hrows, out_rows):
     what = "bsr_window_matmat_edges"
-    _check_common(what, win_vals, X, lo)
+    _check_common(what, win_vals, X, lo, batch=True)
     if lo.dim() != 1 or win_vals.dim() != 3 or win_vals.shape[0] != lo.shape[0]:
         raise ValueError(f"{what}: lo must be [ns] and win_vals [ns, strip, W]")
-    W, (n_loc, k) = win_vals.shape[2], X.shape
+    W, (n_loc, k) = win_vals.shape[2], X.shape[-2:]
+    lead = tuple(X.shape[:-2])
     if W > n_loc:
         raise ValueError(f"{what}: window width {W} exceeds the {n_loc} local "
                          "rows; use the extended-frame product")
     if hrows < 0:
         raise ValueError(f"{what}: hrows must be >= 0, got {hrows}")
     for name, e in (("edge_top", edge_top), ("edge_bot", edge_bot)):
-        if tuple(e.shape) != (hrows + W, k):
-            raise ValueError(f"{what}: {name} must be [{hrows + W}, {k}], got "
+        if tuple(e.shape) != lead + (hrows + W, k):
+            raise ValueError(f"{what}: {name} must be "
+                             f"{list(lead + (hrows + W, k))}, got "
                              f"{tuple(e.shape)}")
         if e.device != X.device or e.dtype != X.dtype:
             raise ValueError(f"{what}: {name} differs from X in device or dtype")
@@ -572,12 +581,16 @@ def bsr_window_matmat_edges(lo: torch.Tensor, win_vals: torch.Tensor,
     [halo_up | X | halo_dn] without building it, [out_rows (default X's
     rows), k].  ``lo`` addresses the extended frame (in blocks);
     ``edge_top`` = [halo_up | X[:W]] and ``edge_bot`` = [X[-W:] | halo_dn]
-    are [hrows + W, k] each, and W <= X's rows.
+    are [hrows + W, k] each, and W <= X's rows.  A batch X [b, n_loc, k]
+    (b problems sharing the matrix) takes edge buffers [b, hrows + W, k],
+    each problem's own, and gives [b, out_rows, k].
 
-    CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_window_edges_f32`` and
-    counts it in ``bsr_window_matmat_edges.launches``: K5's kernel on
-    another base pointer, so equal to K5 on the concatenated frame bit for
-    bit (and skipping all-zero chunks when and as K5 does).  CPU tensor:
+    CUDA tensor: launches ``csrc/bsr.cu:lobpcg_bsr_window_edges_f32``
+    (once for a batch, after one non-finite flag pass over X and the
+    edge buffers) and counts it in ``bsr_window_matmat_edges.launches``: K5's
+    kernel on another base pointer, so equal to K5 on the concatenated
+    frame bit for bit (and skipping all-zero chunks when and as K5 does),
+    and each problem of a batch equal to its lone launch.  CPU tensor:
     the plain version."""
     _check_edges(lo, win_vals, X, edge_top, edge_bot, hrows, out_rows)
     if X.device.type == "cpu":
@@ -590,15 +603,17 @@ def bsr_window_matmat_edges(lo: torch.Tensor, win_vals: torch.Tensor,
         raise ValueError(f"{what}: operands must be contiguous")
     lib = _lib()
     _, strip, W = win_vals.shape
-    n_loc, k = X.shape
+    n_loc, k = X.shape[-2:]
     nr = _out_rows(X, out_rows)
     Y = _empty_out(X, nr)
-    flag = nonfinite_flag(X, edge_top[:hrows], edge_bot[W:])  # the frame's rows
+    # The edge buffers whole: their copies of X's rows add nothing to the flag.
+    flag = nonfinite_flag(X, edge_top, edge_bot)
     with torch.cuda.device(X.device):
         code = lib.lobpcg_bsr_window_edges_f32(
             lo.data_ptr(), win_vals.data_ptr(), X.data_ptr(),
             edge_top.data_ptr(), edge_bot.data_ptr(), Y.data_ptr(),
-            nr, strip, W, bs, k, hrows, n_loc, flag.data_ptr(),
+            nr, strip, W, bs, k, hrows, n_loc,
+            X.shape[0] if X.dim() == 3 else 1, flag.data_ptr(),
             torch.cuda.current_stream().cuda_stream,
         )
     bsr_window_matmat_edges.launches += 1

@@ -5,7 +5,11 @@ Port of the TPU kernel ``lobpcg_tpu/ops/pallas/stencil.py:
 stencil_matmat_pallas``: Y = scale * (2 X - X[i-1] - X[i+1]) on each of
 ``num_segments`` equal row segments of an [n, k] block, with no coupling
 across segment edges (Dirichlet).  ``edge_rows`` ([2, k], optional)
-replaces the zeros above row 0 and below row n-1.
+replaces the zeros above row 0 and below row n-1; a batched table
+[b, 2, k] treats X as b problems of n / b rows each (each a whole number
+of segments) and gives each problem its own pair: the halos of a
+row-sharded lockstep batch (``parallel/spmd_stencil.py``), one launch for
+the batch.
 
 ``stencil_matmat`` launches the kernel for a CUDA tensor and runs the
 plain version ``stencil_matmat_reference`` only for a CPU tensor.  The
@@ -41,11 +45,14 @@ _SYMBOLS = {
 SIGNATURES = {
     sym: [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_float,
           ctypes.c_int64, ctypes.c_int64, ctypes.c_int64, ctypes.c_int64,
-          ctypes.c_void_p]
+          ctypes.c_int64, ctypes.c_void_p]
     for sym in _SYMBOLS.values()
 }
 
 THREADS = 256  # threads a block (csrc/stencil1d.cu: kThreads)
+# The problems the batched edge form takes (kMaxBatch: one grid row a
+# problem).
+MAX_BATCH = 65535
 # X bytes a thread loads before it computes, in at most MAX_ITEMS items
 # (kBytesInFlight, kMaxItems).
 BYTES_IN_FLIGHT, MAX_ITEMS = 32, 8
@@ -92,13 +99,23 @@ def _check_args(X, edge_rows, num_segments):
             f"stencil_matmat: n={n} not divisible by num_segments={num_segments}"
         )
     if edge_rows is not None:
-        if tuple(edge_rows.shape) != (2, k):
+        b = _problems(edge_rows)
+        if tuple(edge_rows.shape[-2:]) != (2, k) or edge_rows.dim() not in (2, 3):
             raise ValueError(
-                f"stencil_matmat: edge_rows must be [2, {k}], got "
-                f"{tuple(edge_rows.shape)}"
+                f"stencil_matmat: edge_rows must be [2, {k}] or [b, 2, {k}], "
+                f"got {tuple(edge_rows.shape)}"
             )
+        if b < 1 or n % b or num_segments % b:
+            raise ValueError(
+                f"stencil_matmat: {b} problems' edge rows do not split n={n} "
+                f"rows in {num_segments} segments into whole segments")
         if edge_rows.device != X.device:
             raise ValueError("stencil_matmat: edge_rows on another device than X")
+
+
+def _problems(edge_rows) -> int:
+    """The problems an edge table serves: b of [b, 2, k], 1 of [2, k]."""
+    return edge_rows.shape[0] if edge_rows.dim() == 3 else 1
 
 
 def stencil_matmat_reference(
@@ -109,9 +126,15 @@ def stencil_matmat_reference(
     num_segments: int = 1,
 ) -> torch.Tensor:
     """Plain version: the pad/slice formula of ``lobpcg_tpu/operators/
-    linop.py`` (Laplacian1D fallback) plus ``edge_rows``.  Any dtype;
-    bf16 computes in f32 and rounds once, as the kernel does."""
+    linop.py`` (Laplacian1D fallback) plus ``edge_rows``, once a problem
+    for a batched edge table.  Any dtype; bf16 computes in f32 and rounds
+    once, as the kernel does."""
     _check_args(X, edge_rows, num_segments)
+    if edge_rows is not None and edge_rows.dim() == 3:
+        b = edge_rows.shape[0]
+        return torch.cat([
+            stencil_matmat_reference(x, scale, e, num_segments=num_segments // b)
+            for x, e in zip(X.chunk(b), edge_rows)])
     n, k = X.shape
     out_dtype = X.dtype
     if X.dtype == torch.bfloat16:
@@ -132,7 +155,9 @@ def stencil_matmat(
     *,
     num_segments: int = 1,
 ) -> torch.Tensor:
-    """Y = scale * tridiag[-1, 2, -1] X per row segment.
+    """Y = scale * tridiag[-1, 2, -1] X per row segment, with the edge
+    rows ([2, k], or [b, 2, k] one pair a problem) outside X's ends or
+    each problem's.
 
     CUDA tensor: launches ``csrc/stencil1d.cu`` on the current stream
     (f32 or bf16, contiguous, any k), without synchronising, and counts
@@ -153,22 +178,28 @@ def stencil_matmat(
     if edge_rows is not None:
         edge_rows = edge_rows.to(X.dtype).contiguous()
     n, k = X.shape
+    if edge_rows is not None and _problems(edge_rows) > MAX_BATCH:
+        raise ValueError(f"stencil_matmat: the batched edge form takes up to "
+                         f"{MAX_BATCH} problems, got {_problems(edge_rows)}")
     Y = torch.empty_like(X)
     ptrs = [X.data_ptr(), Y.data_ptr()]
     if edge_rows is not None:
         ptrs.append(edge_rows.data_ptr())
     code = launch(X, Y, scale, edge_rows, n // num_segments,
-                  items_per_load(k, X.element_size(), *ptrs))
+                  items_per_load(k, X.element_size(), *ptrs),
+                  batch=1 if edge_rows is None else _problems(edge_rows))
     stencil_matmat.launches += 1
     check(_lib(), code, "stencil1d launch")
     return Y
 
 
-def launch(X, Y, scale, edge_rows, seg_rows: int, w: int) -> int:
+def launch(X, Y, scale, edge_rows, seg_rows: int, w: int,
+           batch: int = 1) -> int:
     """One launch of the kernel on CUDA tensors X, Y (and edge_rows, of
-    X's dtype) in items of ``w`` elements; returns the cudaError_t.  It
-    counts no launch and checks no argument: ``stencil_matmat`` does, and
-    the kernel refuses a ``w`` that does not hold."""
+    X's dtype: [2, k], or [batch, 2, k] for X of ``batch`` problems) in
+    items of ``w`` elements; returns the cudaError_t.  It counts no
+    launch and checks no argument: ``stencil_matmat`` does, and the
+    kernel refuses a ``w`` that does not hold."""
     lib = _lib()
     n, k = X.shape
     with torch.cuda.device(X.device):
@@ -176,7 +207,7 @@ def launch(X, Y, scale, edge_rows, seg_rows: int, w: int) -> int:
         return getattr(lib, _SYMBOLS[X.dtype])(
             X.data_ptr(), Y.data_ptr(),
             None if edge_rows is None else edge_rows.data_ptr(),
-            float(scale), n, k, seg_rows, w, stream,
+            float(scale), n, k, seg_rows, batch, w, stream,
         )
 
 

@@ -22,6 +22,10 @@ Each collective counts its calls in ``.launches``, as the kernel
 wrappers count theirs; a call that has no peer to talk to (a halo at
 world size 1) issues nothing and counts nothing, while ``all_reduce``
 runs at world size 1 too.
+
+The exchanges move rows, the axis -2 of a block: an [n_loc, k] block,
+or a lockstep batch [b, n_loc, k] (one problem's rows after another),
+whose exchange is one call for the whole batch.
 """
 
 from __future__ import annotations
@@ -95,20 +99,25 @@ def _p2p(mesh: RowMesh, sends, recvs) -> None:
             req.wait()
 
 
+def _with_rows(X: torch.Tensor, rows: int) -> tuple:
+    """X's shape with ``rows`` rows (axis -2)."""
+    return tuple(X.shape[:-2]) + (rows, X.shape[-1])
+
+
 def halo_exchange(mesh: RowMesh, X: torch.Tensor, h: int):
     """(halo_up, halo_dn): the last ``h`` rows of rank - 1 and the first
-    ``h`` rows of rank + 1, [h, k] each; zeros at the ends of the chain,
-    as ``ppermute`` gives them.  One batch of sends and receives."""
+    ``h`` rows of rank + 1, [..., h, k] each (each problem's of a batch);
+    zeros at the ends of the chain, as ``ppermute`` gives them.  One
+    batch of sends and receives."""
     r, nd = mesh.rank, mesh.size
-    halo_up = torch.zeros((h,) + tuple(X.shape[1:]), dtype=X.dtype,
-                          device=X.device)
+    halo_up = torch.zeros(_with_rows(X, h), dtype=X.dtype, device=X.device)
     halo_dn = torch.zeros_like(halo_up)
     sends, recvs = [], []
     if r > 0:
-        sends.append((X[:h], r - 1))
+        sends.append((X[..., :h, :], r - 1))
         recvs.append((halo_up, r - 1))
     if r + 1 < nd:
-        sends.append((X[-h:], r + 1))
+        sends.append((X[..., -h:, :], r + 1))
         recvs.append((halo_dn, r + 1))
     if sends:
         _p2p(mesh, sends, recvs)
@@ -171,8 +180,8 @@ def _rows(X: torch.Tensor, ranges) -> torch.Tensor:
     """X's rows over ``ranges`` ((lo, hi) pairs): a view for one range."""
     if len(ranges) == 1:
         (a, b), = ranges
-        return X[a:b]
-    return torch.cat([X[a:b] for a, b in ranges])
+        return X[..., a:b, :]
+    return torch.cat([X[..., a:b, :] for a, b in ranges], dim=-2)
 
 
 def permute_rows(mesh: RowMesh, X: torch.Tensor, plan: RowPlan) -> torch.Tensor:
@@ -180,22 +189,24 @@ def permute_rows(mesh: RowMesh, X: torch.Tensor, plan: RowPlan) -> torch.Tensor:
     batch of sends and receives, one message per peer.  A peer that
     needs one range gets a view of X, and an output of one part is that
     part itself, so a swap with a single partner copies nothing."""
-    bufs = {q: torch.empty((rows,) + tuple(X.shape[1:]), dtype=X.dtype,
+    bufs = {q: torch.empty(_with_rows(X, rows), dtype=X.dtype,
                            device=X.device) for q, rows in plan.recvs}
     sends = [(_rows(X, ranges), q) for q, ranges in plan.sends]
     if sends or bufs:
         _p2p(mesh, sends, [(buf, q) for q, buf in bufs.items()])
         permute_rows.launches += 1
-    parts = [((X if q < 0 else bufs[q])[a:b]) for q, a, b in plan.parts]
-    return parts[0] if len(parts) == 1 else torch.cat(parts)
+    parts = [(X if q < 0 else bufs[q])[..., a:b, :] for q, a, b in plan.parts]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-2)
 
 
 def all_gather_rows(mesh: RowMesh, X: torch.Tensor) -> torch.Tensor:
-    """The global block: every rank's rows, in rank order."""
-    parts = [torch.empty_like(X) for _ in range(mesh.size)]
+    """The global block: every rank's rows, in rank order (each
+    problem's of a batch)."""
+    parts = [torch.empty_like(X, memory_format=torch.contiguous_format)
+             for _ in range(mesh.size)]
     dist.all_gather(parts, X.contiguous(), group=mesh.group)
     all_gather_rows.launches += 1
-    return torch.cat(parts, dim=0)
+    return torch.cat(parts, dim=-2)
 
 
 all_reduce.launches = 0
@@ -258,17 +269,19 @@ def row_mesh(n_devices: Optional[int] = None, *, device=None,
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
-    """Where a global tensor lives on a mesh: dim 0 split over the ranks
-    (``rows``) or whole on every rank (replicated)."""
+    """Where a global tensor lives on a mesh: its rows split over the
+    ranks (``rows``) or whole on every rank (replicated)."""
 
     mesh: RowMesh
     rows: bool
 
-    def local(self, x: torch.Tensor) -> torch.Tensor:
-        """This rank's part of the global tensor ``x``, on its device."""
+    def local(self, x: torch.Tensor, dim: int = 0) -> torch.Tensor:
+        """This rank's part of the global tensor ``x``, on its device; the
+        rows are dimension ``dim`` (-2 for a batch [b, n, k], -1 for a
+        batched diagonal [b, n])."""
         if self.rows:
-            n_loc = x.shape[0] // self.mesh.size
-            x = x[self.mesh.rank * n_loc : (self.mesh.rank + 1) * n_loc]
+            n_loc = x.shape[dim] // self.mesh.size
+            x = x.narrow(dim, self.mesh.rank * n_loc, n_loc)
         return x.to(self.mesh.device)
 
 

@@ -29,6 +29,13 @@ partitioner falls back to.  It is a route of this table only, never a
 retry after another form failed.  Any other class raises
 ``NotImplementedError``: no operator computes a wrong product in
 silence.
+
+Every sharded form takes a lockstep batch [b, n_loc, k] (each rank's
+rows of b problems; the rows are axis -2) with one exchange for the
+batch, and equals b lone applies bit for bit.  Per-problem data keeps
+its batch axis in front and is cut along its row axis: a diagonal
+[b, n] to [b, n_loc], a dense [b, n, n] to [b, n_loc, n], what
+``jax.vmap`` gives the JAX package over its sharded problem.
 """
 
 from __future__ import annotations
@@ -53,7 +60,6 @@ from lobpcg_tpu_torch.operators.linop import (
     ScaledOperator,
     ShiftedOperator,
     SumOperator,
-    unbatched,
 )
 from lobpcg_tpu_torch.operators.realify import (
     RealEmbeddedDenseOperator,
@@ -75,6 +81,7 @@ from lobpcg_tpu_torch.parallel.spmd_bsr import ShardedBSROperator, fitting_plan
 from lobpcg_tpu_torch.parallel.spmd_stencil import (
     SpmdLaplacian1D,
     SpmdLaplacianND,
+    _tile_rows,
     segments_align,
     unroll_block_diag,
     unroll_block_diag2,
@@ -82,26 +89,31 @@ from lobpcg_tpu_torch.parallel.spmd_stencil import (
 )
 
 
-def _shardable(x: torch.Tensor, n_shards: int) -> bool:
-    return x.dim() >= 1 and x.shape[0] % n_shards == 0 and x.shape[0] >= n_shards
+def _shardable(x: torch.Tensor, n_shards: int, dim: int) -> bool:
+    return (x.dim() >= 1 and x.shape[dim] % n_shards == 0
+            and x.shape[dim] >= n_shards)
 
 
 def shard_array(x: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
-    """This rank's rows of ``x`` (the whole of ``x`` when its leading
-    dimension does not divide over the ranks), on the mesh's device."""
-    if _shardable(x, mesh.size):
-        return row_sharding(mesh, x.dim()).local(x)
+    """This rank's rows of ``x`` (the whole of ``x`` when its rows do not
+    divide over the ranks), on the mesh's device.  The rows are the first
+    dimension, and the second of a 3-D block (a lockstep batch X0
+    [b, n, k])."""
+    dim = 1 if x.dim() == 3 else 0
+    if _shardable(x, mesh.size, dim):
+        return row_sharding(mesh, x.dim()).local(x, dim)
     return replicated(mesh).local(x)
 
 
-def _rows_of(x: torch.Tensor, mesh: RowMesh) -> torch.Tensor:
-    """This rank's rows of an operator's [n, ...] data; raises when n
-    does not divide over the ranks (a replicated copy would compute
-    another operator)."""
-    if x.shape[0] % mesh.size:
-        raise ValueError(f"{x.shape[0]} operator rows do not divide over "
+def _rows_of(x: torch.Tensor, mesh: RowMesh, dim: int) -> torch.Tensor:
+    """This rank's rows of an operator's data, the rows being dimension
+    ``dim`` (-1 for a diagonal [n] or [b, n], -2 for a matrix [n, n] or
+    [b, n, n]); raises when they do not divide over the ranks (a
+    replicated copy would compute another operator)."""
+    if x.shape[dim] % mesh.size:
+        raise ValueError(f"{x.shape[dim]} operator rows do not divide over "
                          f"{mesh.size} ranks")
-    return row_sharding(mesh, x.dim()).local(x)
+    return row_sharding(mesh, x.dim()).local(x, dim)
 
 
 @dataclasses.dataclass
@@ -114,7 +126,6 @@ class LocalRows(LinearOperator):
     mesh: RowMesh = None
 
     def matmat(self, X):
-        unbatched(self, X)
         return self.op.matmat(X)
 
     @property
@@ -128,19 +139,18 @@ class LocalRows(LinearOperator):
 
 @dataclasses.dataclass
 class RowPanelOperator(LinearOperator):
-    """A DenseOperator's rows of this rank ([n_loc, n]) times the
-    all-gathered global block."""
+    """A DenseOperator's rows of this rank ([n_loc, n], or [b, n_loc, n]
+    one matrix a problem) times the all-gathered global block."""
 
     A: torch.Tensor
     mesh: RowMesh = None
 
     def matmat(self, X):
-        unbatched(self, X)
         return torch.matmul(self.A, all_gather_rows(self.mesh, X))
 
     @property
     def shape(self):
-        n = self.A.shape[1]
+        n = self.A.shape[-1]
         return (n, n)
 
     @property
@@ -153,7 +163,7 @@ class BSRRowPanelOperator(LinearOperator):
     """A BSROperator's block rows of this rank (``block_cols`` keep the
     global block columns) times the all-gathered global block: K3 with
     the whole block as its frame (its plain version for a CPU tensor or
-    another dtype than f32)."""
+    another dtype than f32); a batch is one all-gather and one launch."""
 
     block_cols: torch.Tensor
     blocks: torch.Tensor
@@ -168,7 +178,6 @@ class BSRRowPanelOperator(LinearOperator):
                    op.blocks[rows].to(mesh.device), n=op.n, mesh=mesh)
 
     def matmat(self, X):
-        unbatched(self, X)
         Xg = all_gather_rows(self.mesh, X)
         if X.dtype == torch.float32 and self.blocks.dtype == torch.float32:
             return bsr_matmat(self.block_cols, self.blocks, Xg.contiguous(),
@@ -214,21 +223,20 @@ class ShardedBlockAntiDiagOperator(LinearOperator):
     @classmethod
     def shard(cls, op: BlockAntiDiagOperator, mesh: RowMesh, copies: int = 1):
         c = int(copies)
-        return cls.place(torch.cat([op.d, op.d]).repeat(c), mesh, c)
+        return cls.place(_tile_rows(torch.cat([op.d, op.d], dim=-1), c), mesh, c)
 
     @classmethod
     def place(cls, scale: torch.Tensor, mesh: RowMesh, copies: int = 1):
         """From the global row scales ``scale`` [n] (applied after the
-        swap)."""
-        n, c = scale.shape[0], int(copies)
-        return cls(d=_rows_of(scale, mesh),
+        swap; [b, n], one row scale a problem)."""
+        n, c = scale.shape[-1], int(copies)
+        return cls(d=_rows_of(scale, mesh, -1),
                    plan=row_plan(n, mesh.size, mesh.rank,
                                  _half_swap_pieces(n, c)),
                    n=n, mesh=mesh, copies=c)
 
     def matmat(self, X):
-        unbatched(self, X)
-        return self.d[:, None] * permute_rows(self.mesh, X, self.plan)
+        return self.d[..., None] * permute_rows(self.mesh, X, self.plan)
 
     @property
     def shape(self):
@@ -267,10 +275,9 @@ class GatheredOperator(LinearOperator):
         return cls(_placed(op, mesh.device), mesh=mesh)
 
     def matmat(self, X):
-        unbatched(self, X)
-        n_loc, r = X.shape[0], self.mesh.rank
+        n_loc, r = X.shape[-2], self.mesh.rank
         Y = self.op.matmat(all_gather_rows(self.mesh, X))
-        return Y[r * n_loc : (r + 1) * n_loc]
+        return Y[..., r * n_loc : (r + 1) * n_loc, :]
 
     @property
     def shape(self):
@@ -288,9 +295,10 @@ _SHARDED = (SpmdLaplacian1D, SpmdLaplacianND, ShardedBSROperator, LocalRows,
 
 def _embedded_rows(Ar: torch.Tensor, Ai: torch.Tensor,
                    mesh: RowMesh) -> torch.Tensor:
-    """This rank's rows of [[Ar, -Ai], [Ai, Ar]], built from the rows of
-    Ar and Ai it needs (the [2n, 2n] embedding is never formed)."""
-    nr = Ar.shape[0]
+    """This rank's rows of [[Ar, -Ai], [Ai, Ar]] (of each problem's, for
+    [b, n, n] data), built from the rows of Ar and Ai it needs (the
+    [2n, 2n] embedding is never formed)."""
+    nr = Ar.shape[-2]
     if (2 * nr) % mesh.size:
         raise ValueError(f"{2 * nr} operator rows do not divide over "
                          f"{mesh.size} ranks")
@@ -299,11 +307,11 @@ def _embedded_rows(Ar: torch.Tensor, Ai: torch.Tensor,
     parts = []
     if r0 < nr:
         top = slice(r0, min(r1, nr))
-        parts.append(torch.cat([Ar[top], -Ai[top]], dim=1))
+        parts.append(torch.cat([Ar[..., top, :], -Ai[..., top, :]], dim=-1))
     if r1 > nr:
         bot = slice(max(r0, nr) - nr, r1 - nr)
-        parts.append(torch.cat([Ai[bot], Ar[bot]], dim=1))
-    return torch.cat(parts).to(mesh.device)
+        parts.append(torch.cat([Ai[..., bot, :], Ar[..., bot, :]], dim=-1))
+    return torch.cat(parts, dim=-2).to(mesh.device)
 
 
 def shard_operator(op, mesh: RowMesh):
@@ -317,12 +325,12 @@ def shard_operator(op, mesh: RowMesh):
     if op.shape[0] % mesh.size:
         return _placed(op, mesh.device)
     if isinstance(op, (DiagonalOperator, JacobiPreconditioner)):
-        n = op.d.shape[0]
-        return LocalRows(type(op)(_rows_of(op.d, mesh)), n=n, mesh=mesh)
+        n = op.d.shape[-1]
+        return LocalRows(type(op)(_rows_of(op.d, mesh, -1)), n=n, mesh=mesh)
     if isinstance(op, BlockAntiDiagOperator):
         return ShardedBlockAntiDiagOperator.shard(op, mesh)
     if isinstance(op, DenseOperator):
-        return RowPanelOperator(_rows_of(op.A, mesh), mesh=mesh)
+        return RowPanelOperator(_rows_of(op.A, mesh, -2), mesh=mesh)
     if isinstance(op, RealEmbeddedDenseOperator):
         return RowPanelOperator(_embedded_rows(op.Ar, op.Ai, mesh), mesh=mesh)
     if isinstance(op, RealEmbeddedDiagonalOperator):
@@ -330,9 +338,11 @@ def shard_operator(op, mesh: RowMesh):
         # the half swap of the stacked [re; im] rows.
         dr, di = op.dr, op.di
         return SumOperator(
-            LocalRows(DiagonalOperator(_rows_of(torch.cat([dr, dr]), mesh)),
-                      n=2 * dr.shape[0], mesh=mesh),
-            ShardedBlockAntiDiagOperator.place(torch.cat([-di, di]), mesh))
+            LocalRows(DiagonalOperator(_rows_of(torch.cat([dr, dr], dim=-1),
+                                                mesh, -1)),
+                      n=2 * dr.shape[-1], mesh=mesh),
+            ShardedBlockAntiDiagOperator.place(torch.cat([-di, di], dim=-1),
+                                               mesh))
     if isinstance(op, BSROperator):
         plan = fitting_plan(op, mesh.size, shards=[mesh.rank])
         if plan is not None:
@@ -380,7 +390,9 @@ def shard_problem(
 ):
     """(A, X0, B, T) placed on the mesh: the sharded operators and this
     rank's rows of X0 (the whole problem on every rank when n does not
-    divide over the ranks).  The JAX package's ``spmd_stencil`` flag has
+    divide over the ranks).  A lockstep batch passes X0 [b, n, k] and
+    operators with per-problem data (a DiagonalOperator [b, n], Chebyshev
+    bounds [b]); each rank gets its rows of every problem.  The JAX package's ``spmd_stencil`` flag has
     no counterpart: the port has no partitioner, so the route is the
     table's, by shape.  A stencil whose segments align with the shards
     exchanges halos explicitly (the JAX package's default); a

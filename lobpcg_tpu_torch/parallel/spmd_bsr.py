@@ -22,9 +22,13 @@ buffers and K6 take less time than building the frame and running K5:
 PERF.md).  Without a window plan an f32 apply runs K3
 (``bsr_matmat(..., frame=True)``) on the block columns remapped into the
 extended frame, where the JAX package runs its plain gather + einsum;
-f64 (or ``pallas="off"``) runs that gather + einsum.  The JAX package's
-TPU gates (k % 128, the VMEM budget) do not apply: the kernels take any
-k.
+f64 (or ``pallas="off"``) runs that gather + einsum (K3's plain
+version).  The JAX package's TPU gates (k % 128, the VMEM budget) do not
+apply: the kernels take any k.
+
+A lockstep batch [b, n_loc, k] is one halo exchange and one launch of the
+same kernel, on edge buffers or a frame [b, rows, k] (the rows are axis
+-2); each problem's product equals its lone apply's.
 """
 
 from __future__ import annotations
@@ -36,9 +40,10 @@ from typing import Optional
 import numpy as np
 import torch
 
-from lobpcg_tpu_torch.operators.linop import LinearOperator, unbatched
+from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops.cuda.bsr import (
     bsr_matmat,
+    bsr_matmat_reference,
     bsr_window_matmat,
     bsr_window_matmat_edges,
     bsr_window_widths,
@@ -198,10 +203,9 @@ class ShardedBSROperator(LinearOperator):
                 and self.dtype == torch.float32)
 
     def matmat(self, X: torch.Tensor) -> torch.Tensor:
-        unbatched(self, X)
         bs, H = self.bs, self.halo
         nb_loc = self.blocks.shape[0]
-        n_loc, k = X.shape
+        n_loc, k = X.shape[-2:]
         hrows = H * bs
         use_kernel = self._kernel_ok(k) and X.dtype == torch.float32
         if H > 0:
@@ -211,29 +215,25 @@ class ShardedBSROperator(LinearOperator):
             X = X.contiguous()
             if H > 0 and W <= n_loc:
                 # K6: X and two [hrows + W, k] edge buffers, no frame.
-                edge_top = torch.cat([halo_up, X[:W]], dim=0)
-                edge_bot = torch.cat([X[-W:], halo_dn], dim=0)
+                edge_top = torch.cat([halo_up, X[..., :W, :]], dim=-2)
+                edge_bot = torch.cat([X[..., -W:, :], halo_dn], dim=-2)
                 return bsr_window_matmat_edges(
                     self.win_lo, self.win_vals, X, edge_top, edge_bot,
                     bs=bs, hrows=hrows, out_rows=n_loc)
-            x_ext = torch.cat([halo_up, X, halo_dn], dim=0) if H > 0 else X
+            x_ext = torch.cat([halo_up, X, halo_dn], dim=-2) if H > 0 else X
             return bsr_window_matmat(self.win_lo, self.win_vals, x_ext, bs=bs,
                                      out_rows=n_loc)
         # The global block columns remapped into the extended local frame;
         # padding blocks are zero, so a clamped index is harmless.
-        x_ext = torch.cat([halo_up, X, halo_dn], dim=0) if H > 0 else X
+        x_ext = torch.cat([halo_up, X, halo_dn], dim=-2) if H > 0 else X
         first = self.mesh.rank * nb_loc - H
-        loc = torch.clamp(self.block_cols - first, 0, nb_loc + 2 * H - 1)
+        loc = torch.clamp(self.block_cols - first, 0,
+                          nb_loc + 2 * H - 1).to(torch.int32)
         if (self.pallas != "off" and self.dtype == torch.float32
                 and X.dtype == torch.float32):
             # K3 on the frame (its plain version for a CPU tensor).
-            return bsr_matmat(loc.to(torch.int32), self.blocks,
-                              x_ext.contiguous(), frame=True)
-        loc = loc.long()
-        dt = torch.promote_types(self.blocks.dtype, X.dtype)
-        xg = x_ext.to(dt).reshape(nb_loc + 2 * H, bs, k)[loc]
-        Y = torch.einsum("nrij,nrjk->nik", self.blocks.to(dt), xg)
-        return Y.reshape(n_loc, k).to(X.dtype)
+            return bsr_matmat(loc, self.blocks, x_ext.contiguous(), frame=True)
+        return bsr_matmat_reference(loc, self.blocks, x_ext)
 
     @property
     def shape(self):

@@ -9,13 +9,17 @@ product is K1 (``ops/cuda/stencil.py``) with those rows as its
 A = diag(K, ..., K)) must not couple: a halo row across a segment
 boundary is zeroed, and boundaries inside a shard are K1's own segments.
 The per-shard row count must divide the segment length or the reverse.
+A lockstep batch [b, n_loc, k] is one exchange of every problem's halo
+rows and one K1 launch over its b * segments segments, with the halos as
+per-problem edge rows [b, 2, k].
 
 ``SpmdLaplacianND``: the JAX package lets the partitioner derive the
 halos of its pad/slice formula (``_rewrite`` sets ``force_jnp``); the
 port partitions the leading grid axis, exchanges one plane with each
 neighbour, runs the unsharded operator (K2 for a 3-D f32 grid) on the
 [nx_loc + 2, ...] extended slab and keeps the interior planes: the
-slab's Dirichlet faces touch only the dropped halo planes.
+slab's Dirichlet faces touch only the dropped halo planes.  A batch is one
+plane exchange and one batched apply of the slab (one K2 launch).
 """
 
 from __future__ import annotations
@@ -35,7 +39,7 @@ from lobpcg_tpu_torch.operators.linop import (
     ScaledOperator,
     ShiftedOperator,
     SumOperator,
-    unbatched,
+    apply_scale,
 )
 from lobpcg_tpu_torch.operators.realify import RealEmbeddedDiagonalOperator
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
@@ -70,7 +74,8 @@ def stencil_matmat_spmd(
 ) -> torch.Tensor:
     """Y = scale * tridiag[-1, 2, -1] X per row segment, for this rank's
     rows X [n_loc, k] of the global [n, k] block (``n`` defaults to
-    n_loc times the ranks).
+    n_loc times the ranks), or this rank's rows [b, n_loc, k] of b
+    problems.
 
     ``pallas`` (the JAX package's name, kept for API parity): "auto" and
     "interpret" run the local product through ``stencil_matmat`` (K1 for
@@ -80,7 +85,7 @@ def stencil_matmat_spmd(
     if pallas not in PALLAS_MODES:
         raise ValueError(f"pallas must be one of {PALLAS_MODES}, got {pallas!r}")
     nd = mesh.size
-    local_rows, k = X.shape
+    local_rows, k = X.shape[-2:]
     n = local_rows * nd if n is None else int(n)
     if n != local_rows * nd:
         raise ValueError(f"n={n} does not split into {nd} shards of "
@@ -99,23 +104,32 @@ def stencil_matmat_spmd(
 
     halo_up, halo_dn = halo_exchange(mesh, X, 1)
     r = mesh.rank
-    if (r * local_rows) % seg == 0:  # this shard starts a segment
+    # Whether this shard starts a segment and the next one starts one is
+    # the same for every problem of a batch.
+    if (r * local_rows) % seg == 0:
         halo_up = torch.zeros_like(halo_up)
-    if ((r + 1) * local_rows) % seg == 0:  # and the next one starts one
+    if ((r + 1) * local_rows) % seg == 0:
         halo_dn = torch.zeros_like(halo_dn)
-    edge = torch.cat([halo_up, halo_dn], dim=0)
-    segs = local_rows // min(seg, local_rows)
+    edge = torch.cat([halo_up, halo_dn], dim=-2)  # [2, k] or [b, 2, k]
+    problems = X.shape[0] if X.dim() == 3 else 1
+    segs = problems * (local_rows // min(seg, local_rows))
+    Xf = X.reshape(problems * local_rows, k)
     if pallas != "off" and X.dtype in KERNEL_DTYPES:
-        return stencil_matmat(X.contiguous(), scale, edge, num_segments=segs)
-    return stencil_matmat_reference(X, scale, edge, num_segments=segs)
+        Y = stencil_matmat(Xf.contiguous(), scale, edge, num_segments=segs)
+    else:
+        Y = stencil_matmat_reference(Xf, scale, edge, num_segments=segs)
+    return Y.reshape(X.shape)
 
 
 @dataclasses.dataclass
 class SpmdLaplacian1D(LinearOperator):
     """Laplacian1D over a row mesh, with the explicit halo exchange of
     ``stencil_matmat_spmd``.  Produced by ``use_spmd_stencils`` /
-    ``shard_problem``; ``matmat`` takes and returns this rank's rows, and
-    ``shape`` is the global one."""
+    ``shard_problem``; ``matmat`` takes and returns this rank's rows
+    ([n_loc, k] or a batch [b, n_loc, k]), and ``shape`` is the global
+    one.  ``scale`` is a float, or a [b] tensor of per-problem scales,
+    applied as ``Laplacian1D`` applies it (``apply_scale``: one
+    multiply after the stencil at scale 1)."""
 
     scale: float
     n: int = 0
@@ -125,10 +139,9 @@ class SpmdLaplacian1D(LinearOperator):
     dtype: torch.dtype = torch.float32
 
     def matmat(self, X):
-        unbatched(self, X)
-        return stencil_matmat_spmd(
-            X, self.scale, self.mesh, num_segments=self.segments, n=self.n,
-            pallas=self.pallas)
+        return apply_scale(lambda s: stencil_matmat_spmd(
+            X, s, self.mesh, num_segments=self.segments, n=self.n,
+            pallas=self.pallas), self.scale)
 
     @property
     def shape(self):
@@ -148,21 +161,21 @@ class SpmdLaplacianND(LinearOperator):
     dtype: torch.dtype = torch.float32
 
     def matmat(self, X):
-        unbatched(self, X)
         nx, rest = int(self.grid[0]), tuple(int(g) for g in self.grid[1:])
         nd = self.mesh.size
         if nx % nd:
             raise ValueError(f"grid {tuple(self.grid)}: nx={nx} does not "
                              f"divide over {nd} ranks")
         plane, nx_loc = math.prod(rest), nx // nd
-        if X.shape[0] != nx_loc * plane:
-            raise ValueError(f"X has {X.shape[0]} rows, this rank holds "
+        rows = X.shape[-2]
+        if rows != nx_loc * plane:
+            raise ValueError(f"X has {rows} rows, this rank holds "
                              f"{nx_loc * plane}")
         halo_up, halo_dn = halo_exchange(self.mesh, X, plane)
         slab = LaplacianND(scale=self.scale, grid=(nx_loc + 2,) + rest,
                            force_jnp=self.force_jnp, dtype=self.dtype)
-        Y = slab.matmat(torch.cat([halo_up, X, halo_dn], dim=0))
-        return Y[plane : plane + X.shape[0]]
+        Y = slab.matmat(torch.cat([halo_up, X, halo_dn], dim=-2))
+        return Y[..., plane : plane + rows, :]
 
     @property
     def shape(self):
@@ -176,6 +189,12 @@ def _holds_stencil(op) -> bool:
     return dataclasses.is_dataclass(op) and any(
         _holds_stencil(getattr(op, f.name)) for f in dataclasses.fields(op)
         if isinstance(getattr(op, f.name), LinearOperator))
+
+
+def _tile_rows(d: torch.Tensor, c: int) -> torch.Tensor:
+    """A diagonal [n] or [b, n] (one a problem) repeated c times along
+    its rows."""
+    return d.repeat((1,) * (d.dim() - 1) + (c,))
 
 
 def unroll_block_diag(op: BlockDiagOperator) -> LinearOperator:
@@ -194,7 +213,7 @@ def unroll_block_diag(op: BlockDiagOperator) -> LinearOperator:
                                segments=o.segments * c,
                                pad_lanes=o.pad_lanes, dtype=o.dtype)
         if isinstance(o, (DiagonalOperator, JacobiPreconditioner)):
-            return type(o)(o.d.repeat(c))
+            return type(o)(_tile_rows(o.d, c))
         if isinstance(o, SumOperator):
             return SumOperator(unroll(o.left), unroll(o.right))
         if isinstance(o, ScaledOperator):
@@ -206,7 +225,7 @@ def unroll_block_diag(op: BlockDiagOperator) -> LinearOperator:
                 BlockDiagOperator(inner=o.inner, copies=c * int(o.copies)))
         if isinstance(o, RealEmbeddedDiagonalOperator) and not bool(
                 torch.any(o.di != 0)):  # real data: diag([dr; dr])
-            return DiagonalOperator(torch.cat([o.dr, o.dr]).repeat(c))
+            return DiagonalOperator(_tile_rows(o.dr, 2 * c))
         raise NotImplementedError(
             f"no sharded form of BlockDiagOperator over {type(o).__name__}")
 
@@ -259,7 +278,7 @@ def unroll_block_diag2(op: BlockDiag2Operator):
         return sum(ds[1:], ds[0]) if ds else torch.zeros_like(like)
 
     ref = (d_t or d_b)[0]
-    diag = torch.cat([total(d_t, ref), total(d_b, ref)])
+    diag = torch.cat([total(d_t, ref), total(d_b, ref)], dim=-1)
     return SumOperator(stencil, DiagonalOperator(diag)), stencil
 
 

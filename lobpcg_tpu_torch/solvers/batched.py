@@ -14,9 +14,10 @@ for the batch, with per-problem masks.  That route takes every operator
 (``CallableOperator`` with its arguments shared or mapped by
 ``in_axes``), ``LaplacianND`` and ``BSROperator`` over a grid or matrix
 the batch shares (one K2, K3 or K5 launch a batch apply), the realified
-operators, and a P0 [n, m] the batch shares; not the sharded operators,
-a sharded solve, or a P0 per problem (which ``jax.vmap`` of the JAX
-solve refuses too).  ``batched`` stays the generic map for any function
+operators, the sharded forms of ``parallel/`` (a sweep under a row
+group: X0 [b, n_loc, m] on each rank), and a P0 [n, m] the batch
+shares; not a P0 per problem (which ``jax.vmap`` of the JAX solve
+refuses too).  ``batched`` stays the generic map for any function
 (and for what the lockstep route does not take): each problem runs the
 unbatched host loop on the card, one after another, and gets exactly
 its own solve's result.

@@ -16,6 +16,14 @@ takes it and selected per problem, and a converged or capped problem is
 frozen while the others run (``ops/lanes.py``).  The loop is the same
 code: on a 2-D X0 the helpers reduce to the unbatched host loop.  The
 host reads of an iteration do not grow with b.
+
+Under a row group a lockstep batch's X0 is [b, n_loc, m], each rank's
+rows of the b problems (``parallel.shard_problem``).  Every per-problem
+branch is decided from row-summed values (the all-reduced Grams and
+norms), so every rank takes the same branches; a reduction is one
+all-reduce for the batch, so a batch makes as many collectives an
+iteration as one problem.  The random draws are the unsharded lockstep
+solve's, cut to this rank's rows.
 """
 
 from __future__ import annotations
@@ -103,12 +111,13 @@ def _prepare_p0(P0, A, config, lead=()):
 def _norms(A, B, rng, config, n, dtype, device, lead=()):
     """(||A||, ||B||) estimates from the draws "norm_a" / "norm_b"
     (one per problem of a batch, every problem starting from the same
-    draws); ||B|| = 1 when B is None."""
+    draws: this rank's rows of them under a row group); ||B|| = 1 when B
+    is None."""
     shape = (n, config.norm_block)
 
     def start(name):
         v = rng.fill(name, shape, dtype, device)
-        return v.expand(lead + shape) if lead else v
+        return v.expand(lead + tuple(v.shape)) if lead else v
 
     a_norm = estimate_norm(A, start("norm_a"), config.norm_iters)
     if B is None:
@@ -189,11 +198,9 @@ def solve_entry(impl, A, B, T, X0, P0, config, generator, device, draws,
     when n does not divide over its ranks), check
     the inputs against this rank's rows, and run ``impl`` under the
     config's precision with the random draws cut to this rank's rows.
-    A 3-D X0 runs the batch in lockstep (not under a row group)."""
+    A 3-D X0 runs the batch in lockstep (under a row group, this rank's
+    rows of each problem)."""
     mesh = rows.active() or rows.find_mesh(A, B, T)
-    if _batch(X0) and mesh is not None:
-        raise NotImplementedError(
-            "the lockstep batched solve does not take sharded problems")
     if mesh is not None and A.shape[0] % mesh.size:
         # Rows that do not divide: shard_problem placed the whole problem
         # on every rank, and each rank solves all of it with no row group
@@ -407,7 +414,8 @@ def lobpcg(
     [b, n, size_sub] solves b problems in lockstep (operator data with a
     leading batch dimension, ``operators/linop.py``; a P0 [n, size_sub]
     shared by the batch) and every field of the result gains a leading
-    batch dimension.  The solve runs on
+    batch dimension.  Under a row group (``parallel.shard_problem``) the
+    row counts are this rank's, n_loc for n.  The solve runs on
     X0's device, or on ``device`` when X0 is None, or on the CUDA card
     when neither is given.  Random fills come
     from ``generator`` (a ``torch.Generator`` on that device; None = the

@@ -47,6 +47,19 @@ PEAK_BLOCKS_H100 = {
     (False, False, False): 11.024,
 }
 
+# The blocks a lockstep batch (b > 1) holds beyond its problems' lone
+# peaks, in units of the batch's [b, n_loc, size_sub] block: the frozen
+# problems' state (X, AX, P, W) kept while the others run, and the
+# per-problem select's output.  Fitted on one configuration: the BdG well
+# pencil (ilobpcg with B and a degree-3 Chebyshev T, default knobs,
+# size_sub 30, f32), chip_smoke.py's lockstep_sharded phases on an
+# NVIDIA H100 80GB HBM3, 700.00 W: 19.046 blocks at 8 x 1M x 30 and
+# 19.051 at 4 x 4M x 30, against the 14.024 of the anchor.
+# chip_smoke.py prints it beside peaks outside the fit: lockstep_small
+# (that pencil at 32 x 65,536 x 30), lockstep_nd and lockstep_bsr
+# (lobpcg without B or T on the 160^3 grid, where it over-estimates).
+LOCKSTEP_BLOCKS_H100 = 5.03
+
 # Knob combinations from the fastest to the leanest, the JAX package's
 # order without its packing rungs (they save no memory here) and without
 # its dual-off-only rung (dual off alone saves nothing at the full
@@ -66,19 +79,26 @@ def _itemsize(dtype) -> int:
 
 
 def estimate_peak_gb(n: int, size_sub: int, dtype, config,
-                     pad_lanes: bool = False) -> float:
-    """Peak device memory (GiB) of an ilobpcg/lobpcg solve: the fixed
-    term plus the measured 4M x 64 f32 anchors scaled by the block size
-    n * size_sub * itemsize.  k x k scratch is not modelled.
-    ``pad_lanes`` is accepted for parity and adds nothing (the Hopper
-    stencil takes any width).  Exact at the measured corner,
-    proportional elsewhere: keep a margin.
+                     pad_lanes: bool = False, *, batch: int = 1,
+                     ranks: int = 1) -> float:
+    """Peak device memory (GiB) of an ilobpcg/lobpcg solve on one card:
+    the fixed term plus the measured 4M x 64 f32 anchors scaled by the
+    block size batch * n_loc * size_sub * itemsize, for a lockstep batch
+    of ``batch`` problems (plus ``LOCKSTEP_BLOCKS_H100`` when batch > 1)
+    and a row group of ``ranks`` (n_loc = n / ranks rows a card; n when
+    the rows do not divide, as the problem is then replicated).  k x k
+    scratch is not modelled.  ``pad_lanes`` is
+    accepted for parity and adds nothing (the Hopper stencil takes any
+    width).  Exact at the measured corner, proportional elsewhere: keep a
+    margin.
     """
     del pad_lanes
     key = (bool(config.dual_basis), bool(config.use_b_cache),
            bool(config.use_ax_cache))
-    block_gb = n * size_sub * _itemsize(dtype) / (1 << 30)
-    return FIXED_GB_H100 + PEAK_BLOCKS_H100[key] * block_gb
+    n_loc = n // ranks if n % ranks == 0 else n
+    block_gb = batch * n_loc * size_sub * _itemsize(dtype) / (1 << 30)
+    blocks = PEAK_BLOCKS_H100[key] + (LOCKSTEP_BLOCKS_H100 if batch > 1 else 0.0)
+    return FIXED_GB_H100 + blocks * block_gb
 
 
 def probe_hbm_gb(device=None) -> float:

@@ -1219,3 +1219,127 @@ def test_batched_tall_gram_split_on_card(cuda_device, n):
     ref = torch.matmul(V.double().mH, U.double())
     err = float((gram._local_hdot(V, U).double() - ref).abs().max())
     assert err / float(ref.abs().max()) <= 1e-5
+
+
+# --- the lockstep batch under a row group ----------------------------------
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 8, 30, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k1_batched_edges_on_card(cuda_device, k, dtype):
+    """K1's batched edge form: X of 4 problems of 1,000 rows (5 segments
+    each), edge rows [4, 2, k]: one launch, equal to its plain version
+    (once a problem) and to each problem's lone launch with its own edge
+    pair, bit for bit."""
+    b, n_loc, segs = 4, 1000, 5
+    rng = np.random.default_rng(k)
+    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (b * n_loc, k))).to(
+        cuda_device, dtype)
+    E = torch.from_numpy(rng.uniform(0.5, 1.5, (b, 2, k))).to(cuda_device, dtype)
+    before = k1.stencil_matmat.launches
+    y = k1.stencil_matmat(X, SCALE, E, num_segments=b * segs)
+    assert k1.stencil_matmat.launches == before + 1
+    want = k1.stencil_matmat_reference(X, SCALE, E, num_segments=b * segs)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want)
+    for i in range(b):
+        rows = slice(i * n_loc, (i + 1) * n_loc)
+        lone = k1.stencil_matmat(X[rows].contiguous(), SCALE, E[i].contiguous(),
+                                 num_segments=segs)
+        assert torch.equal(y[rows], lone), i
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("case", ["band4", "ragged264"])
+@pytest.mark.parametrize("k", [5, 16, 32, 130])
+def test_k6_batched_launch_on_card(cuda_device, case, k):
+    """K6 over a batch of 3 problems on one interior shard, each problem's
+    halos cut from its own global X: one launch, each problem equal to its
+    lone launch bit for bit, and within tolerance of the plain version."""
+    bs, hrows, n_loc, W, shards, n = _k6_shards(case)
+    d = 1
+    lo, wv = (torch.from_numpy(a).to(cuda_device) for a in shards[d])
+    Xg = torch.stack([_offset_X(n, k, 0, k + s, cuda_device) for s in range(3)])
+    xs = Xg[:, d * n_loc : (d + 1) * n_loc].contiguous()
+    up = Xg[:, d * n_loc - hrows : d * n_loc]
+    dn = Xg[:, (d + 1) * n_loc : (d + 1) * n_loc + hrows]
+    top = torch.cat([up, xs[:, :W]], dim=1)
+    bot = torch.cat([xs[:, -W:], dn], dim=1)
+    before = kb.bsr_window_matmat_edges.launches
+    y = kb.bsr_window_matmat_edges(lo, wv, xs, top, bot, bs=bs, hrows=hrows)
+    assert kb.bsr_window_matmat_edges.launches == before + 1
+    assert y.shape == (3, n_loc, k)
+    want = kb.bsr_window_matmat_edges_reference(lo, wv, xs, top, bot, bs=bs,
+                                                hrows=hrows)
+    for i in range(3):
+        lone = kb.bsr_window_matmat_edges(lo, wv, xs[i], top[i].contiguous(),
+                                          bot[i].contiguous(), bs=bs,
+                                          hrows=hrows)
+        torch.cuda.synchronize()
+        assert torch.equal(y[i], lone), i
+        tol = _bsr_tol(lambda V, Z: kb.bsr_window_matmat_reference(
+            lo, V, torch.cat([up[i].abs(), Z, dn[i].abs()]), bs=bs,
+            out_rows=n_loc), wv.abs(), xs[i], W)
+        assert float((y[i] - want[i]).abs().max()) <= tol
+
+
+@pytest.mark.gpu
+def test_sharded_lockstep_at_world_size_one_on_card(cuda_device):
+    """row_mesh(1) on NCCL: the small well sweep as one lockstep ilobpcg
+    through shard_problem (X0 [3, n, 8], DiagonalOperator [3, n],
+    Chebyshev [3]) takes the unsharded lockstep trajectory bit for bit
+    (eigenvalues, iterations, K1 launches), and a sharded band applied to
+    a batch launches K6 once, each problem its lone apply's bits."""
+    import torch.distributed as dist
+
+    from lobpcg_tpu_torch import parallel
+
+    m, well, nev, ss, dt = 512, 64, 4, 8, torch.float32
+    lo = (m - well) // 2
+    u = np.zeros((m, ss), np.float32)
+    u[lo : lo + well] = np.random.RandomState(42).uniform(-0.5, 0.5, (well, ss))
+    X0 = torch.as_tensor(np.concatenate([u, u]), device=cuda_device)
+    X0 = X0.expand(3, *X0.shape).contiguous()
+    B = tl.BlockAntiDiagOperator(d=torch.ones(m, dtype=dt, device=cuda_device))
+    Vs = []
+    for barrier in (1.0, 2.0, 3.0):
+        V = torch.full((m,), 1.0 + barrier, dtype=dt, device=cuda_device)
+        V[lo : lo + well] = 1.0
+        Vs.append(torch.cat([V, V]))
+    A = tl.Laplacian1D(scale=1.0, n=2 * m, segments=2, dtype=dt) \
+        + tl.DiagonalOperator(torch.stack(Vs))
+    T = tl.ChebyshevFilter(op=A, lo=2.0, hi=torch.tensor(
+        [6.1, 7.1, 8.1], dtype=torch.float64, device=cuda_device), degree=3)
+    cfg = tl.SolverConfig(nev=nev, size_sub=ss, tol=1e-5, max_iter=300)
+
+    def run(A, X0, B, T):
+        before = k1.stencil_matmat.launches
+        r = tl.ilobpcg(A, X0, B, T, config=cfg,
+                       generator=torch.Generator(device=cuda_device).manual_seed(0))
+        return r, k1.stencil_matmat.launches - before
+
+    whole, whole_k1 = run(A, X0, B, T)
+    mesh = parallel.row_mesh(1)
+    try:
+        As, X0s, Bs, Ts = parallel.shard_problem(mesh, A, X0, B, T)
+        with mesh:
+            r, k1_launches = run(As, X0s, Bs, Ts)
+        assert r.converged.tolist() == [nev] * 3
+        assert torch.equal(r.eigenvalues, whole.eigenvalues)
+        assert r.iterations.tolist() == whole.iterations.tolist()
+        assert k1_launches == whole_k1
+
+        n, k = 4096, 16
+        op = tl.BSROperator.from_dense(_banded(n, 24, 5), block_size=8,
+                                       device=cuda_device)
+        sop = parallel.ShardedBSROperator.shard(op, mesh)
+        X = torch.from_numpy(np.random.default_rng(1).uniform(-1, 1, (3, n, k))
+                             ).to(cuda_device, torch.float32)
+        before = kb.bsr_window_matmat_edges.launches
+        y = sop.matmat(X)
+        assert kb.bsr_window_matmat_edges.launches == before + 1
+        for i in range(3):
+            assert torch.equal(y[i], sop.matmat(X[i]))
+    finally:
+        dist.destroy_process_group()

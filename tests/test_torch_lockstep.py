@@ -14,9 +14,11 @@ same numpy inputs (f64, the CPU):
   rr-flag-2 retry, the stall reset, the quality-5 dual basis), each
   problem equal to its lone solve;
 - the batched operator applies (Laplacian1D as one K1 launch over
-  b*segments segments), and the operators without a batched form (the
-  sharded ones) and a per-problem P0 refusing a batch.  The other
-  operators' lockstep solves are test_torch_lockstep_operators.py's.
+  b*segments segments), and a per-problem P0 and solve_checkpointed
+  refusing a batch.  The other operators' lockstep solves are
+  test_torch_lockstep_operators.py's; the sharded operators' batched
+  applies and solves under a row group are
+  test_torch_sharded_lockstep.py's.
 
 The JAX solves draw from their default key, unbatched under vmap: every
 problem gets the same draws, and the port's problems get those draws
@@ -487,58 +489,23 @@ def test_batched_operator_data():
 
 
 def test_operators_without_a_batched_form_refuse_a_batch():
-    """Every operator the lockstep solve does not take (the sharded
-    forms) raises NotImplementedError naming itself on a [b, n, k] block;
-    so does a batched solve over a sharded problem, one given a
-    per-problem P0 [b, n, m] (jax.vmap of the JAX solve refuses a mapped
-    P0 too), and solve_checkpointed given a batch."""
-    from lobpcg_tpu_torch.parallel.sharding import (
-        BSRRowPanelOperator,
-        GatheredOperator,
-        LocalRows,
-        RowPanelOperator,
-        ShardedBlockAntiDiagOperator,
-    )
-    from lobpcg_tpu_torch.parallel.spmd_bsr import ShardedBSROperator
-    from lobpcg_tpu_torch.parallel.spmd_stencil import (
-        SpmdLaplacian1D,
-        SpmdLaplacianND,
-    )
-
-    dense = np.diag(np.arange(1.0, 17.0)) + np.diag(np.ones(15), 1) \
-        + np.diag(np.ones(15), -1)
-    bsr = tl.BSROperator.from_dense(dense, block_size=4, dtype=F64,
-                                    device="cpu")
-    mesh = RowMesh(group=None, rank=0, size=2, device=torch.device("cpu"))
-    ops = [
-        shard_operator(tl.DiagonalOperator(torch.ones(16, dtype=F64)), mesh),
-        shard_operator(tl.DenseOperator(torch.eye(16, dtype=F64)), mesh),
-        shard_operator(tl.BlockAntiDiagOperator(torch.ones(8, dtype=F64)),
-                       mesh),
-        shard_operator(tl.Laplacian1D(1.0, 16, dtype=F64), mesh),
-        shard_operator(tl.LaplacianND(1.0, (2, 2, 4), dtype=F64), mesh),
-        shard_operator(bsr, mesh),
-        BSRRowPanelOperator.shard(bsr, mesh),
-        GatheredOperator.place(tl.DiagonalOperator(torch.ones(16, dtype=F64)),
-                               mesh),
-    ]
-    kinds = {type(op) for op in ops}
-    assert {LocalRows, RowPanelOperator, ShardedBlockAntiDiagOperator,
-            SpmdLaplacian1D, SpmdLaplacianND, ShardedBSROperator,
-            BSRRowPanelOperator, GatheredOperator} <= kinds
-    X = torch.zeros((2, 16, 3), dtype=F64)
-    for op in ops:
-        with pytest.raises(NotImplementedError, match=type(op).__name__):
-            op.matmat(X if op.shape[0] == 16 else X[:, :8])
-    sharded = shard_operator(tl.DiagonalOperator(torch.ones(16, dtype=F64)),
-                             mesh)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        tl.lobpcg(sharded, torch.zeros((2, 8, 3), dtype=F64), nev=2,
-                  size_sub=3, device="cpu")
+    """What the lockstep solve still refuses, as jax.vmap of the JAX solve
+    refuses it (its _prepare_p0 reads P0 on the host): a per-problem P0
+    [b, n, m], unsharded and under a row group (before any collective),
+    and solve_checkpointed given a batch.  Every operator has a batched
+    form now, the sharded ones included (their batched applies equal
+    their lone applies: test_torch_sharded_lockstep.py)."""
     with pytest.raises(NotImplementedError, match="P0"):
         tl.lobpcg(tl.DiagonalOperator(torch.ones(16, dtype=F64)),
                   torch.ones((2, 16, 3), dtype=F64),
                   P0=torch.zeros((2, 16, 3), dtype=F64), nev=2, size_sub=3,
+                  device="cpu")
+    mesh = RowMesh(group=None, rank=0, size=2, device=torch.device("cpu"))
+    sharded = shard_operator(tl.DiagonalOperator(torch.ones(16, dtype=F64)),
+                             mesh)
+    with pytest.raises(NotImplementedError, match="P0"):
+        tl.lobpcg(sharded, torch.ones((2, 8, 3), dtype=F64),
+                  P0=torch.zeros((2, 8, 3), dtype=F64), nev=2, size_sub=3,
                   device="cpu")
     with pytest.raises(NotImplementedError, match="one problem"):
         tl.solve_checkpointed(
