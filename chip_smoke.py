@@ -19,6 +19,17 @@ non-zero; there is no CPU fallback):
                 and bf16 widths 6, 30, 64 at ~256 MiB of X; error, ms,
                 GB/s and bound of each; fails if an f32 point with X of
                 64 MiB or more runs under half its bound.
+   kernel fused — K1's walk with the BdG operator's diagonal
+                (stencil_diag: A y of Laplacian1D + DiagonalOperator) and
+                with the Chebyshev step (cheb_step: the first step, the
+                last, and the degree-3 filter's two together) at [4M, 64]
+                and [4M, 16] (the flagship and its Chebyshev chunk),
+                [1M, 164] (the 1M x 150 solve), [8, 1M, 30] with [8]
+                diagonals and bounds (the lockstep sweep), and the same
+                with random edge rows [8, 2, 30] (under a row group): each
+                against its plain version and the eager chain it replaces
+                (K1 and PyTorch's passes) with 0 difference in f32 and
+                bf16, and in f32 timed beside both and its bound.
 4. kernel K7  — the streaming copy against its plain version (clone) at
                 [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
                 GB/s, bound, and Tensor.copy_ as the library time.
@@ -26,8 +37,14 @@ non-zero; there is no CPU fallback):
 6. main       — ilobpcg on the BdG quantum-well pencil of
                 lobpcg_tpu_torch/benchmarks/solve_bdg.py at n 4,000,000,
                 nev 56, size_sub 64, Chebyshev degree 3, f32, against its
-                dense well oracle; must go through K1.  Run twice, under
-                gram_precision "highest" and "high" (both TF32-free).
+                dense well oracle; A must go through stencil_diag and T
+                through cheb_step (K1's fused forms).  Run under
+                gram_precision "highest" and "high" (both TF32-free), and
+                once more under "highest" through the eager chain (the
+                diagonal as a ChainDiagonal, which the fused route does
+                not take: K1 and PyTorch's passes): the same eigenvalues
+                (torch.equal) and iterations, as many K1 launches as the
+                K1 family made.
 7. bench      — the SpMM headline, lobpcg_tpu_torch.bench.measure_spmm
                 ([4M, 256] f32 through K1 against K7's copy roofline);
                 must launch K1 and K7.
@@ -206,7 +223,10 @@ non-zero; there is no CPU fallback):
                 the estimate.
 
 Every kernel wrapper counts its launches; each path runs with every
-count set to 0 just before it and read just after.  The second-to-last
+count set to 0 just before it and read just after.  A solve of
+Laplacian1D + DiagonalOperator launches stencil_diag or cheb_step where
+it launched K1 before, so its launch checks read the K1 family's sum
+(k1_family).  The second-to-last
 lines are the kernels summary and the card's `nvidia-smi` name and
 power limit; the last line is the ok record.  Imports nothing of JAX.
 """
@@ -321,6 +341,12 @@ bound, max_abs, card_line = (stencil_widths.bound, stencil_widths.max_abs,
 KERNELS = {
     "stencil1d": (k1.stencil_matmat, "lobpcg_tpu_torch/csrc/stencil1d.cu",
                   "lobpcg_tpu/ops/pallas/stencil.py:75"),
+    # K1's walk with the BdG operator's diagonal, and with the Chebyshev
+    # step: what XLA fuses around the stencil in the JAX package's solve.
+    "stencil_diag": (k1.stencil_diag, "lobpcg_tpu_torch/csrc/stencil1d.cu",
+                     "lobpcg_tpu/ops/pallas/stencil.py:75"),
+    "cheb_step": (k1.cheb_step, "lobpcg_tpu_torch/csrc/stencil1d.cu",
+                  "lobpcg_tpu/ops/pallas/stencil.py:75"),
     "stencil3d": (k2.stencil3d_matmat, "lobpcg_tpu_torch/csrc/stencil3d.cu",
                   "lobpcg_tpu/ops/pallas/stencil3d.py:236"),
     "bsr_ell": (kb.bsr_matmat, "lobpcg_tpu_torch/csrc/bsr.cu",
@@ -355,6 +381,16 @@ def zero_counts() -> None:
 
 def read_counts() -> dict:
     return {name: fn.launches for name, (fn, _, _) in KERNELS.items()}
+
+
+K1_FAMILY = ("stencil1d", "stencil_diag", "cheb_step")
+
+
+def k1_family(counts: dict) -> int:
+    """Launches of K1 and its two fused forms: where a solve of
+    Laplacian1D + DiagonalOperator launched K1 alone, it launches one of
+    them."""
+    return sum(counts[name] for name in K1_FAMILY)
 
 
 def read_collectives() -> dict:
@@ -414,6 +450,148 @@ def kernel_phase(dev) -> list[dict]:
         lockstep_widths=(SS_BATCH, NORM_BLOCK))
 
 
+# The fused kernels' shapes: (name, problems, rows a problem, k, per-problem
+# diagonals and Chebyshev bounds, random edge rows [b, 2, k]).  The
+# flagship's [4M, 64] and its Chebyshev chunk [4M, 16] (the bench line's),
+# the 1M x 150 solve's [1M, 164], the lockstep sweep's [8, 1M, 30] and
+# the same under a row group with halos.
+FUSED_SHAPES = (
+    ("flagship", 1, N_MAIN, SIZE_SUB, False, False),
+    ("flagship_chunk", 1, N_MAIN, 16, False, False),
+    ("sub1M_150", 1, N_SUB, SS_SUB, False, False),
+    ("lockstep", len(BATCH_BARRIERS), N_BATCH, SS_BATCH, True, False),
+    ("lockstep_edges", len(BATCH_BARRIERS), N_BATCH, SS_BATCH, True, True),
+)
+
+
+class ChainDiagonal(lt.DiagonalOperator):
+    """A DiagonalOperator that the fused route does not take (it reports
+    no row scales), so that a tree holding it runs the eager chain of
+    operations the fused kernels replace: K1, then d * X, then the add,
+    and the Chebyshev recurrence one operation at a time."""
+
+    def row_scales(self):
+        return None
+
+
+def fused_case(dev, name, b, n, k, per_problem, edges, dtype) -> list[dict]:
+    """stencil_diag and cheb_step (the first and the last step of the
+    degree-3 filter, and the two together) on b problems of [n, k] in
+    ``dtype``: each against its plain version and the eager chain (K1 and
+    PyTorch's operations; max_abs_err 0 and torch.equal), then, in f32,
+    timed beside both and its bound."""
+    gen = torch.Generator(device=dev).manual_seed(15)
+    rows, segs = b * n, 2 * b
+    X = (torch.rand((rows, k), generator=gen, device=dev) - 0.5).to(dtype)
+    d = (torch.rand((b, n) if per_problem else (n,), generator=gen, device=dev)
+         + 1.0).to(dtype)
+    E = ((torch.rand((b, 2, k), generator=gen, device=dev) - 0.5).to(dtype)
+         if edges else None)
+    hi = (torch.tensor([solve_bdg.cheb_hi(x) for x in BATCH_BARRIERS[:b]],
+                       dtype=torch.float64, device=dev)
+          if per_problem else solve_bdg.CHEB_HI)
+    filt = lt.ChebyshevFilter(op=None, lo=solve_bdg.CHEB_LO, hi=hi,
+                              degree=CHEB_DEGREE)
+    X3 = X.view(b, n, k)
+    theta, ((c1a, c2a), (c1b, c2b)) = filt._coefficients(X3)
+    fused = dict(num_segments=segs, problems=b)
+
+    def per(v):
+        return v.view(-1, 1, 1) if isinstance(v, torch.Tensor) else v
+
+    # The eager chain: Laplacian1D + DiagonalOperator one operation at a
+    # time (K1, the multiply, the add), and ChebyshevFilter._apply's steps.
+    def chain_apply(Y):
+        return (k1.stencil_matmat(Y, 1.0, E, num_segments=segs).view(b, n, k)
+                + d.unsqueeze(-1) * Y.view(b, n, k)).view(rows, k)
+
+    def chain_step(y, dd, c1, c2):
+        dd = per(c1) * dd.view(b, n, k) + per(c2) * (
+            X3 - chain_apply(y).view(b, n, k))
+        return (y.view(b, n, k) + dd).view(rows, k), dd.view(rows, k)
+
+    def chain_first():
+        y = (X3 / per(theta)).view(rows, k)
+        return chain_step(y, y, c1a, c2a)
+
+    y1, d1 = k1.cheb_step_reference(X, None, None, 1.0, d, c1a, c2a, E,
+                                    theta=theta, **fused)
+
+    def first():
+        return k1.cheb_step(X, None, None, 1.0, d, c1a, c2a, E, theta=theta,
+                            **fused)
+
+    def first_plain():
+        return k1.cheb_step_reference(X, None, None, 1.0, d, c1a, c2a, E,
+                                      theta=theta, **fused)
+
+    # (kernel, plain version, chain, elements moved, operations a call)
+    forms = {
+        "stencil_diag": (
+            lambda: k1.stencil_diag(X, 1.0, d, E, **fused),
+            lambda: k1.stencil_diag_reference(X, 1.0, d, E, **fused),
+            lambda: chain_apply(X), 2 * rows * k + d.numel(), 7 * rows * k),
+        "cheb_step": (first, first_plain, chain_first,
+                      3 * rows * k + d.numel(), 15 * rows * k),
+        "cheb_step_last": (
+            lambda: k1.cheb_step(X, y1, d1, 1.0, d, c1b, c2b, E, last=True,
+                                 **fused)[0],
+            lambda: k1.cheb_step_reference(X, y1, d1, 1.0, d, c1b, c2b, E,
+                                           last=True, **fused)[0],
+            lambda: chain_step(y1, d1, c1b, c2b)[0],
+            4 * rows * k + d.numel(), 12 * rows * k),
+        "chebyshev_filter": (
+            lambda: k1.cheb_step(X, *first(), 1.0, d, c1b, c2b, E, last=True,
+                                 **fused)[0],
+            lambda: k1.cheb_step_reference(X, *first_plain(), 1.0, d, c1b,
+                                           c2b, E, last=True, **fused)[0],
+            lambda: chain_step(*chain_first(), c1b, c2b)[0],
+            7 * rows * k + 2 * d.numel(), 27 * rows * k),
+    }
+    size = X.element_size()
+    recs = []
+    for form, (kernel, plain, chain, nelem, ops) in forms.items():
+        got, want, ref = (v if isinstance(v, tuple) else (v,)
+                          for v in (kernel(), plain(), chain()))
+        err = max(max_abs(g, w) for g, w in zip(got, want))
+        equal = all(torch.equal(g, w) for g, w in zip(got, want))
+        chain_equal = all(torch.equal(g, c) for g, c in zip(got, ref))
+        torch.cuda.synchronize()
+        rec = {"phase": "kernel", "name": form, "case": name, "problems": b,
+               "shape": [b, n, k], "dtype": str(dtype).replace("torch.", ""),
+               "edge_rows": edges, "per_problem": per_problem,
+               "max_abs_err": err, "tol": 0.0, "equal_to_plain": equal,
+               "equal_to_chain": chain_equal,
+               "max_abs_err_vs_chain": max(max_abs(g, c)
+                                           for g, c in zip(got, ref))}
+        del got, want, ref
+        if not (err == 0.0 and equal and chain_equal):
+            emit(rec)
+            raise AssertionError(f"fused kernel {form} at {name}: {rec}")
+        if dtype == torch.float32:
+            rec.update({"ms": timed_untracked(kernel), "plain_ms": time_ms(plain),
+                        "chain_ms": time_ms(chain),
+                        **bound(nelem * size, ops), "library_ms": None})
+        emit(rec)
+        recs.append(rec)
+        free()
+    del X, d, E, y1, d1
+    free()
+    return recs
+
+
+def fused_phase(dev) -> list[dict]:
+    """K1's fused forms at the main paths' shapes (FUSED_SHAPES), f32 timed
+    and bf16 checked: stencil_diag (A y of Laplacian1D + DiagonalOperator)
+    and cheb_step, each against its plain version and the eager chain it
+    replaces with 0 difference."""
+    recs = []
+    for case in FUSED_SHAPES:
+        for dtype in (torch.float32, torch.bfloat16):
+            recs += fused_case(dev, *case, dtype)
+    return recs
+
+
 def quickstart_phase(dev) -> None:
     """README quick start: the standard solver on the 1-D Laplacian."""
     n = 256
@@ -467,11 +645,17 @@ def copy_phase(dev) -> list[dict]:
     return out
 
 
-def main_phase(dev, precision: str) -> dict:
-    """ilobpcg on the BdG well pencil at the flagship shape."""
+def main_phase(dev, precision: str, chain: bool = False):
+    """ilobpcg on the BdG well pencil at the flagship shape; its record
+    and eigenvalues.  ``chain``: A's diagonal as a ChainDiagonal, so that
+    A and the filter run the eager chain of operations (K1 and PyTorch's
+    elementwise passes) instead of the fused kernels."""
     A, B, T, X0, _, _ = solve_bdg.well_problem(
         N_MAIN, NEV, SIZE_SUB, dtype=torch.float32, cheb=CHEB_DEGREE,
         precond=True, device=dev, cheb_chunk=0)
+    if chain:
+        A = A.left + ChainDiagonal(A.right.d)
+        T = dataclasses.replace(T, op=A)
     n, ss = N_MAIN, SIZE_SUB
     cfg = lt.SolverConfig(nev=NEV, size_sub=ss, tol=TOL, max_iter=MAX_ITER,
                           gram_precision=precision, use_ax_cache=True,
@@ -483,14 +667,16 @@ def main_phase(dev, precision: str) -> dict:
     zero_counts()
     t0 = time.perf_counter()
     r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen)
-    lam = r.eigenvalues.double().cpu().numpy()
+    lam32 = r.eigenvalues.cpu()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    lam = lam32.double().numpy()
 
     exact = solve_bdg.well_eigs_oracle(solve_bdg.WELL, NEV, solve_bdg.BARRIER)
     rel = np.abs(lam - exact) / np.abs(exact)
     rec = {
-        "phase": "main", "n": n, "nev": NEV, "size_sub": ss,
+        "phase": "main_chain" if chain else "main", "n": n, "nev": NEV,
+        "size_sub": ss,
         "dtype": "float32", "cheb_degree": CHEB_DEGREE, "cheb_chunk": T.chunk,
         "tol": TOL, "gram_precision": precision,
         "converged": r.converged, "iterations": r.iterations,
@@ -506,11 +692,35 @@ def main_phase(dev, precision: str) -> dict:
         raise AssertionError(f"converged {r.converged}/{NEV}")
     if not rel.max() <= ORACLE_RTOL:
         raise AssertionError(f"max rel err {rel.max()} > {ORACLE_RTOL}")
-    if counts["stencil1d"] < 2 * r.iterations:
+    fused = counts["stencil_diag"] + counts["cheb_step"]
+    if k1_family(counts) < 2 * r.iterations or (
+            fused != 0 if chain else (counts["stencil_diag"] < 1
+                                      or counts["cheb_step"] < 1)):
         raise AssertionError(
-            f"stencil kernel launched {counts['stencil1d']} times in "
-            f"{r.iterations} iterations"
+            f"the stencil kernels launched {counts} in {r.iterations} "
+            f"iterations (fused: A through stencil_diag, T through cheb_step; "
+            f"chain: K1 alone)"
         )
+    return rec, lam32
+
+
+def chain_check(main_rec, main_lam, chain_rec, chain_lam) -> dict:
+    """The flagship through the fused kernels against the eager chain:
+    the same eigenvalues (torch.equal) and iterations, one K1 launch in
+    the chain for each launch of the K1 family; both walls."""
+    rec = {"phase": "main_vs_chain",
+           "equal_eigenvalues": bool(torch.equal(main_lam, chain_lam)),
+           "iterations": [main_rec["iterations"], chain_rec["iterations"]],
+           "k1_family_launches": [k1_family(main_rec["launches"]),
+                                  chain_rec["launches"]["stencil1d"]],
+           "wall_s": [main_rec["wall_s"], chain_rec["wall_s"]],
+           "max_memory_allocated_gib": [main_rec["max_memory_allocated_gib"],
+                                        chain_rec["max_memory_allocated_gib"]]}
+    emit(rec)
+    if not (rec["equal_eigenvalues"] and len(set(rec["iterations"])) == 1
+            and len(set(rec["k1_family_launches"])) == 1):
+        raise AssertionError(f"the fused flagship left the chain's "
+                             f"trajectory: {rec}")
     return rec
 
 
@@ -547,10 +757,9 @@ def well_solve_phase(dev, phase: str, n: int, nev: int, size_sub: int,
     if not rec["max_rel_err"] <= ORACLE_RTOL:
         raise AssertionError(f"{phase}: max rel err {rec['max_rel_err']} > "
                              f"{ORACLE_RTOL}")
-    if counts["stencil1d"] < 2 * rec["iterations"]:
-        raise AssertionError(f"{phase}: stencil kernel launched "
-                             f"{counts['stencil1d']} times in "
-                             f"{rec['iterations']} iterations")
+    if k1_family(counts) < 2 * rec["iterations"]:
+        raise AssertionError(f"{phase}: the stencil kernels launched "
+                             f"{counts} in {rec['iterations']} iterations")
     return rec
 
 
@@ -1429,7 +1638,7 @@ def sharded_phase(dev, main_rec, op, X) -> dict:
     if rec["converged"] != NEV or not rel.max() <= ORACLE_RTOL:
         raise AssertionError(f"sharded solve: {rec['converged']}/{NEV}, "
                              f"max rel err {rel.max()}")
-    if counts["stencil1d"] < rec["iterations"] or coll["all_reduce"] < 1:
+    if k1_family(counts) < rec["iterations"] or coll["all_reduce"] < 1:
         raise AssertionError(f"sharded solve launched {counts}, {coll}")
 
     sop = parallel.ShardedBSROperator.shard(op, mesh)
@@ -1502,16 +1711,16 @@ def blockdiag2_phase(dev, sharded_rec, op, X) -> dict:
            "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
            "sharded": {key: sharded_rec[key] for key in (
                "iterations", "max_rel_err", "wall_s")}
-           | {"stencil1d": sharded_rec["launches"]["stencil1d"]}}
+           | {"k1_family": k1_family(sharded_rec["launches"])}}
     emit(rec)
     del As, X0s, Bs, Ts, A, B, T, X0, A2, T2, half, r
     free()
     if rec["converged"] != NEV or not rel.max() <= ORACLE_RTOL:
         raise AssertionError(f"blockdiag2: {rec['converged']}/{NEV}, "
                              f"max rel err {rel.max()}")
-    if (rec["iterations"], rec["max_rel_err"], counts["stencil1d"]) != (
+    if (rec["iterations"], rec["max_rel_err"], k1_family(counts)) != (
             sharded_rec["iterations"], sharded_rec["max_rel_err"],
-            sharded_rec["launches"]["stencil1d"]):
+            k1_family(sharded_rec["launches"])):
         raise AssertionError(f"blockdiag2 left the sharded phase's "
                              f"trajectory: {rec}")
 
@@ -1681,9 +1890,9 @@ def wide_pencil_phase(dev) -> list[dict]:
             raise AssertionError(f"wide pencil (rr_dtype {rr}): "
                                  f"{rec['converged']}/{NEV_WIDE}, max rel err "
                                  f"{rec['max_rel_err']}")
-        if counts["stencil1d"] < rec["iterations"]:
-            raise AssertionError(f"wide pencil: K1 launched {counts['stencil1d']} "
-                                 f"times in {rec['iterations']} iterations")
+        if k1_family(counts) < rec["iterations"]:
+            raise AssertionError(f"wide pencil: the stencil kernels launched "
+                                 f"{counts} in {rec['iterations']} iterations")
         recs.append(rec)
     return recs
 
@@ -1745,9 +1954,9 @@ def batched_phase(dev) -> dict:
             not max(rel) <= ORACLE_RTOL:
         raise AssertionError(f"batched: converged {conv.tolist()}, max rel "
                              f"err {rel}")
-    if counts["stencil1d"] < 2 * sum(it.tolist()):
-        raise AssertionError(f"batched: K1 launched {counts['stencil1d']} "
-                             f"times in {sum(it.tolist())} iterations")
+    if k1_family(counts) < 2 * sum(it.tolist()):
+        raise AssertionError(f"batched: the stencil kernels launched "
+                             f"{counts} in {sum(it.tolist())} iterations")
     for i, v in lone.items():
         if not (v["equal_eigenvalues"] and v["iterations"] == int(it[i])):
             raise AssertionError(f"batched problem {i} is not its lone "
@@ -1860,7 +2069,7 @@ def lone_solve(dev, n, barrier, cfg, it_cap=None) -> dict:
         r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen, it_cap=it_cap)
         r.eigenvalues.cpu()  # the result's read, counted as the batch's is
     torch.cuda.synchronize()
-    return {"iterations": r.iterations, "k1": read_counts()["stencil1d"],
+    return {"iterations": r.iterations, "k1": k1_family(read_counts()),
             "host_syncs": syncs.count, "wall_s": time.perf_counter() - t0}
 
 
@@ -1916,9 +2125,9 @@ def check_sweep(rec) -> None:
             not max(rec["max_rel_err"]) <= ORACLE_RTOL:
         raise AssertionError(f"{phase}: converged {rec['converged']}, max rel "
                              f"err {rec['max_rel_err']}")
-    if rec["launches"]["stencil1d"] != rec["k1_launches_expected"]:
-        raise AssertionError(f"{phase}: K1 launched "
-                             f"{rec['launches']['stencil1d']} times, the "
+    if k1_family(rec["launches"]) != rec["k1_launches_expected"]:
+        raise AssertionError(f"{phase}: the K1 family launched "
+                             f"{k1_family(rec['launches'])} times, the "
                              f"longest problem's applies are "
                              f"{rec['k1_launches_expected']}")
 
@@ -1936,7 +2145,7 @@ def lockstep_phase(dev, batched_rec) -> list[dict]:
     rec = {"phase": "lockstep", **rec,
            "batched_wall_s": batched_rec["wall_s"],
            "batched_iterations": batched_rec["iterations"],
-           "batched_k1_launches": batched_rec["launches"]["stencil1d"],
+           "batched_k1_launches": k1_family(batched_rec["launches"]),
            "longest_problem": longest,
            **k1_accounting(dev, N_BATCH, BATCH_BARRIERS[longest], cfg,
                            rec["lockstep_iterations"]),
@@ -2099,10 +2308,10 @@ def lockstep_sharded_phase(dev, lock_rec, lock_lam, sharded_rec) -> list[dict]:
                "equal_to_lockstep": {
                    "eigenvalues": bool(torch.equal(lam, lock_lam)),
                    "iterations": rec["iterations"] == lock_rec["iterations"],
-                   "k1_launches": rec["launches"]["stencil1d"]
-                   == lock_rec["launches"]["stencil1d"]},
+                   "k1_launches": k1_family(rec["launches"])
+                   == k1_family(lock_rec["launches"])},
                "lockstep_wall_s": lock_rec["wall_s"],
-               "lockstep_k1_launches": lock_rec["launches"]["stencil1d"],
+               "lockstep_k1_launches": k1_family(lock_rec["launches"]),
                "lockstep_max_memory_allocated_gib":
                    lock_rec["max_memory_allocated_gib"],
                "lockstep_host_syncs_per_iteration":
@@ -2140,7 +2349,7 @@ def lockstep_sharded_phase(dev, lock_rec, lock_lam, sharded_rec) -> list[dict]:
         # One K1 launch a batch apply: the longest problem's applies, and
         # more only where a problem took a branch that re-applies A (the
         # dual basis or an RR failure, computed for the whole batch).
-        k1_count = rec["launches"]["stencil1d"]
+        k1_count = k1_family(rec["launches"])
         branched = sum(rec["quality5"]) + sum(rec["rr_failed"])
         if k1_count < expected or (branched == 0 and k1_count != expected):
             raise AssertionError(f"lockstep_sharded_4m: K1 launched {k1_count} "
@@ -2470,9 +2679,12 @@ def main() -> None:
 
     build_phase()
     k1_recs = kernel_phase(dev)
+    fused_recs = fused_phase(dev)
     k7_recs = copy_phase(dev)
     quickstart_phase(dev)
-    main_rec = main_phase(dev, "highest")
+    main_rec, main_lam = main_phase(dev, "highest")
+    free()
+    chain_check(main_rec, main_lam, *main_phase(dev, "highest", chain=True))
     free()
     main_phase(dev, "high")
     free()
@@ -2534,10 +2746,22 @@ def main() -> None:
     free()
 
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
-    emit({"kernels": [
-        # K1 at the BdG solve's shape, [4M, 64] f32.
-        kernel_entry("stencil1d", main_rec["launches"]["stencil1d"],
+    fused_at = {r["name"]: r for r in fused_recs
+                if r["case"] == "flagship" and r["dtype"] == "float32"}
+    kernels = {"kernels": [
+        # K1 at the BdG solve's shape, [4M, 64] f32; its launches on the
+        # SpMM headline's path (the BdG solve's A carries a diagonal and
+        # takes stencil_diag and cheb_step).
+        kernel_entry("stencil1d", bench_rec["launches"]["stencil1d"],
                      k1_recs + [k1_batch], k1_recs[0]),
+        # K1's walk with the diagonal (A y) and the Chebyshev step (the
+        # first step's numbers), at [4M, 64] f32, launched on the BdG solve.
+        kernel_entry("stencil_diag", main_rec["launches"]["stencil_diag"],
+                     [r for r in fused_recs if r["name"] == "stencil_diag"],
+                     fused_at["stencil_diag"]),
+        kernel_entry("cheb_step", main_rec["launches"]["cheb_step"],
+                     [r for r in fused_recs if r["name"] != "stencil_diag"],
+                     fused_at["cheb_step"]),
         # K2 at the 3-D solve's shape, 160^3 x 16 f32 (its batched launch
         # among the checks).
         kernel_entry("stencil3d", st_rec["launches"]["stencil3d"], k2_recs,
@@ -2562,7 +2786,11 @@ def main() -> None:
         # K7 at the headline's shape, [4M, 256] f32.
         kernel_entry("copy", bench_rec["launches"]["copy"], k7_recs,
                      k7_recs[0]),
-    ]})
+    ]}
+    emit(kernels)
+    idle = [e["name"] for e in kernels["kernels"] if e["launches"] < 1]
+    if idle:
+        raise AssertionError(f"kernels never launched on their paths: {idle}")
     print(card, flush=True)
     emit({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

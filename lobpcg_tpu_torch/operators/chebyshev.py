@@ -4,16 +4,20 @@
 T = p(A) ~ A^{-1} via the Chebyshev semi-iteration for A y = x over
 [lo, hi] (Saad, Iterative Methods, Alg. 12.1): `degree - 1` operator
 applications per T-apply, and p stays positive on [lo, hi], so T is an
-SPD preconditioner.
+SPD preconditioner.  When the operator is the BdG well's
+``Laplacian1D + DiagonalOperator`` (or its sharded form) in f32 or bf16,
+each step is one kernel pass (``ops/cuda/stencil.py: cheb_step``) with
+the bits of the chain of operations below.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import itertools
 
 import torch
 
-from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.operators.linop import LinearOperator, stencil_diagonal
 
 
 @dataclasses.dataclass
@@ -47,7 +51,11 @@ class ChebyshevFilter(LinearOperator):
             return Y
         return self._apply(X)
 
-    def _apply(self, X):
+    def _coefficients(self, X):
+        """(theta, [(c1, c2), ...]): the first step's y = d = X / theta
+        and each of the `degree - 1` steps' d = c1 d + c2 (X - A y), as the
+        recurrence gives them: Python floats for float bounds, [b, 1, 1]
+        tensors of X's dtype for per-problem ones."""
         lo, hi = self.lo, self.hi
         if any(isinstance(v, torch.Tensor) and v.dim() == 1 for v in (lo, hi)):
             # Per-problem bounds: the recurrence's scalars in float64, as
@@ -67,15 +75,25 @@ class ChebyshevFilter(LinearOperator):
         sigma1 = theta / delta
 
         rho = 1.0 / sigma1
-        d = X / coef(theta)
-        y = d
+        steps = []
         for _ in range(self.degree - 1):
             rho_next = 1.0 / (2.0 * sigma1 - rho)
-            d = coef(rho_next * rho) * d + coef(2.0 * rho_next / delta) * (
-                X - self.op.matmat(y)
-            )
-            y = y + d
+            steps.append((coef(rho_next * rho), coef(2.0 * rho_next / delta)))
             rho = rho_next
+        return coef(theta), steps
+
+    def _apply(self, X):
+        theta, steps = self._coefficients(X)
+        # A = Laplacian1D + DiagonalOperator (or its sharded form): each
+        # step one kernel pass (operators/linop.py: StencilDiagonal).
+        fused = stencil_diagonal(self.op) if steps else None
+        if fused is not None and fused.takes(X, theta, *itertools.chain(*steps)):
+            return fused.chebyshev(X, theta, steps)
+        d = X / theta
+        y = d
+        for c1, c2 in steps:
+            d = c1 * d + c2 * (X - self.op.matmat(y))
+            y = y + d
         return y
 
     @property

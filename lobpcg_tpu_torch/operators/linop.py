@@ -26,6 +26,8 @@ import torch
 
 from lobpcg_tpu_torch.ops.cuda.stencil import (
     KERNEL_DTYPES,
+    cheb_step,
+    stencil_diag,
     stencil_matmat,
     stencil_matmat_reference,
 )
@@ -101,6 +103,10 @@ class DiagonalOperator(LinearOperator):
 
     def matmat(self, X):
         return self.d.unsqueeze(-1) * X
+
+    def row_scales(self) -> torch.Tensor:
+        """d: this operator scales X's rows (``stencil_and_diagonals``)."""
+        return self.d
 
     @property
     def shape(self):
@@ -227,6 +233,17 @@ class Laplacian1D(LinearOperator):
             return stencil_matmat(X.contiguous(), scale,
                                   num_segments=segments)
         return stencil_matmat_reference(X, scale, num_segments=segments)
+
+    def stencil_frame(self, X, send_map=None):
+        """The stencil's launch on X ([n, k] or a batch [b, n, k]): (X as
+        one contiguous [rows, k] block, its segments, its edge rows (none:
+        Dirichlet zeros), its problems), a batch folded over b * segments
+        segments as ``matmat`` folds it.  ``send_map`` (the rows a sharded
+        form sends its neighbours) has nothing to act on here."""
+        del send_map
+        b = X.shape[0] if X.dim() == 3 else 1
+        return X.reshape(-1, X.shape[-1]).contiguous(), b * self.segments, \
+            None, b
 
     @property
     def shape(self):
@@ -361,6 +378,9 @@ class SumOperator(LinearOperator):
         return self.left.apply_width_ok(k) and self.right.apply_width_ok(k)
 
     def matmat(self, X):
+        fused = stencil_diagonal(self)
+        if fused is not None and fused.takes(X):
+            return fused.matmat(X)
         return self.left.matmat(X) + self.right.matmat(X)
 
     @property
@@ -390,3 +410,117 @@ class ComposedOperator(LinearOperator):
     @property
     def dtype(self):
         return self.outer.dtype
+
+
+# --- the BdG operator as one kernel pass ----------------------------------------
+
+
+def stencil_and_diagonals(op):
+    """(stencil, alpha, [d, ...]) of a sum of one segmented 1-D stencil (a
+    node with ``stencil_frame``: Laplacian1D, parallel.SpmdLaplacian1D),
+    plain (alpha None) or in a ScaledOperator by the number alpha, and
+    diagonals (nodes with ``row_scales``: DiagonalOperator,
+    parallel.LocalRows of one); None for any other tree."""
+    terms, todo = [], [op]
+    while todo:
+        o = todo.pop()
+        if isinstance(o, SumOperator):
+            todo += [o.right, o.left]
+        else:
+            terms.append(o)
+    stencils, diags = [], []
+    for t in terms:
+        if hasattr(t, "stencil_frame"):
+            stencils.append((t, None))
+        elif isinstance(t, ScaledOperator) and hasattr(t.op, "stencil_frame") \
+                and isinstance(t.alpha, (int, float)):
+            stencils.append((t.op, t.alpha))
+        elif getattr(t, "row_scales", lambda: None)() is not None:
+            diags.append(t.row_scales())
+        else:
+            return None
+    if len(stencils) != 1:
+        return None
+    (st, alpha), = stencils
+    return st, alpha, diags
+
+
+@dataclasses.dataclass
+class StencilDiagonal:
+    """A = post * S + diag(d), S one segmented 1-D stencil at ``scale``:
+    the BdG well operator ``Laplacian1D + DiagonalOperator`` (and its
+    sharded form), found in an operator tree by ``stencil_diagonal``.  Its
+    apply is one ``stencil_diag`` launch and each step of a Chebyshev
+    filter on it one ``cheb_step`` launch, each with the bits of the eager
+    chain it replaces (the kernels' plain versions are that chain; a CPU
+    tensor runs them).  ``post``: None, ScaledOperator's number, or a
+    Laplacian's per-problem [b] scales (the stencil then at scale 1, as
+    ``apply_scale`` runs it)."""
+
+    stencil: LinearOperator
+    scale: float
+    post: Any
+    d: torch.Tensor
+
+    def takes(self, X, *coefficients) -> bool:
+        """Whether X and the per-problem ``coefficients`` (a filter's
+        numbers or tensors) run the fused kernels: f32 or bf16 with the
+        diagonal's dtype, on its device; per-problem data (a [b, n]
+        diagonal, [b] scales or coefficients) only over a batch X
+        [b, n, k] with one value a problem (or one for all)."""
+        d = self.d
+        if X.dtype not in KERNEL_DTYPES or X.dim() not in (2, 3) or \
+                d.dtype != X.dtype or d.device != X.device or \
+                d.shape[-1] != X.shape[-2] or d.dim() not in (1, 2):
+            return False
+        b = X.shape[0] if X.dim() == 3 else None
+        if d.dim() == 2 and d.shape[0] != b:
+            return False
+        return all(b is not None and v.numel() in (1, b)
+                   for v in (self.post, *coefficients)
+                   if isinstance(v, torch.Tensor))
+
+    def matmat(self, X):
+        Xf, segments, edge, b = self.stencil.stencil_frame(X)
+        return stencil_diag(Xf, self.scale, self.d, edge,
+                            num_segments=segments, post=self.post,
+                            problems=b).view(X.shape)
+
+    def chebyshev(self, X, theta, steps):
+        """``ChebyshevFilter``'s y on X: one cheb_step launch a step
+        (c1, c2) of ``steps``, the first forming y = d = X / theta in the
+        kernel.  A sharded stencil's halos are y's; the first step's are
+        X's rows over theta, which its neighbours send."""
+        y = d = Xf = None
+        last = len(steps) - 1
+        for i, (c1, c2) in enumerate(steps):
+            if i == 0:
+                Xf, segments, edge, b = self.stencil.stencil_frame(
+                    X, lambda rows: rows / theta)
+            else:
+                y, segments, edge, b = self.stencil.stencil_frame(
+                    y.view(X.shape))
+            y, d = cheb_step(Xf, y, d, self.scale, self.d, c1, c2, edge,
+                             num_segments=segments, post=self.post,
+                             problems=b, theta=theta if i == 0 else None,
+                             last=i == last)
+        return y.view(X.shape)
+
+
+def stencil_diagonal(op):
+    """The StencilDiagonal of ``op`` when its tree is one Laplacian1D or
+    parallel.SpmdLaplacian1D (plain, or a ScaledOperator by a number) plus
+    one DiagonalOperator (or parallel.LocalRows of one); None for any
+    other tree (several diagonals, a realified diagonal, a sharded
+    stencil asked for its plain formula, a scaled per-problem scale)."""
+    found = stencil_and_diagonals(op)
+    if found is None or len(found[2]) != 1:
+        return None
+    st, alpha, (d,) = found
+    if getattr(st, "pallas", "auto") == "off":
+        return None
+    if isinstance(st.scale, torch.Tensor) and st.scale.dim() == 1:
+        if alpha is not None:
+            return None
+        return StencilDiagonal(st, 1.0, st.scale, d)
+    return StencilDiagonal(st, st.scale, alpha, d)

@@ -128,6 +128,13 @@ class LocalRows(LinearOperator):
     def matmat(self, X):
         return self.op.matmat(X)
 
+    def row_scales(self):
+        """This rank's rows of a DiagonalOperator's d (None for another
+        operator): the fused stencil route reads it
+        (``operators/linop.py: stencil_and_diagonals``)."""
+        return self.op.row_scales() if type(self.op) is DiagonalOperator \
+            else None
+
     @property
     def shape(self):
         return (self.n, self.n)

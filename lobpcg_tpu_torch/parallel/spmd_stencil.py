@@ -40,6 +40,7 @@ from lobpcg_tpu_torch.operators.linop import (
     ShiftedOperator,
     SumOperator,
     apply_scale,
+    stencil_and_diagonals,
 )
 from lobpcg_tpu_torch.operators.realify import RealEmbeddedDiagonalOperator
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
@@ -63,6 +64,47 @@ def segments_align(n: int, segments: int, nd: int) -> bool:
     return seg % local_rows == 0 or local_rows % seg == 0
 
 
+def _spmd_frame(X, mesh: RowMesh, num_segments: int, n, send_map=None):
+    """The local product's launch for this rank's rows X ([n_loc, k] or
+    [b, n_loc, k]): (X as [rows, k], its segments, the halos as edge rows
+    [2, k] or [b, 2, k], problems), after one halo exchange.  ``send_map``
+    maps the rows a rank sends (its first and last, [..., 2, k]) before
+    they leave: the neighbours then receive those rows mapped."""
+    nd = mesh.size
+    local_rows, k = X.shape[-2:]
+    n = local_rows * nd if n is None else int(n)
+    if n != local_rows * nd:
+        raise ValueError(f"n={n} does not split into {nd} shards of "
+                         f"{local_rows} rows")
+    if n % (num_segments * nd):
+        raise ValueError(
+            f"n={n} must divide into {num_segments} segments x {nd} shards")
+    seg = n // num_segments
+    # Segment boundaries must align with the shard grid: every shard
+    # holds whole segments (the kernel's own segments handle them) or
+    # every segment spans whole shards (the halo zeroing handles them).
+    if not segments_align(n, num_segments, nd):
+        raise ValueError(
+            f"segment length {seg} and shard rows {local_rows} must divide "
+            "one another (segment boundaries would fall inside a shard)")
+
+    sent = X
+    if send_map is not None and nd > 1:
+        sent = send_map(torch.cat([X[..., :1, :], X[..., -1:, :]], dim=-2))
+    halo_up, halo_dn = halo_exchange(mesh, sent, 1)
+    r = mesh.rank
+    # Whether this shard starts a segment and the next one starts one is
+    # the same for every problem of a batch.
+    if (r * local_rows) % seg == 0:
+        halo_up = torch.zeros_like(halo_up)
+    if ((r + 1) * local_rows) % seg == 0:
+        halo_dn = torch.zeros_like(halo_dn)
+    edge = torch.cat([halo_up, halo_dn], dim=-2)  # [2, k] or [b, 2, k]
+    problems = X.shape[0] if X.dim() == 3 else 1
+    segs = problems * (local_rows // min(seg, local_rows))
+    return X.reshape(problems * local_rows, k), segs, edge, problems
+
+
 def stencil_matmat_spmd(
     X: torch.Tensor,
     scale: float,
@@ -84,36 +126,7 @@ def stencil_matmat_spmd(
     """
     if pallas not in PALLAS_MODES:
         raise ValueError(f"pallas must be one of {PALLAS_MODES}, got {pallas!r}")
-    nd = mesh.size
-    local_rows, k = X.shape[-2:]
-    n = local_rows * nd if n is None else int(n)
-    if n != local_rows * nd:
-        raise ValueError(f"n={n} does not split into {nd} shards of "
-                         f"{local_rows} rows")
-    if n % (num_segments * nd):
-        raise ValueError(
-            f"n={n} must divide into {num_segments} segments x {nd} shards")
-    seg = n // num_segments
-    # Segment boundaries must align with the shard grid: every shard
-    # holds whole segments (the kernel's own segments handle them) or
-    # every segment spans whole shards (the halo zeroing handles them).
-    if not segments_align(n, num_segments, nd):
-        raise ValueError(
-            f"segment length {seg} and shard rows {local_rows} must divide "
-            "one another (segment boundaries would fall inside a shard)")
-
-    halo_up, halo_dn = halo_exchange(mesh, X, 1)
-    r = mesh.rank
-    # Whether this shard starts a segment and the next one starts one is
-    # the same for every problem of a batch.
-    if (r * local_rows) % seg == 0:
-        halo_up = torch.zeros_like(halo_up)
-    if ((r + 1) * local_rows) % seg == 0:
-        halo_dn = torch.zeros_like(halo_dn)
-    edge = torch.cat([halo_up, halo_dn], dim=-2)  # [2, k] or [b, 2, k]
-    problems = X.shape[0] if X.dim() == 3 else 1
-    segs = problems * (local_rows // min(seg, local_rows))
-    Xf = X.reshape(problems * local_rows, k)
+    Xf, segs, edge, _ = _spmd_frame(X, mesh, num_segments, n)
     if pallas != "off" and X.dtype in KERNEL_DTYPES:
         Y = stencil_matmat(Xf.contiguous(), scale, edge, num_segments=segs)
     else:
@@ -142,6 +155,15 @@ class SpmdLaplacian1D(LinearOperator):
         return apply_scale(lambda s: stencil_matmat_spmd(
             X, s, self.mesh, num_segments=self.segments, n=self.n,
             pallas=self.pallas), self.scale)
+
+    def stencil_frame(self, X, send_map=None):
+        """The local product's launch on this rank's rows X, after its
+        halo exchange (``Laplacian1D.stencil_frame``'s record, the halos
+        as edge rows); ``send_map`` maps the rows sent to the neighbours
+        (the first Chebyshev step sends X's rows over theta)."""
+        Xf, segs, edge, b = _spmd_frame(X, self.mesh, self.segments, self.n,
+                                        send_map)
+        return Xf.contiguous(), segs, edge, b
 
     @property
     def shape(self):
@@ -232,29 +254,6 @@ def unroll_block_diag(op: BlockDiagOperator) -> LinearOperator:
     return unroll(op.inner)
 
 
-def _stencil_and_diagonals(op):
-    """(scale, Laplacian1D, [diagonal d's]) of a sum of one Laplacian1D,
-    plain or scaled by a number, and DiagonalOperators; None for any
-    other tree."""
-    terms, todo = [], [op]
-    while todo:
-        o = todo.pop()
-        if isinstance(o, SumOperator):
-            todo += [o.right, o.left]
-        else:
-            terms.append(o)
-    stencils = [t for t in terms if isinstance(t, Laplacian1D) or (
-        isinstance(t, ScaledOperator) and isinstance(t.op, Laplacian1D)
-        and isinstance(t.alpha, (int, float)))]
-    diags = [t.d for t in terms if type(t) is DiagonalOperator]
-    if len(stencils) != 1 or len(stencils) + len(diags) != len(terms):
-        return None
-    (st,) = stencils
-    if isinstance(st, ScaledOperator):
-        return float(st.alpha) * st.op.scale, st.op, diags
-    return st.scale, st, diags
-
-
 def unroll_block_diag2(op: BlockDiag2Operator):
     """(flat, stencil): diag(top, bottom) as one Laplacian1D of twice the
     segments plus the diagonal [d_top; d_bottom], as
@@ -262,7 +261,15 @@ def unroll_block_diag2(op: BlockDiag2Operator):
     top and bottom are each one same-shaped Laplacian1D (scaled or not)
     plus DiagonalOperators (``physics.bdg_operators`` without
     ``dipolar``); (None, None) otherwise."""
-    top, bot = _stencil_and_diagonals(op.top), _stencil_and_diagonals(op.bottom)
+    def parts(half):
+        """(scale, Laplacian1D, [d, ...]) of one half, or None."""
+        found = stencil_and_diagonals(half)
+        if found is None or not isinstance(found[0], Laplacian1D):
+            return None
+        st, alpha, ds = found
+        return (st.scale if alpha is None else float(alpha) * st.scale), st, ds
+
+    top, bot = parts(op.top), parts(op.bottom)
     if top is None or bot is None:
         return None, None
     (s_t, l_t, d_t), (s_b, l_b, d_b) = top, bot

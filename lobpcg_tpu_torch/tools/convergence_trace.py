@@ -98,7 +98,8 @@ def main() -> None:
 CATEGORIES = (
     ("K2 stencil3d", ("stencil3d_kernel",)),
     ("K3 bsr_ell", ("bsr_ell_kernel",)),
-    ("K1 stencil1d", ("stencil1d_kernel",)),
+    # K1 and its fused forms (stencil_diag, cheb_step): one kernel template.
+    ("K1 family (stencil1d_kernel)", ("stencil1d_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "Kernel2")),
     ("eigh / QR (cuSOLVER)", ("syevj", "syevd", "sytrd", "stedc", "steqr",
                               "sterf", "ormtr", "orgtr", "geqrf", "orgqr",

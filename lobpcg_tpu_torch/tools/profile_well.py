@@ -8,8 +8,9 @@ preconditioner, the JAX script's column chunk), solves it once to warm
 up (kernel build, library handles), once untraced and once under
 torch.profiler in one process, and prints one JSON line:
 iterations and wall-clock of both solves, device seconds and launches by
-kernel category, the device busy time, the idle share against the
-untraced wall, and the kernels with the most device time.  Runs on the
+kernel category (in all and an iteration), the device busy time, the
+idle share against the untraced wall, and the kernels with the most
+device time.  Runs on the
 CUDA card.
 """
 
@@ -62,6 +63,10 @@ def main(argv=None) -> None:
         r, traced_wall = solve()
     rec["traced_iterations"] = r.iterations
     rec.update(device_breakdown(prof, wall, traced_wall))
+    rec["per_iteration"] = {
+        cat: {"device_ms": 1e3 * sec / r.iterations,
+              "launches": rec["launches_by_category"][cat] / r.iterations}
+        for cat, sec in rec["device_s_by_category"].items()}
     kernels = sorted(
         ((getattr(e, "device_time_total", None) or e.cuda_time_total, e)
          for e in prof.key_averages()

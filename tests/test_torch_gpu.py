@@ -4,10 +4,12 @@ not installed:
 
     python -m pytest tests/test_torch_gpu.py -m gpu --noconftest -q
 
-Each kernel (K1 stencil, K2 3-D stencil, K3/K4/K5/K6 block-sparse
-SpMMs, K7 streaming copy) is held against its plain PyTorch version on
-the card, and small solves must go through the kernels; the row-sharded
-layer runs at world size 1 on NCCL.
+Each kernel (K1 stencil and its fused forms stencil_diag and
+cheb_step, K2 3-D stencil, K3/K4/K5/K6 block-sparse SpMMs, K7 streaming
+copy) is held against its plain PyTorch version on the card (the fused
+forms also against the eager chain they replace, bit for bit), and
+small solves must go through the kernels; the row-sharded layer runs at
+world size 1 on NCCL.
 """
 
 import numpy as np
@@ -28,6 +30,15 @@ def cuda_device():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device: the CUDA kernels run only on the card")
     return torch.device("cuda", 0)
+
+
+def _k1_family() -> int:
+    """Launches of K1 and of the two kernels that carry its walk further
+    (the BdG operator's apply and the Chebyshev step): a solve of
+    Laplacian1D + DiagonalOperator launches one of them where K1 alone
+    was launched before."""
+    return (k1.stencil_matmat.launches + k1.stencil_diag.launches
+            + k1.cheb_step.launches)
 
 
 # K1's widths: whole 16-byte vectors or not, the sweeps' 30 and the
@@ -122,11 +133,11 @@ def test_small_bdg_solve_runs_through_the_kernel(cuda_device):
     u = np.zeros((m, ss), np.float32)
     u[lo : lo + well] = np.random.RandomState(42).uniform(-0.5, 0.5, (well, ss))
     X0 = torch.as_tensor(np.concatenate([u, u]), device=cuda_device)
-    before = k1.stencil_matmat.launches
+    before = _k1_family()
     r = tl.ilobpcg(A, X0, B, T, nev=nev, size_sub=ss, tol=1e-5, max_iter=300,
                    generator=torch.Generator(device=cuda_device).manual_seed(0))
     assert r.converged == nev
-    assert k1.stencil_matmat.launches - before >= 2 * r.iterations
+    assert _k1_family() - before >= 2 * r.iterations
     H = np.diag(2.0 + V) - np.eye(m, k=1) - np.eye(m, k=-1)
     exact = np.linalg.eigvalsh(H)[:nev]
     lam = r.eigenvalues.double().cpu().numpy()
@@ -572,13 +583,13 @@ def test_sharded_layer_at_world_size_one_on_card(cuda_device):
         u[lo : lo + well] = np.random.RandomState(42).uniform(-0.5, 0.5, (well, ss))
         X0 = torch.as_tensor(np.concatenate([u, u]), device=cuda_device)
         As, X0s, Bs, Ts = parallel.shard_problem(mesh, A, X0, B, T)
-        k1_before, ar_before = k1.stencil_matmat.launches, pmesh.all_reduce.launches
+        k1_before, ar_before = _k1_family(), pmesh.all_reduce.launches
         with mesh:
             r = tl.ilobpcg(As, X0s, Bs, Ts, nev=nev, size_sub=ss, tol=1e-5,
                            max_iter=300,
                            generator=torch.Generator(device=cuda_device).manual_seed(0))
         assert r.converged == nev
-        assert k1.stencil_matmat.launches - k1_before >= r.iterations
+        assert _k1_family() - k1_before >= r.iterations
         assert pmesh.all_reduce.launches > ar_before
         assert torch.isfinite(r.eigenvalues).all()
     finally:
@@ -862,11 +873,11 @@ def test_solve_checkpointed_on_card(cuda_device, tmp_path):
     cfg = tl.SolverConfig(nev=nev, size_sub=ss, tol=1e-5, max_iter=300)
     gen = lambda: torch.Generator(device=cuda_device).manual_seed(0)
     full = tl.lobpcg(A, X0, config=cfg, generator=gen())
-    before = k1.stencil_matmat.launches
+    before = _k1_family()
     r = tl.solve_checkpointed(tl.lobpcg, A, X0, config=cfg,
                               path=tmp_path / "ck.npz", every=7,
                               generator=gen())
-    assert k1.stencil_matmat.launches > before
+    assert _k1_family() > before
     assert r.converged == nev and r.eigenvalues.device.type == "cuda"
     ck = tl.load_checkpoint(tmp_path / "ck.npz")
     assert ck["basis"].shape == (n, ss) and ck["iterations"] == r.iterations
@@ -895,11 +906,11 @@ def test_bdg_physics_solve_runs_through_k1(cuda_device):
     omega = np.sort(np.sqrt(eps * (eps + 2 * g)))
     gen = torch.Generator(device=cuda_device).manual_seed(42)
     X0 = bdg_positive_start(gen, m, ss, torch.float32)
-    before = k1.stencil_matmat.launches
+    before = _k1_family()
     r = tl.ilobpcg(A, X0, B, nev=nev, size_sub=ss, tol=1e-5, max_iter=400,
                    generator=gen)
     assert r.converged == nev
-    assert k1.stencil_matmat.launches - before >= 2 * r.iterations
+    assert _k1_family() - before >= 2 * r.iterations
     np.testing.assert_allclose(r.eigenvalues.double().cpu().numpy(),
                                omega[:nev], rtol=1e-3)
 
@@ -1081,9 +1092,9 @@ def test_gathered_form_and_exchange_swap_at_world_size_one(cuda_device):
         A, _, _, _ = bdg.bdg_operators(tl.Laplacian1D(0.5, m), psi, 2.0, 1.0)
         flat = parallel.shard_operator(A, mesh)
         assert isinstance(flat.left, parallel.SpmdLaplacian1D)
-        k1_before = k1.stencil_matmat.launches
+        k1_before = _k1_family()
         y = flat.matmat(X)
-        assert k1.stencil_matmat.launches == k1_before + 1
+        assert _k1_family() == k1_before + 1
         torch.cuda.synchronize()
         assert float((y - A.matmat(X)).abs().max()) <= 1e-5
     finally:
@@ -1114,9 +1125,9 @@ def test_small_batched_sweep_on_card(cuda_device):
         return r.eigenvalues, r.converged, r.iterations
 
     barriers = torch.tensor([1.0, 2.0, 3.0])
-    before = k1.stencil_matmat.launches
+    before = _k1_family()
     lam, conv, it = tl.batched(solve, generators=[gen])(barriers)
-    assert k1.stencil_matmat.launches > before
+    assert _k1_family() > before
     assert lam.shape == (3, nev) and lam.device == cuda_device
     assert conv.tolist() == [nev] * 3
     for i in (0, 2):
@@ -1175,19 +1186,19 @@ def test_small_lockstep_sweep_on_card(cuda_device):
     def lone(barrier, it_cap=None):
         A = lap + tl.DiagonalOperator(diag(barrier))
         T = tl.ChebyshevFilter(op=A, lo=2.0, hi=5.1 + barrier, degree=3)
-        before = k1.stencil_matmat.launches
+        before = _k1_family()
         r = tl.ilobpcg(A, X0, B, T, config=cfg, it_cap=it_cap,
                        generator=torch.Generator(device=cuda_device).manual_seed(0))
-        return r, k1.stencil_matmat.launches - before
+        return r, _k1_family() - before
 
     A = lap + tl.DiagonalOperator(torch.stack([diag(b) for b in barriers]))
     T = tl.ChebyshevFilter(op=A, lo=2.0, hi=torch.tensor(
         [5.1 + b for b in barriers], dtype=torch.float64, device=cuda_device),
         degree=3)
-    before = k1.stencil_matmat.launches
+    before = _k1_family()
     out = tl.ilobpcg(A, X0.expand(3, *X0.shape).contiguous(), B, T, config=cfg,
                      generator=torch.Generator(device=cuda_device).manual_seed(0))
-    launches = k1.stencil_matmat.launches - before
+    launches = _k1_family() - before
     assert out.converged.tolist() == [nev] * 3
     assert out.eigenvalues.shape == (3, nev) and out.basis.shape == (3, 2 * m, ss)
     for i, b in enumerate(barriers):
@@ -1314,10 +1325,10 @@ def test_sharded_lockstep_at_world_size_one_on_card(cuda_device):
     cfg = tl.SolverConfig(nev=nev, size_sub=ss, tol=1e-5, max_iter=300)
 
     def run(A, X0, B, T):
-        before = k1.stencil_matmat.launches
+        before = _k1_family()
         r = tl.ilobpcg(A, X0, B, T, config=cfg,
                        generator=torch.Generator(device=cuda_device).manual_seed(0))
-        return r, k1.stencil_matmat.launches - before
+        return r, _k1_family() - before
 
     whole, whole_k1 = run(A, X0, B, T)
     mesh = parallel.row_mesh(1)
@@ -1343,3 +1354,282 @@ def test_sharded_lockstep_at_world_size_one_on_card(cuda_device):
             assert torch.equal(y[i], sop.matmat(X[i]))
     finally:
         dist.destroy_process_group()
+
+
+# --- K1's fused forms: the BdG operator's apply and the Chebyshev step -------
+
+# Widths 1-320: whole 16-byte vectors or not, the flagship's 64 and its
+# Chebyshev chunk 16, the sweeps' 30, the 1M x 150 solve's 164, the
+# gates' 320.
+FUSED_WIDTHS = [1, 2, 3, 6, 8, 16, 30, 33, 64, 129, 164, 320]
+
+
+class _ChainDiagonal(tl.DiagonalOperator):
+    """A DiagonalOperator that the fused route does not take (it reports
+    no row scales): trees holding it run the eager chain of operations
+    that the fused kernels replace."""
+
+    def row_scales(self):
+        return None
+
+
+def _well_diag(rng, rows, dtype, device, shape=None):
+    return torch.from_numpy(rng.uniform(1.0, 3.0, shape or rows)).to(device, dtype)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", FUSED_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sliced", [False, True])
+def test_stencil_diag_is_the_chain_on_card(cuda_device, k, dtype, sliced):
+    """Laplacian1D + DiagonalOperator: one stencil_diag launch, no K1,
+    equal (torch.equal) to the eager chain (K1, the multiply, the add) and
+    to its plain version, on an aligned X and on a row slice X[1:]."""
+    rng = np.random.default_rng(k)
+    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (513, k))).to(cuda_device, dtype)
+    X = X[1:] if sliced else X[:512]
+    d = _well_diag(rng, 512, dtype, cuda_device)
+    lap = tl.Laplacian1D(SCALE, 512, segments=2)
+    A, chain = lap + tl.DiagonalOperator(d), lap + _ChainDiagonal(d)
+    before = (k1.stencil_diag.launches, k1.stencil_matmat.launches)
+    Y = A.matmat(X)
+    assert (k1.stencil_diag.launches, k1.stencil_matmat.launches) == (
+        before[0] + 1, before[1])
+    assert torch.equal(Y, chain.matmat(X))
+    assert torch.equal(Y, k1.stencil_diag_reference(X, SCALE, d, num_segments=2))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 8, 30, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("form", ["per_problem", "shared_diag", "scaled"])
+def test_stencil_diag_batched_is_the_chain_on_card(cuda_device, k, dtype, form):
+    """A batch [3, 256, k]: per-problem scales [3] and diagonals [3, n],
+    one diagonal for all, or a ScaledOperator by a number; one launch,
+    each the chain's bits."""
+    rng = np.random.default_rng(100 + k)
+    b, n = 3, 256
+    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (b, n, k))).to(cuda_device, dtype)
+    if form == "per_problem":
+        lap = tl.Laplacian1D(torch.tensor([SCALE, 0.7, 2.1], dtype=torch.float64,
+                                          device=cuda_device), n, segments=2)
+        d = _well_diag(rng, n, dtype, cuda_device, (b, n))
+    else:
+        lap = tl.Laplacian1D(SCALE, n, segments=4)
+        if form == "scaled":
+            lap = tl.ScaledOperator(lap, 0.37)
+        d = _well_diag(rng, n, dtype, cuda_device)
+    A, chain = lap + tl.DiagonalOperator(d), lap + _ChainDiagonal(d)
+    before = k1.stencil_diag.launches
+    Y = A.matmat(X)
+    assert k1.stencil_diag.launches == before + 1
+    assert torch.equal(Y, chain.matmat(X))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 3, 8, 30, 64])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_edge_rows_on_card(cuda_device, k, dtype):
+    """Batched edge rows [3, 2, k] (a sharded lockstep batch's halos) with
+    per-problem coefficients: stencil_diag and every kind of Chebyshev
+    step (first with a number and with per-problem theta, middle, last)
+    equal to their plain versions, bit for bit; stencil_diag also to the
+    chain through K1 with the same edge rows."""
+    rng = np.random.default_rng(7 + k)
+    b, n, segs = 3, 128, 6
+    def block():
+        return torch.from_numpy(rng.uniform(-0.5, 0.5, (b * n, k))).to(
+            cuda_device, dtype)
+    X, y, dd = block(), block(), block()
+    E = torch.from_numpy(rng.uniform(-0.5, 0.5, (b, 2, k))).to(cuda_device, dtype)
+    diag = _well_diag(rng, n, dtype, cuda_device, (b, n))
+    post = torch.tensor([1.5, 0.25, 3.0], device=cuda_device).to(dtype)
+    args = dict(num_segments=segs, post=post, problems=b)
+    Y = k1.stencil_diag(X, 1.0, diag, E, **args)
+    assert torch.equal(Y, k1.stencil_diag_reference(X, 1.0, diag, E, **args))
+    chain = (k1.stencil_matmat(X, 1.0, E, num_segments=segs).view(b, n, k)
+             * post[:, None, None] + diag.unsqueeze(-1) * X.view(b, n, k))
+    assert torch.equal(Y, chain.view(b * n, k))
+    c1 = torch.tensor([0.3, 0.6, 0.9], device=cuda_device).to(dtype).view(b, 1, 1)
+    c2 = torch.tensor([0.11, 0.05, 0.2], device=cuda_device).to(dtype).view(b, 1, 1)
+    theta = torch.tensor([3.5, 4.0, 4.75], device=cuda_device).to(dtype).view(b, 1, 1)
+    cases = [dict(y=None, d=None, theta=4.05, last=False),
+             dict(y=None, d=None, theta=theta, last=True),
+             dict(y=y, d=dd, theta=None, last=False),
+             dict(y=y, d=dd, theta=None, last=True)]
+    for case in cases:
+        got = k1.cheb_step(X, case["y"], case["d"], SCALE, diag, c1, c2, E,
+                           theta=case["theta"], last=case["last"], **args)
+        want = k1.cheb_step_reference(X, case["y"], case["d"], SCALE, diag, c1,
+                                      c2, E, theta=case["theta"],
+                                      last=case["last"], **args)
+        assert torch.equal(got[0], want[0]), case
+        assert (got[1] is None) == case["last"]
+        assert case["last"] or torch.equal(got[1], want[1]), case
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", FUSED_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("degree", [2, 3, 5])
+def test_chebyshev_filter_is_the_chain_on_card(cuda_device, k, dtype, degree):
+    """ChebyshevFilter on Laplacian1D + DiagonalOperator: degree - 1
+    cheb_step launches and nothing of K1, the chain's bits, on a row
+    slice X[1:]."""
+    rng = np.random.default_rng(200 + k)
+    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (513, k))).to(cuda_device, dtype)[1:]
+    d = _well_diag(rng, 512, dtype, cuda_device)
+    lap = tl.Laplacian1D(1.0, 512, segments=2)
+    T = tl.ChebyshevFilter(lap + tl.DiagonalOperator(d), 2.0, 6.1, degree=degree)
+    chain = tl.ChebyshevFilter(lap + _ChainDiagonal(d), 2.0, 6.1, degree=degree)
+    before = (k1.cheb_step.launches, k1.stencil_matmat.launches)
+    Y = T.matmat(X)
+    assert (k1.cheb_step.launches, k1.stencil_matmat.launches) == (
+        before[0] + degree - 1, before[1])
+    assert torch.equal(Y, chain.matmat(X))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 16, 30, 33])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("chunk", [0, 8])
+def test_chebyshev_filter_batched_is_the_chain_on_card(cuda_device, k, dtype,
+                                                       chunk):
+    """A lockstep batch [3, 256, k]: per-problem diagonals and upper bounds
+    [3] (the recurrence's coefficients one a problem), whole or in column
+    chunks: the chain's bits."""
+    rng = np.random.default_rng(300 + k)
+    b, n = 3, 256
+    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (b, n, k))).to(cuda_device, dtype)
+    d = _well_diag(rng, n, dtype, cuda_device, (b, n))
+    lap = tl.Laplacian1D(1.0, n, segments=2)
+    hi = torch.tensor([6.1, 7.1, 9.1], dtype=torch.float64, device=cuda_device)
+    T = tl.ChebyshevFilter(lap + tl.DiagonalOperator(d), 2.0, hi, degree=3,
+                           chunk=chunk)
+    chain = tl.ChebyshevFilter(lap + _ChainDiagonal(d), 2.0, hi, degree=3,
+                               chunk=chunk)
+    before = k1.cheb_step.launches
+    Y = T.matmat(X)
+    pieces = k // chunk if chunk and chunk < k and k % chunk == 0 else 1
+    assert k1.cheb_step.launches == before + 2 * pieces
+    assert torch.equal(Y, chain.matmat(X))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_fused_kernels_carry_nonfinite_like_the_chain_on_card(cuda_device,
+                                                              dtype):
+    """NaN and +-Inf in X: the fused apply and filter put NaN and Inf
+    where the chain does, and equal its finite values."""
+    rng = np.random.default_rng(5)
+    n, k = 512, 30
+    X = torch.from_numpy(rng.uniform(-0.5, 0.5, (n, k))).to(cuda_device, dtype)
+    X[7, 3], X[100, 0], X[255, 29], X[256, 5] = (float("nan"), float("inf"),
+                                                 -float("inf"), float("nan"))
+    d = _well_diag(rng, n, dtype, cuda_device)
+    lap = tl.Laplacian1D(1.0, n, segments=2)
+    A, chain = lap + tl.DiagonalOperator(d), lap + _ChainDiagonal(d)
+    pairs = [(A.matmat(X), chain.matmat(X)),
+             (tl.ChebyshevFilter(A, 2.0, 6.1, degree=3).matmat(X),
+              tl.ChebyshevFilter(chain, 2.0, 6.1, degree=3).matmat(X))]
+    for got, want in pairs:
+        assert torch.equal(torch.isnan(got), torch.isnan(want))
+        assert torch.equal(torch.isinf(got), torch.isinf(want))
+        fin = torch.isfinite(want)
+        assert bool(torch.isnan(want).any())
+        assert torch.equal(got[fin], want[fin])
+
+
+@pytest.mark.gpu
+def test_fused_kernels_reject_what_they_do_not_take(cuda_device):
+    X = torch.zeros((64, 8), device=cuda_device)
+    d = torch.ones(64, device=cuda_device)
+    with pytest.raises(TypeError):
+        k1.stencil_diag(X.double(), 1.0, d.double())
+    with pytest.raises(TypeError):
+        k1.stencil_diag(X, 1.0, d.double())  # diag of another dtype
+    with pytest.raises(ValueError):
+        k1.stencil_diag(X[:, ::2], 1.0, d)  # not contiguous
+    with pytest.raises(ValueError):
+        k1.cheb_step(X, X, None, 1.0, d, 0.5, 0.5)  # y without d
+    # f64 and a realified (two-diagonal) tree keep the chain.
+    op = tl.Laplacian1D(1.0, 64) + tl.DiagonalOperator(d.double())
+    before = k1.stencil_diag.launches
+    op.matmat(X.double())
+    assert k1.stencil_diag.launches == before
+
+
+def _small_well(device, barriers):
+    """The small f32 well of test_small_bdg_solve_runs_through_the_kernel
+    over ``barriers`` (one: A, T unbatched; several: a lockstep batch)."""
+    m, well, ss, dt = 512, 64, 8, torch.float32
+    lo = (m - well) // 2
+    u = np.zeros((m, ss), np.float32)
+    u[lo : lo + well] = np.random.RandomState(42).uniform(-0.5, 0.5, (well, ss))
+    X0 = torch.as_tensor(np.concatenate([u, u]), device=device)
+    Vs = []
+    for barrier in barriers:
+        V = torch.full((m,), 1.0 + barrier, dtype=dt, device=device)
+        V[lo : lo + well] = 1.0
+        Vs.append(torch.cat([V, V]))
+    d = Vs[0] if len(barriers) == 1 else torch.stack(Vs)
+    hi = 5.1 + barriers[0] if len(barriers) == 1 else torch.tensor(
+        [5.1 + b for b in barriers], dtype=torch.float64, device=device)
+    if len(barriers) > 1:
+        X0 = X0.expand(len(barriers), *X0.shape).contiguous()
+    B = tl.BlockAntiDiagOperator(d=torch.ones(m, dtype=dt, device=device))
+    lap = tl.Laplacian1D(scale=1.0, n=2 * m, segments=2, dtype=dt)
+    return lap, d, hi, B, X0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("barriers", [(1.0,), (1.0, 2.0, 3.0)])
+def test_small_solves_through_fused_kernels_are_the_chain_on_card(
+        cuda_device, barriers):
+    """The small BdG well, alone and as a lockstep batch of 3 barriers,
+    through the fused kernels and through the eager chain: equal
+    eigenvalues (torch.equal) and iterations, and as many launches of
+    the K1 family as the chain launched K1."""
+    lap, d, hi, B, X0 = _small_well(cuda_device, barriers)
+    cfg = tl.SolverConfig(nev=4, size_sub=8, tol=1e-5, max_iter=300)
+    out = []
+    for diag in (tl.DiagonalOperator(d), _ChainDiagonal(d)):
+        A = lap + diag
+        T = tl.ChebyshevFilter(op=A, lo=2.0, hi=hi, degree=3)
+        before = (_k1_family(), k1.stencil_matmat.launches)
+        r = tl.ilobpcg(A, X0, B, T, config=cfg,
+                       generator=torch.Generator(device=cuda_device).manual_seed(0))
+        out.append((r, _k1_family() - before[0],
+                    k1.stencil_matmat.launches - before[1]))
+    (fused, fused_family, fused_k1), (chain, chain_family, chain_k1) = out
+    assert torch.equal(fused.eigenvalues, chain.eigenvalues)
+    assert torch.as_tensor(fused.iterations).tolist() == \
+        torch.as_tensor(chain.iterations).tolist()
+    assert fused_k1 == 0 and fused_family == chain_family == chain_k1 > 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_pytorch_scalar_rules_the_fused_kernels_follow_on_card(cuda_device,
+                                                                dtype):
+    """The rules by which PyTorch's CUDA ops take a Python number, which
+    the fused kernels' coefficients follow (ops/cuda/stencil.py:
+    host_scalar, host_reciprocal), over 48 values: X * c computes with
+    f32(c) in f32 and bf16 alike, and X / c multiplies by f32(1 / c), the
+    reciprocal taken in float64 (at 4.05, the flagship's theta, neither
+    the f32 reciprocal of f32(c) nor a true division gives its bits)."""
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    X = ((torch.rand(1 << 18, generator=gen, device=cuda_device) * 8 - 4)
+         .to(dtype))
+    xf = X.float()
+    values = [4.05, 0.3717, 1 / 3, 0.123456789, 3.55, 5.05, 4.75, 7.3] + list(
+        np.random.RandomState(1).uniform(0.1, 10, 40))
+    for c in map(float, values):
+        assert torch.equal(X * c, (xf * k1.host_scalar(c)).to(dtype)), c
+        assert torch.equal(c * X, (xf * k1.host_scalar(c)).to(dtype)), c
+        assert torch.equal(X / c, (xf * k1.host_reciprocal(c)).to(dtype)), c
+    if dtype == torch.float32:
+        c = 4.05
+        f32_recip = float(np.float32(1.0) / np.float32(c))
+        assert not torch.equal(X / c, xf * f32_recip)
+        assert not torch.equal(X / c, xf / float(np.float32(c)))

@@ -279,18 +279,23 @@ def test_width_sweep_points():
 
 
 def test_lockstep_solve_applies_k1_by_width(monkeypatch):
-    """What K1's launches on a lockstep sweep are made of (the sweeps of
-    chip_smoke.py, here at n 8,192 on 2 barriers): the norm estimates'
-    norm_iters applies at norm_block columns, and at the block's 30
-    columns 2 before the loop and 5 an iteration of the longest problem
-    (PERF.md counts the kernel's time on the sweeps from this)."""
+    """What the launches of K1 and its fused forms (stencil_diag for A,
+    cheb_step for each Chebyshev step: one where K1 alone was launched)
+    on a lockstep sweep are made of (the sweeps of chip_smoke.py, here at
+    n 8,192 on 2 barriers): the norm estimates' norm_iters applies at
+    norm_block columns, and at the block's 30 columns 2 before the loop
+    and 5 an iteration of the longest problem (PERF.md counts the
+    kernels' time on the sweeps from this)."""
     widths = []
 
-    def counted(X, scale, edge_rows=None, *, num_segments=1):
-        widths.append(X.shape[1])
-        return k1.stencil_matmat(X, scale, edge_rows, num_segments=num_segments)
+    def counted(fn):
+        def launch(X, *args, **kwargs):
+            widths.append(X.shape[1])
+            return fn(X, *args, **kwargs)
+        return launch
 
-    monkeypatch.setattr(linop, "stencil_matmat", counted)
+    for name in ("stencil_matmat", "stencil_diag", "cheb_step"):
+        monkeypatch.setattr(linop, name, counted(getattr(k1, name)))
     diags, his = [], []
     for barrier in (1.0, 4.0):
         A, B, T, X0, _, _ = solve_bdg.well_problem(
