@@ -7,8 +7,8 @@ non-zero; there is no CPU fallback):
 
 1. device     — requires CUDA; the card's name and power limit.
 2. build      — builds the kernels (csrc/stencil1d.cu, stencil3d.cu,
-                bsr.cu, copy.cu) with nvcc, one process per source, all at
-                once.
+                bsr.cu, copy.cu, tail.cu) with nvcc, one process per
+                source, all at once.
 3. kernel K1  — the 1-D stencil against its plain version and cuDNN's
                 depthwise conv1d (lobpcg_tpu_torch/tools/
                 stencil_widths.py) at the BdG solve's shapes, the
@@ -30,6 +30,17 @@ non-zero; there is no CPU fallback):
                 against its plain version and the eager chain it replaces
                 (K1 and PyTorch's passes) with 0 difference in f32 and
                 bf16, and in f32 timed beside both and its bound.
+   kernel tail — the solver's tall tail (csrc/tail.cu): antidiag (B X
+                of the anti-diagonal B), residual (W = AX - B X diag(lam)),
+                combine (the projection update live * (U - (t0 + t1)), and
+                b_mm's sum of three GEMM outputs) and compact (shift_cols)
+                at [4M, 64] (the flagship), [1M, 164] (the 1M x 150
+                solve), [8, 1M, 30] with per-problem d, lam, shifts and
+                counts (the lockstep sweep), [1M, 64] in f64, and [1M, 64]
+                with NaN/+-Inf/-0 in every input: each launched once and
+                equal to its plain version and to the eager chain it
+                replaces, bit for bit; on finite inputs timed beside both
+                and its bound.
 4. kernel K7  — the streaming copy against its plain version (clone) at
                 [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
                 GB/s, bound, and Tensor.copy_ as the library time.
@@ -37,14 +48,16 @@ non-zero; there is no CPU fallback):
 6. main       — ilobpcg on the BdG quantum-well pencil of
                 lobpcg_tpu_torch/benchmarks/solve_bdg.py at n 4,000,000,
                 nev 56, size_sub 64, Chebyshev degree 3, f32, against its
-                dense well oracle; A must go through stencil_diag and T
-                through cheb_step (K1's fused forms).  Run under
+                dense well oracle; A must go through stencil_diag, T
+                through cheb_step (K1's fused forms) and each tail kernel
+                must launch at least once an iteration.  Run under
                 gram_precision "highest" and "high" (both TF32-free), and
                 once more under "highest" through the eager chain (the
                 diagonal as a ChainDiagonal, which the fused route does
-                not take: K1 and PyTorch's passes): the same eigenvalues
+                not take: K1 and PyTorch's passes; the solve inside
+                tail.eager_chain(): no tail kernel): the same eigenvalues
                 (torch.equal) and iterations, as many K1 launches as the
-                K1 family made.
+                K1 family made, a peak no higher than the chain's.
 7. bench      — the SpMM headline, lobpcg_tpu_torch.bench.measure_spmm
                 ([4M, 256] f32 through K1 against K7's copy roofline);
                 must launch K1 and K7.
@@ -226,13 +239,15 @@ Every kernel wrapper counts its launches; each path runs with every
 count set to 0 just before it and read just after.  A solve of
 Laplacian1D + DiagonalOperator launches stencil_diag or cheb_step where
 it launched K1 before, so its launch checks read the K1 family's sum
-(k1_family).  The second-to-last
+(k1_family); the BdG solves launch the four tail kernels where
+PyTorch's elementwise passes ran.  The second-to-last
 lines are the kernels summary and the card's `nvidia-smi` name and
 power limit; the last line is the ok record.  Imports nothing of JAX.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import json
@@ -257,12 +272,14 @@ from lobpcg_tpu_torch.examples import (
     sharded_solve,
     sparse_3d_laplacian,
 )
-from lobpcg_tpu_torch.ops import gram
+from lobpcg_tpu_torch.ops import gram, masking
+from lobpcg_tpu_torch.ops import residual as resid
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import build as cuda_build
 from lobpcg_tpu_torch.ops.cuda import copy as k7
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
+from lobpcg_tpu_torch.ops.cuda import tail
 from lobpcg_tpu_torch.parallel import mesh as pmesh
 from lobpcg_tpu_torch.parallel.sharding import (
     BSRRowPanelOperator,
@@ -359,7 +376,18 @@ KERNELS = {
                          "lobpcg_tpu_torch/csrc/bsr.cu",
                          "lobpcg_tpu/ops/pallas/bsr.py:468"),
     "copy": (k7.stream_copy, "lobpcg_tpu_torch/csrc/copy.cu", "bench.py:65"),
+    # The solver's tall tail: what XLA fuses inside the JAX package's
+    # jitted solve (no pallas_call; "replaces" names the jnp chain).
+    "tail_antidiag": (tail.antidiag, "lobpcg_tpu_torch/csrc/tail.cu",
+                      "lobpcg_tpu/operators/linop.py:319"),
+    "tail_residual": (tail.residual, "lobpcg_tpu_torch/csrc/tail.cu",
+                      "lobpcg_tpu/ops/residual.py:39"),
+    "tail_combine": (tail.combine, "lobpcg_tpu_torch/csrc/tail.cu",
+                     "lobpcg_tpu/ops/ortho.py:231"),
+    "tail_compact": (tail.compact, "lobpcg_tpu_torch/csrc/tail.cu",
+                     "lobpcg_tpu/ops/masking.py:60"),
 }
+TAIL = ("tail_antidiag", "tail_residual", "tail_combine", "tail_compact")
 
 # The collectives of the row-sharded layer, counted as the kernels are.
 COLLECTIVES = {"all_reduce": pmesh.all_reduce,
@@ -425,7 +453,8 @@ def free() -> None:
 
 def build_phase() -> None:
     t0 = time.perf_counter()
-    recs = cuda_build.build_all(["stencil1d", "stencil3d", "bsr", "copy"])
+    recs = cuda_build.build_all(["stencil1d", "stencil3d", "bsr", "copy",
+                                 "tail"])
     for rec in recs:
         emit({"phase": "build", "kernel": rec["name"], "nvcc_ran": rec["built"],
               "nvcc_s": rec["seconds"],
@@ -592,6 +621,139 @@ def fused_phase(dev) -> list[dict]:
     return recs
 
 
+# The tail kernels' shapes: (name, problems, rows a problem, k, dtype,
+# non-finite inputs).  The flagship's [4M, 64], the 1M x 150 solve's
+# [1M, 164], the lockstep sweep's [8, 1M, 30] with per-problem data, one
+# f64 case, and NaN/+-Inf/-0 in every input at the flagship's width.
+TAIL_SHAPES = (
+    ("flagship", 1, N_MAIN, SIZE_SUB, torch.float32, False),
+    ("sub1M_150", 1, N_SUB, SS_SUB, torch.float32, False),
+    ("lockstep", len(BATCH_BARRIERS), N_BATCH, SS_BATCH, torch.float32, False),
+    ("f64", 1, N_SUB, SIZE_SUB, torch.float64, False),
+    ("nonfinite", 1, N_SUB, SIZE_SUB, torch.float32, True),
+)
+
+
+def same_bits(a, b) -> bool:
+    """Equal shape and dtype, NaN where NaN, every other bit equal (-0 is
+    not +0)."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return bool(torch.equal(a.contiguous().view(ints)[~nan],
+                            b.contiguous().view(ints)[~nan]))
+
+
+def tail_case(dev, name, b, n, k, dtype, special) -> list[dict]:
+    """The four tail kernels on b problems of [n, k] in ``dtype``: each
+    against its plain version and the eager chain it replaces (the call
+    sites inside tail.eager_chain(); for combine the chain's adds, the
+    subtraction and mask_cols), bit for bit; then, on finite inputs,
+    timed beside both and its bound (bytes: every input once, the output
+    once)."""
+    gen = torch.Generator(device=dev).manual_seed(16)
+    lead = () if b == 1 else (b,)
+    m = n // 2
+
+    def block(shape):
+        x = (torch.rand(shape, generator=gen, device=dev, dtype=dtype) - 0.5)
+        if special:
+            pick = torch.rand(shape, generator=gen, device=dev) < 0.01
+            vals = torch.tensor([float("nan"), float("inf"), -float("inf"),
+                                 -0.0], dtype=dtype, device=dev)
+            idx = torch.randint(0, 4, shape, generator=gen, device=dev)
+            x = torch.where(pick, vals[idx], x)
+        return x
+
+    X, AX, U = block(lead + (n, k)), block(lead + (n, k)), block(lead + (n, k))
+    d = block(lead + (m,)) + 1.0
+    lam = (block(lead + (k,)) * 8.0).double()
+    B = lt.BlockAntiDiagOperator(d=d)
+    terms = [block(lead + (n, k)) for _ in range(3)]
+    if b == 1:
+        nu, shift, count = k - 3, 3, k - 5
+    else:
+        nu = torch.arange(b, device=dev) % k
+        shift = torch.arange(b, device=dev) % 4
+        count = k - 1 - torch.arange(b, device=dev) % k
+
+    def eager(fn):
+        def run():
+            with tail.eager_chain():
+                return fn()
+        return run
+
+    size = X.element_size()
+    nk = b * n * k
+    # name: (kernel, plain, chain, elements moved, operations)
+    forms = {
+        "tail_antidiag": (
+            lambda: tail.antidiag(X, d), lambda: tail.antidiag_reference(X, d),
+            eager(lambda: B.matmat(X)), 2 * nk + d.numel(), nk),
+        "tail_residual": (
+            lambda: resid.get_residual(X, AX, lam, None, B),
+            lambda: tail.residual_reference(AX, X, lam, d),
+            eager(lambda: resid.get_residual(X, AX, lam, None, B)),
+            3 * nk + d.numel(), 3 * nk),
+        # The projection update over two GEMM outputs (ops/ortho.py).
+        "tail_combine": (
+            lambda: tail.combine(terms[:2], U, nu),
+            lambda: tail.combine_reference(terms[:2], U, nu),
+            eager(lambda: masking.mask_cols(U - (terms[0] + terms[1]), nu)),
+            4 * nk, 3 * nk),
+        # b_mm's sum of three GEMM outputs (the project-back of [X, P, W]).
+        "tail_combine_sum": (
+            lambda: tail.combine(terms), lambda: tail.combine_reference(terms),
+            lambda: (terms[0] + terms[1]) + terms[2], 4 * nk, 2 * nk),
+        "tail_compact": (
+            lambda: masking.shift_cols(U, shift, count),
+            lambda: tail.compact_reference(U, shift, count),
+            eager(lambda: masking.shift_cols(U, shift, count)), 2 * nk, nk),
+    }
+    recs = []
+    for form, (kernel, plain, chain, nelem, ops) in forms.items():
+        wrapper = KERNELS[form if form in KERNELS else "tail_combine"][0]
+        before = wrapper.launches
+        got = kernel()
+        launched = wrapper.launches - before
+        want, ref = plain(), chain()
+        torch.cuda.synchronize()
+        rec = {"phase": "kernel", "name": form, "case": name, "problems": b,
+               "shape": [b, n, k], "dtype": str(dtype).replace("torch.", ""),
+               "nonfinite_inputs": special, "launched": launched,
+               "equal_to_plain": same_bits(got, want),
+               "equal_to_chain": same_bits(got, ref), "tol": 0.0}
+        fin = torch.isfinite(want) & torch.isfinite(got)
+        rec["max_abs_err"] = max_abs(got[fin], want[fin]) if fin.any() else 0.0
+        del got, want, ref, fin
+        if not (launched == 1 and rec["equal_to_plain"]
+                and rec["equal_to_chain"]):
+            emit(rec)
+            raise AssertionError(f"tail kernel {form} at {name}: {rec}")
+        if not special:
+            rec.update({"ms": timed_untracked(kernel), "plain_ms": time_ms(plain),
+                        "chain_ms": time_ms(chain),
+                        **bound(nelem * size, ops), "library_ms": None})
+        emit(rec)
+        recs.append(rec)
+        free()
+    del X, AX, U, d, lam, terms
+    free()
+    return recs
+
+
+def tail_phase(dev) -> list[dict]:
+    """The tail kernels at the solves' shapes (TAIL_SHAPES): each equal to
+    its plain version and to the eager chain, bit for bit, then timed."""
+    recs = []
+    for case in TAIL_SHAPES:
+        recs += tail_case(dev, *case)
+    return recs
+
+
 def quickstart_phase(dev) -> None:
     """README quick start: the standard solver on the 1-D Laplacian."""
     n = 256
@@ -649,7 +811,10 @@ def main_phase(dev, precision: str, chain: bool = False):
     """ilobpcg on the BdG well pencil at the flagship shape; its record
     and eigenvalues.  ``chain``: A's diagonal as a ChainDiagonal, so that
     A and the filter run the eager chain of operations (K1 and PyTorch's
-    elementwise passes) instead of the fused kernels."""
+    elementwise passes) instead of the fused kernels, and the solve
+    inside tail.eager_chain(), so that the tall tail (B applies,
+    residuals, projection updates, compactions) runs its eager chains
+    instead of the tail kernels."""
     A, B, T, X0, _, _ = solve_bdg.well_problem(
         N_MAIN, NEV, SIZE_SUB, dtype=torch.float32, cheb=CHEB_DEGREE,
         precond=True, device=dev, cheb_chunk=0)
@@ -666,8 +831,9 @@ def main_phase(dev, precision: str, chain: bool = False):
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
     t0 = time.perf_counter()
-    r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen)
-    lam32 = r.eigenvalues.cpu()
+    with tail.eager_chain() if chain else contextlib.nullcontext():
+        r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen)
+        lam32 = r.eigenvalues.cpu()
     wall = time.perf_counter() - t0
     counts = read_counts()
     lam = lam32.double().numpy()
@@ -701,26 +867,37 @@ def main_phase(dev, precision: str, chain: bool = False):
             f"iterations (fused: A through stencil_diag, T through cheb_step; "
             f"chain: K1 alone)"
         )
+    tail_launches = [counts[name] for name in TAIL]
+    if (any(tail_launches) if chain else min(tail_launches) < r.iterations):
+        raise AssertionError(
+            f"the tail kernels launched {dict(zip(TAIL, tail_launches))} in "
+            f"{r.iterations} iterations (fused: each at least once an "
+            f"iteration; chain: none)")
     return rec, lam32
 
 
 def chain_check(main_rec, main_lam, chain_rec, chain_lam) -> dict:
-    """The flagship through the fused kernels against the eager chain:
-    the same eigenvalues (torch.equal) and iterations, one K1 launch in
-    the chain for each launch of the K1 family; both walls."""
+    """The flagship through the fused kernels (K1's fused forms and the
+    tail kernels) against the fully eager chain: the same eigenvalues
+    (torch.equal) and iterations, one K1 launch in the chain for each
+    launch of the K1 family, a peak no higher than the chain's; both
+    walls and the tail launches."""
+    mem = [main_rec["max_memory_allocated_gib"],
+           chain_rec["max_memory_allocated_gib"]]
     rec = {"phase": "main_vs_chain",
            "equal_eigenvalues": bool(torch.equal(main_lam, chain_lam)),
            "iterations": [main_rec["iterations"], chain_rec["iterations"]],
            "k1_family_launches": [k1_family(main_rec["launches"]),
                                   chain_rec["launches"]["stencil1d"]],
+           "tail_launches": {name: main_rec["launches"][name] for name in TAIL},
            "wall_s": [main_rec["wall_s"], chain_rec["wall_s"]],
-           "max_memory_allocated_gib": [main_rec["max_memory_allocated_gib"],
-                                        chain_rec["max_memory_allocated_gib"]]}
+           "max_memory_allocated_gib": mem}
     emit(rec)
     if not (rec["equal_eigenvalues"] and len(set(rec["iterations"])) == 1
-            and len(set(rec["k1_family_launches"])) == 1):
+            and len(set(rec["k1_family_launches"])) == 1
+            and mem[0] <= mem[1]):
         raise AssertionError(f"the fused flagship left the chain's "
-                             f"trajectory: {rec}")
+                             f"trajectory or its peak: {rec}")
     return rec
 
 
@@ -2680,6 +2857,7 @@ def main() -> None:
     build_phase()
     k1_recs = kernel_phase(dev)
     fused_recs = fused_phase(dev)
+    tail_recs = tail_phase(dev)
     k7_recs = copy_phase(dev)
     quickstart_phase(dev)
     main_rec, main_lam = main_phase(dev, "highest")
@@ -2748,6 +2926,7 @@ def main() -> None:
     emit({"phase": "done", "wall_s": time.perf_counter() - t_start})
     fused_at = {r["name"]: r for r in fused_recs
                 if r["case"] == "flagship" and r["dtype"] == "float32"}
+    tail_at = {r["name"]: r for r in tail_recs if r["case"] == "flagship"}
     kernels = {"kernels": [
         # K1 at the BdG solve's shape, [4M, 64] f32; its launches on the
         # SpMM headline's path (the BdG solve's A carries a diagonal and
@@ -2786,6 +2965,11 @@ def main() -> None:
         # K7 at the headline's shape, [4M, 256] f32.
         kernel_entry("copy", bench_rec["launches"]["copy"], k7_recs,
                      k7_recs[0]),
+        # The tail kernels at the flagship's [4M, 64] f32 (combine: the
+        # projection update), launched on the BdG solve.
+        *(kernel_entry(name, main_rec["launches"][name],
+                       [r for r in tail_recs if r["name"].startswith(name)],
+                       tail_at[name]) for name in TAIL),
     ]}
     emit(kernels)
     idle = [e["name"] for e in kernels["kernels"] if e["launches"] < 1]

@@ -264,8 +264,8 @@ def dryrun_headline_complex(
 
     Cut: ``n_complex`` defaults to 2M, half the JAX gate's 4M.  At 4M
     the realified block is [8M, 320] f32 (9.54 GiB) and the lean solve
-    holds about 11.057 blocks (``utils/plan.py``), ~105 GiB, more than
-    one 80 GB card; at 2M it holds about 53 GiB."""
+    holds about 10.06 blocks (``utils/plan.py``), ~96 GiB, more than
+    one 80 GB card; at 2M it holds about 48 GiB."""
     mesh = row_mesh(n_devices, device=device)
     dev = mesh.device
     m = n_complex // 2

@@ -24,6 +24,7 @@ from typing import Any, Callable
 
 import torch
 
+from lobpcg_tpu_torch.ops.cuda import tail
 from lobpcg_tpu_torch.ops.cuda.stencil import (
     KERNEL_DTYPES,
     cheb_step,
@@ -261,12 +262,22 @@ class BlockDiagOperator(LinearOperator):
         return self.inner.apply_width_ok(k)
 
     def matmat(self, X):
+        swap = half_swap(self, X)
+        if swap is not None:
+            return tail.antidiag(X, *swap)
         m = self.inner.shape[0]
         parts = [
             self.inner.matmat(X[..., i * m : (i + 1) * m, :])
             for i in range(self.copies)
         ]
         return torch.cat(parts, dim=-2)
+
+    def half_swap(self):
+        """(d, copies) of copies of a BlockAntiDiagOperator (the
+        split-real B), else None."""
+        if isinstance(self.inner, BlockAntiDiagOperator):
+            return self.inner.d, int(self.copies)
+        return None
 
     @property
     def shape(self):
@@ -311,11 +322,18 @@ class BlockAntiDiagOperator(LinearOperator):
     d: torch.Tensor  # [m], n = 2m; or [b, m]
 
     def matmat(self, X):
+        swap = half_swap(self, X)
+        if swap is not None:
+            return tail.antidiag(X, *swap)
         m = self.d.shape[-1]
         d = self.d.unsqueeze(-1)
         top = d * X[..., m:, :]
         bot = d * X[..., :m, :]
         return torch.cat([top, bot], dim=-2)
+
+    def half_swap(self):
+        """(d, 1): this B as one copy of the half swap."""
+        return self.d, 1
 
     @property
     def shape(self):
@@ -412,6 +430,23 @@ class ComposedOperator(LinearOperator):
         return self.outer.dtype
 
 
+# --- the anti-diagonal B as one kernel pass -------------------------------------
+
+
+def half_swap(op, X):
+    """(d, copies) with which ``tail.antidiag(X, d, copies)`` applies the
+    operator ``op`` to X: a BlockAntiDiagOperator, copies of one (the
+    split-real B) or the sharded form whose rows are a local permutation
+    (its ``half_swap`` method says); None for any other operator, inside
+    ``tail.eager_chain()`` (the eager chain: the multiplies and the
+    ``cat``), and for per-problem scales [b, .] over an unbatched X (the
+    chain's broadcast)."""
+    found = getattr(op, "half_swap", lambda: None)() if op is not None else None
+    if found is None or tail.eager() or (found[0].dim() == 2 and X.dim() != 3):
+        return None
+    return found
+
+
 # --- the BdG operator as one kernel pass ----------------------------------------
 
 
@@ -489,8 +524,9 @@ class StencilDiagonal:
     def chebyshev(self, X, theta, steps):
         """``ChebyshevFilter``'s y on X: one cheb_step launch a step
         (c1, c2) of ``steps``, the first forming y = d = X / theta in the
-        kernel.  A sharded stencil's halos are y's; the first step's are
-        X's rows over theta, which its neighbours send."""
+        kernel, each later one writing its d' (the last its y') over d.
+        A sharded stencil's halos are y's; the first step's are X's rows
+        over theta, which its neighbours send."""
         y = d = Xf = None
         last = len(steps) - 1
         for i, (c1, c2) in enumerate(steps):
@@ -503,7 +539,7 @@ class StencilDiagonal:
             y, d = cheb_step(Xf, y, d, self.scale, self.d, c1, c2, edge,
                              num_segments=segments, post=self.post,
                              problems=b, theta=theta if i == 0 else None,
-                             last=i == last)
+                             last=i == last, overwrite_d=True)
         return y.view(X.shape)
 
 

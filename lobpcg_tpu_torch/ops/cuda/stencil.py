@@ -428,14 +428,18 @@ def cheb_step_reference(X, y, d, scale, diag, c1, c2, edge_rows=None, *,
 
 
 def cheb_step(X, y, d, scale, diag, c1, c2, edge_rows=None, *,
-              num_segments=1, post=None, problems=1, theta=None, last=False):
+              num_segments=1, post=None, problems=1, theta=None, last=False,
+              overwrite_d=False):
     """One Chebyshev step in one pass, with the bits of
     ``cheb_step_reference``: reads X, y (with its rows above and below,
     ``edge_rows`` outside each problem) and d, writes y' and, unless
     ``last``, d'.  The first step (``theta`` given, y and d None) reads X
     only and forms y = d = X / theta in the kernel: for a number theta as
     the chain divides by a host number (``host_reciprocal``), for
-    per-problem ones as it divides by a tensor.
+    per-problem ones as it divides by a tensor.  ``overwrite_d``: d is
+    the caller's scratch, and the kernel writes d' (or, on the last
+    step, y') over it: each element of d is read only by the thread that
+    writes that element, so a filter holds one block fewer.
 
     CUDA tensor: launches ``csrc/stencil1d.cu``'s cheb_step on the
     current stream and counts it in ``cheb_step.launches``; anything the
@@ -466,8 +470,9 @@ def cheb_step(X, y, d, scale, diag, c1, c2, edge_rows=None, *,
     elif theta is not None:
         first_f = host_reciprocal(theta)
     n, k = X.shape
-    y_out = torch.empty_like(X)
-    d_out = None if last else torch.empty_like(X)
+    reuse = overwrite_d and d is not None
+    y_out = d if reuse and last else torch.empty_like(X)
+    d_out = None if last else d if reuse else torch.empty_like(X)
     ptrs = [B.data_ptr() for B in (X, y, d, y_out, d_out, edge_rows)
             if B is not None]
     lib = _lib()

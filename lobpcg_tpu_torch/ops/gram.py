@@ -25,6 +25,7 @@ import torch
 
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops import masking
+from lobpcg_tpu_torch.ops.cuda import tail
 from lobpcg_tpu_torch.ops.rows import row_sum
 
 # The active Gram precision name ("highest" or "high"), set by
@@ -289,15 +290,56 @@ def bh_dot(blocks, Y: torch.Tensor, out_dtype=None) -> torch.Tensor:
 
 
 def b_mm(blocks, C: torch.Tensor) -> torch.Tensor:
-    """Sum_i blocks_i @ C[rows_i] — project-back without materializing S."""
-    out = None
-    j = 0
-    for b in blocks:
+    """Sum_i blocks_i @ C[rows_i] — project-back without materializing S.
+    The GEMMs are torch.matmul; their outputs are summed left to right
+    in ``tail.combine`` passes (the eager adds inside
+    ``tail.eager_chain()``)."""
+    if tail.eager():
+        out = None
+        j = 0
+        for b in blocks:
+            w = b.shape[-1]
+            t = mm(b, C[..., j : j + w, :])
+            out = t if out is None else out + t
+            j += w
+        return out
+    return _projected(blocks, C)
+
+
+def b_mm_update(U: torch.Tensor, blocks, C: torch.Tensor, live) -> torch.Tensor:
+    """mask_cols(U - b_mm(blocks, C), live), the projection update of
+    ``ops/ortho.py``: the GEMMs, then one ``tail.combine`` pass for the
+    sum, the subtraction and the mask (the eager chain inside
+    ``tail.eager_chain()``)."""
+    if tail.eager():
+        return masking.mask_cols(U - b_mm(blocks, C), live)
+    return _projected(blocks, C, U, live)
+
+
+# Terms a combine pass sums before the next GEMM: as many tall blocks as
+# the eager chain held at once (the running sum, a term and their sum).
+_COMBINE_GROUP = 3
+
+
+def _projected(blocks, C, U=None, live=None):
+    """The GEMM outputs blocks_i @ C[rows_i] summed left to right in
+    ``tail.combine`` passes of up to _COMBINE_GROUP terms (each written
+    over its first term), the last one also forming live * (U - sum)."""
+    acc, j = [], 0
+    for i, b in enumerate(blocks):
         w = b.shape[-1]
-        t = mm(b, C[..., j : j + w, :])
-        out = t if out is None else out + t
+        acc.append(mm(b, C[..., j : j + w, :]))
         j += w
-    return out
+        if len(acc) == _COMBINE_GROUP and i < len(blocks) - 1:
+            acc = [_combine(acc)]
+    return _combine(acc, U, live)
+
+
+def _combine(terms, U=None, live=None):
+    if len(terms) == 1 and U is None and live is None:
+        return terms[0]
+    t0 = terms[0]
+    return tail.combine(terms, U, live, out=t0 if t0.is_contiguous() else None)
 
 
 def herm_tile_gram(blocks, applied, out_dtype=None) -> torch.Tensor:
@@ -350,10 +392,17 @@ def frob_norm(X: torch.Tensor) -> torch.Tensor:
     return torch.sqrt(torch.sum(torch.abs(X) ** 2, dim=(-2, -1)))
 
 
+def abs2(X: torch.Tensor) -> torch.Tensor:
+    """|X|^2 elementwise: X ** 2 for a real block (the same bits as
+    abs(X) ** 2, one pass fewer), abs(X) ** 2 for a complex one, as the
+    JAX package's ``jnp.abs(x) ** 2``."""
+    return torch.abs(X) ** 2 if X.is_complex() else X ** 2
+
+
 def tall_frob_norm(X: torch.Tensor) -> torch.Tensor:
     """Frobenius norm of a tall [n, k] block, summed over the row group
     of a sharded solve (one per problem of a batch)."""
-    return torch.sqrt(row_sum(torch.sum(torch.abs(X) ** 2, dim=(-2, -1))))
+    return torch.sqrt(row_sum(torch.sum(abs2(X), dim=(-2, -1))))
 
 
 def ortho_err(G: torch.Tensor, count=None) -> torch.Tensor:

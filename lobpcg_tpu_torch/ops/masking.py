@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import torch
 
+from lobpcg_tpu_torch.ops.cuda import tail
+
 
 def as_mask(width: int, live, device=None) -> torch.Tensor:
     """Normalize `live` to a boolean [width] mask ([b, width] for lanes).
@@ -38,8 +40,12 @@ def blocks_mask(widths: tuple[int, ...], counts, device=None) -> torch.Tensor:
     return torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], dim=-1)
 
 
-def mask_cols(U: torch.Tensor, live) -> torch.Tensor:
-    """Zero the dead columns of U."""
+def mask_cols(U: torch.Tensor, live, out=None) -> torch.Tensor:
+    """Zero the dead columns of U (one ``tail.compact`` pass; the eager
+    multiply inside ``tail.eager_chain()``).  ``out``: where the kernel
+    may write the result, U itself when U is the caller's scratch."""
+    if not tail.eager():
+        return tail.compact(U, 0, live, out)
     m = as_mask(U.shape[-1], live, U.device)
     return U * m[..., None, :].to(U.dtype)
 
@@ -47,7 +53,10 @@ def mask_cols(U: torch.Tensor, live) -> torch.Tensor:
 def shift_cols(U: torch.Tensor, shift, new_count) -> torch.Tensor:
     """Drop the first `shift` columns and compact the rest to the front:
     output column j = U[..., j+shift] for j < new_count, zero otherwise
-    (per problem for [b] shifts: a gather)."""
+    (per problem for [b] shifts).  One ``tail.compact`` pass; inside
+    ``tail.eager_chain()`` the eager gather, then ``mask_cols``."""
+    if not tail.eager():
+        return tail.compact(U, shift, new_count)
     w = U.shape[-1]
     ar = torch.arange(w, device=U.device)
     if isinstance(shift, torch.Tensor) and shift.dim() >= 1:

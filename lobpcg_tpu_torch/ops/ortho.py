@@ -19,9 +19,10 @@ import torch
 from lobpcg_tpu_torch.ops import lanes, masking
 from lobpcg_tpu_torch.ops.gram import (
     _hdot,
+    abs2,
     apply_block_op,
     as_blocks,
-    b_mm,
+    b_mm_update,
     bh_dot,
     frob_norm,
     gram_blocks,
@@ -49,15 +50,14 @@ def _bnorm(B, vb):
     total = None
     for b in vb:
         Bb = apply_block_op(B, b)
-        t = torch.sum(torch.abs(Bb) ** 2, dim=(-2, -1))
+        t = torch.sum(abs2(Bb), dim=(-2, -1))
         total = t if total is None else total + t
     return torch.sqrt(row_sum(total))
 
 
 def _bv_norm(Bvb, eps_ortho):
     """||B V||_F from the pre-applied blocks (B@X, B@P)."""
-    bv2 = row_sum(sum(torch.sum(torch.abs(Bb) ** 2, dim=(-2, -1))
-                      for Bb in Bvb))
+    bv2 = row_sum(sum(torch.sum(abs2(Bb), dim=(-2, -1)) for Bb in Bvb))
     return _guard(torch.sqrt(bv2), eps_ortho)
 
 
@@ -95,7 +95,11 @@ def _svqb_inner_loop(
         # Lanes that are done keep their state (only a batch holds it).
         kept = (U, BU, G, nu) if lanes.is_lanes(done) else None
         T, nu = _svqb_transform(G, nu, eps_drop, True, U.dtype)
-        U = masking.mask_cols(mm(U, T), nu)
+        UT = mm(U, T)
+        # UT is this pass's scratch: the mask is written over it, so a
+        # second pass holds one tall block fewer.
+        U = masking.mask_cols(UT, nu, out=UT)
+        del UT
         BU = apply_block_op(B, U)
         G = _hdot(U, BU, rr_dtype)
         if kept is not None:
@@ -159,7 +163,7 @@ def _outer_loop(U, nu, vb, B, Bvb, BV_norm, sig, eps_ortho, eps_drop,
         )
         if indefinite:
             coef = mm(sig, coef)
-        U = masking.mask_cols(U - b_mm(vb, coef), nu)
+        U = b_mm_update(U, vb, coef, nu)
         BU = apply_block_op(B, U)
         G0 = _hdot(U, BU, rr_dtype)
         U, BU, nu = _svqb_inner_loop(

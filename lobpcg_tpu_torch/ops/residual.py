@@ -7,16 +7,16 @@ from typing import Optional
 
 import torch
 
-from lobpcg_tpu_torch.ops.gram import apply_block_op
+from lobpcg_tpu_torch.ops.cuda import tail
+from lobpcg_tpu_torch.ops.gram import abs2, apply_block_op
 from lobpcg_tpu_torch.ops.rows import row_sum
-from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.operators.linop import LinearOperator, half_swap
 
 
 def col_norms(W: torch.Tensor, keepdim: bool = False) -> torch.Tensor:
     """Column 2-norms of a tall block, summed over the row group of a
     sharded solve."""
-    return torch.sqrt(row_sum(torch.sum(torch.abs(W) ** 2, dim=-2,
-                                        keepdim=keepdim)))
+    return torch.sqrt(row_sum(torch.sum(abs2(W), dim=-2, keepdim=keepdim)))
 
 
 def get_residual(
@@ -28,11 +28,20 @@ def get_residual(
     BX: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """W = A X - B X diag(lam).  AX may be a cached A@X; BX likewise a
-    pre-applied B@X."""
+    pre-applied B@X.  One ``tail.residual`` pass: an anti-diagonal B
+    (``linop.half_swap``) is read as X's partner rows, any other B is
+    applied first; inside ``tail.eager_chain()`` the eager chain (B X,
+    the multiply, the subtraction)."""
     W = A.matmat(X) if AX is None else AX
-    if BX is None:
-        BX = apply_block_op(B, X)
-    return W - BX * lam[..., None, :].to(BX.dtype)
+    if tail.eager():
+        if BX is None:
+            BX = apply_block_op(B, X)
+        return W - BX * lam[..., None, :].to(BX.dtype)
+    swap = half_swap(B, X) if BX is None else None
+    if BX is None and swap is None and B is not None:
+        BX = B.matmat(X)
+    d, copies = swap if swap is not None else (None, 1)
+    return tail.residual(W, X, lam, d, BX, copies)
 
 
 def get_residual_norm(

@@ -15,7 +15,7 @@ rank's rows and keeps the global ``shape``:
 | LaplacianND | ``SpmdLaplacianND`` (plane exchange + the unsharded operator) when nx divides over the ranks, else ``GatheredOperator`` |
 | Sum/Scaled/Shifted/Composed, ChebyshevFilter | the same node over sharded children |
 | DenseOperator | ``RowPanelOperator``: row panel times all-gathered X |
-| BlockAntiDiagOperator | ``ShardedBlockAntiDiagOperator``: the half swap as the row exchange of ``mesh.row_plan`` (one partner at an even rank count, none at one rank) |
+| BlockAntiDiagOperator | ``ShardedBlockAntiDiagOperator``: the half swap as the row exchange of ``mesh.row_plan`` (one partner at an even rank count, none at one rank), then the scale; where the plan is local (no peer), the swap and the scale as one ``tail.antidiag`` pass |
 | BlockDiagOperator of BlockAntiDiagOperator (realified B) | ``ShardedBlockAntiDiagOperator`` with ``copies``: one half swap inside each copy |
 | RealEmbeddedDiagonalOperator | ``LocalRows`` of [dr; dr] plus ``ShardedBlockAntiDiagOperator`` of [-di; di] |
 | RealEmbeddedDenseOperator | ``RowPanelOperator``: this rank's rows of [[Ar, -Ai], [Ai, Ar]] |
@@ -60,6 +60,7 @@ from lobpcg_tpu_torch.operators.linop import (
     ScaledOperator,
     ShiftedOperator,
     SumOperator,
+    half_swap,
 )
 from lobpcg_tpu_torch.operators.realify import (
     RealEmbeddedDenseOperator,
@@ -67,6 +68,7 @@ from lobpcg_tpu_torch.operators.realify import (
 )
 from lobpcg_tpu_torch.operators.sparse import BSROperator
 from lobpcg_tpu_torch.operators.stencil_nd import LaplacianND
+from lobpcg_tpu_torch.ops.cuda import tail
 from lobpcg_tpu_torch.ops.cuda.bsr import bsr_matmat, bsr_matmat_reference
 from lobpcg_tpu_torch.parallel.mesh import (
     RowMesh,
@@ -243,7 +245,21 @@ class ShardedBlockAntiDiagOperator(LinearOperator):
                    n=n, mesh=mesh, copies=c)
 
     def matmat(self, X):
+        swap = half_swap(self, X)
+        if swap is not None:
+            return tail.antidiag(X, *swap)
         return self.d[..., None] * permute_rows(self.mesh, X, self.plan)
+
+    def half_swap(self):
+        """(this rank's row scales, the copies it holds) when the plan is
+        a local permutation (no peer: this rank holds whole copies), so
+        that the swap and the scale run as one ``tail.antidiag`` pass;
+        None when rows cross ranks, which keeps the chain: the exchange
+        (``permute_rows``), then the scale as its own PyTorch pass."""
+        if self.plan.sends or self.plan.recvs:
+            return None
+        rows = 2 * (self.n // (2 * self.copies))  # a copy's
+        return self.d, self.d.shape[-1] // rows
 
     @property
     def shape(self):

@@ -100,6 +100,10 @@ CATEGORIES = (
     ("K3 bsr_ell", ("bsr_ell_kernel",)),
     # K1 and its fused forms (stencil_diag, cheb_step): one kernel template.
     ("K1 family (stencil1d_kernel)", ("stencil1d_kernel",)),
+    # The solver's tall tail (csrc/tail.cu).
+    ("tail (antidiag, residual, combine, compact)",
+     ("tail_antidiag_kernel", "tail_residual_kernel", "tail_combine_kernel",
+      "tail_compact_kernel")),
     ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "Kernel2")),
     ("eigh / QR (cuSOLVER)", ("syevj", "syevd", "sytrd", "stedc", "steqr",
                               "sterf", "ormtr", "orgtr", "geqrf", "orgqr",
@@ -108,19 +112,30 @@ CATEGORIES = (
 )
 
 
+ELEMENTWISE = "elementwise / reductions / other"
+
+
+def category(kernel_name: str) -> str:
+    """The category of CATEGORIES a kernel name falls in (ELEMENTWISE:
+    PyTorch's own elementwise, reduction, cat, index and copy kernels)."""
+    return next((c for c, keys in CATEGORIES
+                 if any(k in kernel_name for k in keys)), ELEMENTWISE)
+
+
 def device_breakdown(prof, wall: float, traced_wall: float) -> dict:
     """Device seconds by category (CUDA events of the trace), device busy
     seconds, and the idle share of the untraced and the traced wall."""
     sums, counts = {}, {}
     for evt in prof.key_averages():
-        if evt.device_type != torch.autograd.DeviceType.CUDA:
+        # record_function ranges (profile_well.annotate_package) also
+        # appear on the device timeline, spanning the kernels they hold.
+        if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(
+                evt, "is_user_annotation", False) or "): " in evt.key:
             continue
         us = getattr(evt, "device_time_total", None)
         if us is None:
             us = evt.cuda_time_total
-        cat = next((c for c, keys in CATEGORIES
-                    if any(k in evt.key for k in keys)),
-                   "elementwise / reductions / other")
+        cat = category(evt.key)
         sums[cat] = sums.get(cat, 0.0) + us / 1e6
         counts[cat] = counts.get(cat, 0) + evt.count
     busy = sum(sums.values())

@@ -3,13 +3,14 @@ combination: the anchors of ``utils/plan.py``'s ``PEAK_BLOCKS_H100``,
 and with ``--fixed`` its ``FIXED_GB_H100``.
 
     python -m lobpcg_tpu_torch.tools.plan_anchors [--n 4000000] \
-        [--size-sub 64] [--iters 5]
+        [--size-sub 64] [--iters 5] [--precond cheb|none]
     python -m lobpcg_tpu_torch.tools.plan_anchors --fixed
 
 For each (dual_basis, use_b_cache, use_ax_cache) it builds the BdG well
 pencil of ``benchmarks/solve_bdg.py`` (nev 56, f32, Chebyshev degree 3
-with the JAX script's column chunk), resets the card's peak statistics,
-runs ``ilobpcg`` for ``--iters`` iterations and reads
+with the JAX script's column chunk; ``--precond none``: no
+preconditioner, the headline gates' form), resets the card's peak
+statistics, runs ``ilobpcg`` for ``--iters`` iterations and reads
 ``torch.cuda.max_memory_allocated``: the peak of everything live during
 the solve, the problem's own tensors included.  ``pack_applies`` is not
 varied: the port never packs two applies into one (every operator takes
@@ -109,6 +110,7 @@ def main(argv=None) -> None:
     ap.add_argument("--n", type=int, default=4_000_000)
     ap.add_argument("--size-sub", type=int, default=64)
     ap.add_argument("--iters", type=int, default=5)
+    ap.add_argument("--precond", choices=("cheb", "none"), default="cheb")
     ap.add_argument("--fixed", action="store_true",
                     help="itemise the fixed term on a toy solve instead")
     a = ap.parse_args(argv)
@@ -122,10 +124,12 @@ def main(argv=None) -> None:
     runs = [(dual, b_cache, ax_cache, forced)
             for dual, b_cache, ax_cache in itertools.product((True, False), repeat=3)
             for forced in ((False, True) if dual else (False,))]
+    cheb = a.precond == "cheb"
     for dual, b_cache, ax_cache, forced in runs:
         A, B, T, X0, _, _ = well_problem(a.n, NEV, a.size_sub,
-                                         dtype=torch.float32, cheb=CHEB,
-                                         precond=True, device=dev)
+                                         dtype=torch.float32,
+                                         cheb=CHEB if cheb else 0,
+                                         precond=cheb, device=dev)
         cfg = SolverConfig(nev=NEV, size_sub=a.size_sub, tol=1e-5,
                            max_iter=a.iters, dual_basis=dual,
                            use_b_cache=b_cache, use_ax_cache=ax_cache)
@@ -139,6 +143,7 @@ def main(argv=None) -> None:
         print(json.dumps({
             "dual_basis": dual, "use_b_cache": b_cache,
             "use_ax_cache": ax_cache, "forced_quality5": forced,
+            "precond": a.precond,
             "n": a.n, "size_sub": a.size_sub, "iterations": r.iterations,
             "quality5_iterations": r.quality5_count, "peak_gib": peak,
             "peak_blocks": (peak - FIXED_GB_H100) / block_gib,

@@ -8,9 +8,10 @@ lockstep sweep (X0 [8, 1M, 30], per-problem diagonals and bounds).
 
 Each solve runs once to warm up (kernel build, library handles) and once
 timed, host clock around a synchronised solve; its record holds the
-wall, iterations, the launches of K1 and its fused forms, the peak
-device memory and the eigenvalues (f32 values as floats, so that two
-trees' runs can be compared bit for bit).  ``--ab DIR`` runs the solves
+wall, iterations, the launches of K1 and its fused forms and of the
+tail kernels (``csrc/tail.cu``), the peak device memory and the
+eigenvalues (f32 values as floats, so that two trees' runs can be
+compared bit for bit).  ``--ab DIR`` runs the solves
 in four processes, each importing ``lobpcg_tpu_torch`` from its tree
 (DIR, a checkout of another commit, e.g. from ``git archive``; this
 tree; this tree; DIR), and prints one line a solve with the four runs.
@@ -35,6 +36,11 @@ from lobpcg_tpu_torch.config import SolverConfig
 from lobpcg_tpu_torch.operators.linop import DiagonalOperator
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.solvers.ilobpcg import ilobpcg
+
+try:
+    from lobpcg_tpu_torch.ops.cuda import tail
+except ImportError:  # a tree before the tail kernels
+    tail = None
 
 BARRIERS = (1.0, 1.25, 1.5, 1.75, 2.0, 2.5, 3.0, 4.0)  # chip_smoke's sweep
 # K1 and its fused forms (a tree before the fused forms has K1 alone).
@@ -72,8 +78,16 @@ def _problem(name: str, dev):
                                      max_iter=300)
 
 
+# The tail kernels (csrc/tail.cu; none in a tree before them).
+TAIL = ("antidiag", "residual", "combine", "compact")
+
+
 def _launches() -> dict:
     return {w: getattr(k1, w).launches for w in WRAPPERS if hasattr(k1, w)}
+
+
+def _tail_launches() -> dict:
+    return {} if tail is None else {w: getattr(tail, w).launches for w in TAIL}
 
 
 def run(name: str, dev) -> dict:
@@ -89,13 +103,15 @@ def run(name: str, dev) -> dict:
 
     solve()
     torch.cuda.reset_peak_memory_stats()
-    before = _launches()
+    before, tail_before = _launches(), _tail_launches()
     r, lam, wall = solve()
-    after = _launches()
+    after, tail_after = _launches(), _tail_launches()
     return {"solve": name, "wall_s": wall,
             "iterations": torch.as_tensor(r.iterations).tolist(),
             "launches": {w: after[w] - before[w] for w in after},
             "k1_family": sum(after[w] - before[w] for w in after),
+            "tail_launches": {w: tail_after[w] - tail_before[w]
+                              for w in tail_after},
             "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
             "eigenvalues": lam.double().tolist()}
 
@@ -126,6 +142,7 @@ def _ab(other: str) -> None:
             "iterations": [[label, r["iterations"]] for label, r in recs],
             "k1_family": [[label, r["k1_family"]] for label, r in recs],
             "launches": [[label, r["launches"]] for label, r in recs],
+            "tail_launches": [[label, r["tail_launches"]] for label, r in recs],
             "max_memory_allocated_gib": [[label, r["max_memory_allocated_gib"]]
                                          for label, r in recs],
             "equal_eigenvalues": all(r["eigenvalues"] == first

@@ -29,22 +29,26 @@ FIXED_GB_H100 = 32 / 1024
 # Peak less FIXED_GB_H100 in units of one [n, size_sub] operator-dtype
 # block, keyed by (dual_basis, use_b_cache, use_ax_cache):
 # tools/plan_anchors.py at n 4M, size_sub 64, f32, 5 iterations (NVIDIA
-# H100 80GB HBM3, 700.00 W).  The dual-basis branch (quality 5 forced)
-# holds the accurate basis, the stable one and the residual's A X at
-# once: one block above the peak with the b-cache off and the ax-cache on
-# (13.023 against 12.024); in the other three combinations the peak lies
-# elsewhere and does not move.  pack_applies does not enter: the port
-# never packs two applies into one (ops/gram.py), so it cannot change the
-# allocations.
+# H100 80GB HBM3, 700.00 W), the same with the Chebyshev preconditioner
+# (chunk 16) and without one.  Since the tail kernels (ops/cuda/tail.py)
+# hold no transients, each anchor is one block below the eager chain's,
+# and the dual-basis branch (quality 5 forced), which held one block more
+# with the b-cache off and the ax-cache on, holds none.  Whole solves
+# peak at the anchors too (chip_smoke.py: the flagship 12.452 GiB in 31
+# iterations, 1M x 150 13.02 blocks): a filter applied whole (chunk 0)
+# writes each step over its scratch (StencilDiagonal.chebyshev), and a
+# second SVQB pass its mask over its GEMM output (ops/ortho.py).
+# pack_applies does not enter: the port never packs two applies into one
+# (ops/gram.py), so it cannot change the allocations.
 PEAK_BLOCKS_H100 = {
-    (True, True, True): 14.024,
-    (True, True, False): 13.024,
-    (True, False, True): 13.023,
-    (True, False, False): 11.024,
-    (False, True, True): 14.024,
-    (False, True, False): 13.024,
-    (False, False, True): 12.024,
-    (False, False, False): 11.024,
+    (True, True, True): 13.025,
+    (True, True, False): 12.024,
+    (True, False, True): 11.024,
+    (True, False, False): 10.024,
+    (False, True, True): 13.024,
+    (False, True, False): 12.024,
+    (False, False, True): 11.024,
+    (False, False, False): 10.024,
 }
 
 # The blocks a lockstep batch (b > 1) holds beyond its problems' lone
@@ -54,21 +58,21 @@ PEAK_BLOCKS_H100 = {
 # pencil (ilobpcg with B and a degree-3 Chebyshev T, default knobs,
 # size_sub 30, f32), chip_smoke.py's lockstep_sharded phases on an
 # NVIDIA H100 80GB HBM3, 700.00 W: 19.046 blocks at 8 x 1M x 30 and
-# 19.051 at 4 x 4M x 30, against the 14.024 of the anchor.
+# 19.052 at 4 x 4M x 30 (the same peaks before and after the tail
+# kernels), against the 13.025 of the anchor.
 # chip_smoke.py prints it beside peaks outside the fit: lockstep_small
 # (that pencil at 32 x 65,536 x 30), lockstep_nd and lockstep_bsr
 # (lobpcg without B or T on the 160^3 grid, where it over-estimates).
-LOCKSTEP_BLOCKS_H100 = 5.03
+LOCKSTEP_BLOCKS_H100 = 6.03
 
 # Knob combinations from the fastest to the leanest, the JAX package's
-# order without its packing rungs (they save no memory here) and without
-# its dual-off-only rung (dual off alone saves nothing at the full
-# configuration here); each entry overrides SolverConfig fields.
+# order without its packing rungs and its dual-basis rungs: neither
+# packing nor turning the dual basis off saves memory here (the anchors
+# above); each entry overrides SolverConfig fields.
 _LADDER = (
     {},
     {"use_b_cache": False},
-    {"use_b_cache": False, "dual_basis": False},
-    {"use_b_cache": False, "dual_basis": False, "use_ax_cache": False},
+    {"use_b_cache": False, "use_ax_cache": False},
 )
 
 
@@ -119,9 +123,9 @@ def plan_config(
     margin: float = 0.95,
 ):
     """The first variant of ``config`` along the ladder (full -> b-cache
-    off -> b-cache and dual basis off -> all three off) whose estimated
-    peak fits ``margin * hbm_gb``; ``hbm_gb`` None means the card's free
-    memory now (``probe_hbm_gb``).
+    off -> b-cache and ax-cache off) whose estimated peak fits ``margin *
+    hbm_gb``; ``hbm_gb`` None means the card's free memory now
+    (``probe_hbm_gb``).
 
     Knobs the caller already disabled stay disabled.  Raises
     ``ValueError`` if even the leanest configuration does not fit.

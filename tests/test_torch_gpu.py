@@ -1633,3 +1633,303 @@ def test_pytorch_scalar_rules_the_fused_kernels_follow_on_card(cuda_device,
         f32_recip = float(np.float32(1.0) / np.float32(c))
         assert not torch.equal(X / c, xf * f32_recip)
         assert not torch.equal(X / c, xf / float(np.float32(c)))
+
+
+# --- the solver's tall tail (csrc/tail.cu) -------------------------------------
+
+from lobpcg_tpu_torch.ops import gram as _gram  # noqa: E402
+from lobpcg_tpu_torch.ops import masking as _masking  # noqa: E402
+from lobpcg_tpu_torch.ops import residual as _residual  # noqa: E402
+from lobpcg_tpu_torch.ops.cuda import tail  # noqa: E402
+
+# Widths of the tail's blocks: whole 16-byte vectors or not, the lockstep
+# 30, the flagship 64, the 1M x 150 solve's 164, the complex gate's 320.
+TAIL_WIDTHS = [1, 2, 3, 7, 16, 30, 33, 64, 164, 320]
+
+
+def _same_bits(a, b) -> bool:
+    """Equal shape and dtype, NaN where NaN, every other bit equal."""
+    if a.shape != b.shape or a.dtype != b.dtype:
+        return False
+    nan = torch.isnan(a)
+    if not torch.equal(nan, torch.isnan(b)):
+        return False
+    ints = {torch.float32: torch.int32, torch.float64: torch.int64}[a.dtype]
+    return torch.equal(a.contiguous().view(ints)[~nan],
+                       b.contiguous().view(ints)[~nan])
+
+
+def _tail_block(device, shape, dtype, seed=0, special=False):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    X = (torch.rand(shape, generator=gen, device=device, dtype=torch.float64)
+         * 2 - 1).to(dtype)
+    if special:
+        pick = torch.rand(shape, generator=gen, device=device) < 0.1
+        vals = torch.tensor([float("nan"), float("inf"), -float("inf"), -0.0,
+                             0.0], dtype=dtype, device=device)
+        idx = torch.randint(0, 5, shape, generator=gen, device=device)
+        X = torch.where(pick, vals[idx], X)
+    return X
+
+
+def _launched(fn, wrapper):
+    before = wrapper.launches
+    out = fn()
+    torch.cuda.synchronize()
+    assert wrapper.launches == before + 1
+    return out
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", TAIL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("form", ["plain", "copies2", "batched", "per_row",
+                                  "col_slice", "row_slice"])
+def test_tail_antidiag_on_card(cuda_device, k, dtype, form):
+    """antidiag launched once, bit for bit its plain version and the
+    operators' eager chain: one and two copies, a batch with per-problem
+    d, the sharded form's per-row scales, a column slice of a wider
+    block, a row slice X[1:]; NaN, +-Inf and -0 among the inputs."""
+    m = 1000
+    b = 3 if form == "batched" else None
+    lead = () if b is None else (b,)
+    copies = 2 if form == "copies2" else 1
+    n = 2 * copies * m
+    X = _tail_block(cuda_device, lead + (n + (form == "row_slice"),
+                                         k + 5 if form == "col_slice" else k),
+                    dtype, 1, special=True)
+    if form == "col_slice":
+        X = X[..., 2:2 + k]
+    if form == "row_slice":
+        X = X[1:]
+    if form == "per_row":
+        d = _tail_block(cuda_device, (n,), dtype, 2, special=True)
+        chain = d[..., None] * torch.cat([X[m:], X[:m]])
+    else:
+        d = _tail_block(cuda_device, lead + (m,), dtype, 2, special=True)
+        B = tl.BlockAntiDiagOperator(d=d)
+        if copies == 2:
+            B = tl.BlockDiagOperator(B, 2)
+        with tail.eager_chain():
+            chain = B.matmat(X)
+    got = _launched(lambda: tail.antidiag(X, d, copies), tail.antidiag)
+    assert _same_bits(got, tail.antidiag_reference(X, d, copies))
+    assert _same_bits(got, chain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", TAIL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("b_kind", ["antidiag", "copies2", "none", "bx",
+                                    "batched", "col_slice", "row_slice"])
+def test_tail_residual_on_card(cuda_device, k, dtype, b_kind):
+    """residual launched once, bit for bit its plain version and
+    get_residual's eager chain: B anti-diagonal (one and two copies,
+    per-problem d and lam), B None, a given BX, column slices of wider
+    blocks (W[..., :nev]), row slices; lam in f64, cast as the chain
+    casts it; NaN, +-Inf and -0 among the inputs."""
+    m = 1000
+    b = 3 if b_kind == "batched" else None
+    lead = () if b is None else (b,)
+    copies = 2 if b_kind == "copies2" else 1
+    n = 2 * copies * m
+    wide = k + 3 if b_kind == "col_slice" else k
+    tall = n + (b_kind == "row_slice")
+    X = _tail_block(cuda_device, lead + (tall, wide), dtype, 3, special=True)
+    AX = _tail_block(cuda_device, lead + (tall, wide), dtype, 4, special=True)
+    if b_kind == "col_slice":
+        X, AX = X[..., :k], AX[..., 1:1 + k]
+    if b_kind == "row_slice":
+        X, AX = X[1:], AX[:-1]
+    lam = _tail_block(cuda_device, lead + (k,), torch.float64, 5, special=True) * 40
+    d = _tail_block(cuda_device, lead + (m,), dtype, 6, special=True)
+    B = None
+    if b_kind in ("antidiag", "batched", "col_slice", "row_slice"):
+        B = tl.BlockAntiDiagOperator(d=d)
+    elif b_kind == "copies2":
+        B = tl.BlockDiagOperator(tl.BlockAntiDiagOperator(d=d), 2)
+    BX = _tail_block(cuda_device, lead + (n, k), dtype, 7, special=True) \
+        if b_kind == "bx" else None
+    with tail.eager_chain():
+        chain = _residual.get_residual(X, AX, lam, None, B, BX)
+    got = _launched(lambda: _residual.get_residual(X, AX, lam, None, B, BX),
+                    tail.residual)
+    plain = tail.residual_reference(AX, X, lam, d if B is not None else None,
+                                    BX, copies)
+    assert _same_bits(got, plain)
+    assert _same_bits(got, chain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", TAIL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("nterms", [1, 2, 3, 4])
+@pytest.mark.parametrize("form", ["sum", "update", "update_lanes",
+                                  "update_mask"])
+def test_tail_combine_on_card(cuda_device, k, dtype, nterms, form):
+    """combine launched once, bit for bit its plain version: the sum of
+    1-4 terms left to right, and live * (U - sum) with a count, [b]
+    counts or a boolean mask; the output written over terms[0]; NaN,
+    +-Inf and -0 among the inputs."""
+    if form == "sum" and nterms == 1:
+        pytest.skip("one term and no U: b_mm returns the term, no pass")
+    b = 2 if form == "update_lanes" else None
+    lead = () if b is None else (b,)
+    n = 3001
+    terms = [_tail_block(cuda_device, lead + (n, k), dtype, 10 + i, special=True)
+             for i in range(nterms)]
+    U = None if form == "sum" else _tail_block(cuda_device, lead + (n, k),
+                                               dtype, 20, special=True)
+    live = {"sum": None, "update": max(k - 2, 0),
+            "update_lanes": torch.tensor([k, k // 2], device=cuda_device),
+            "update_mask": torch.arange(k, device=cuda_device) % 3 != 1}[form]
+    plain = tail.combine_reference(terms, U, live)
+    scratch = terms[0].clone()
+    got = _launched(lambda: tail.combine([scratch] + terms[1:], U, live,
+                                         out=scratch), tail.combine)
+    assert got.data_ptr() == scratch.data_ptr()
+    assert _same_bits(got, plain)
+    fresh = _launched(lambda: tail.combine(terms, U, live), tail.combine)
+    assert _same_bits(fresh, plain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", TAIL_WIDTHS)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", ["mask_count", "mask_bool", "shift",
+                                  "shift_big", "lanes", "col_slice",
+                                  "row_slice"])
+def test_tail_compact_on_card(cuda_device, k, dtype, case):
+    """compact launched once, bit for bit its plain version and
+    masking's eager chain: the mask alone (a count, a boolean mask),
+    Python shifts (past the last column too), [b] shifts and counts, a
+    column slice, a row slice; a dead NaN/Inf column gives NaN, a
+    negative value -0."""
+    b = 3 if case == "lanes" else None
+    lead = () if b is None else (b,)
+    U = _tail_block(cuda_device, lead + (2001, k + 4 if case == "col_slice"
+                                         else k), dtype, 30, special=True)
+    if case == "col_slice":
+        U = U[..., 1:1 + k]
+    if case == "row_slice":
+        U = U[1:]
+    shift, live = {
+        "mask_count": (0, k // 2),
+        "mask_bool": (0, torch.arange(k, device=cuda_device) % 2 == 0),
+        "shift": (min(3, k - 1), k - min(3, k - 1)),
+        "shift_big": (k + 2, k),
+        "lanes": (torch.tensor([0, 1, k + 1], device=cuda_device),
+                  torch.tensor([k, k - 1, 0], device=cuda_device)),
+        "col_slice": (1, k - 1),
+        "row_slice": (0, k - 1),
+    }[case]
+    with tail.eager_chain():
+        chain = _masking.shift_cols(U, shift, live)
+    got = _launched(lambda: _masking.shift_cols(U, shift, live), tail.compact)
+    assert _same_bits(got, tail.compact_reference(U, shift, live))
+    assert _same_bits(got, chain)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("k", [1, 30, 64, 164])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_tail_compact_over_its_input_on_card(cuda_device, k, dtype):
+    """The mask written over its own input (out=U, the SVQB pass's
+    scratch) equals the plain version bit for bit; a shifted compact
+    refuses to write over U."""
+    U = _tail_block(cuda_device, (3001, k), dtype, 50, special=True)
+    want = tail.compact_reference(U, 0, k // 2)
+    got = _launched(lambda: tail.compact(U, 0, k // 2, out=U), tail.compact)
+    assert got.data_ptr() == U.data_ptr() and _same_bits(got, want)
+    with pytest.raises(ValueError):
+        tail.compact(U, 1, k, out=U)
+
+
+@pytest.mark.gpu
+def test_tail_b_mm_and_update_are_the_chain_on_card(cuda_device):
+    """b_mm of 3 and 5 blocks and the projection update of 2, through the
+    GEMMs and combine, against the eager chain, bit for bit."""
+    gen = torch.Generator(device=cuda_device).manual_seed(3)
+    blocks = [torch.rand((40_000, 64), generator=gen, device=cuda_device) - 0.5
+              for _ in range(5)]
+    C = torch.rand((320, 64), generator=gen, device=cuda_device) - 0.5
+    U = torch.rand((40_000, 64), generator=gen, device=cuda_device) - 0.5
+    for nb in (3, 5):
+        with tail.eager_chain():
+            chain = _gram.b_mm(blocks[:nb], C[: 64 * nb])
+        assert _same_bits(_gram.b_mm(blocks[:nb], C[: 64 * nb]), chain)
+    with tail.eager_chain():
+        chain = _gram.b_mm_update(U, blocks[:2], C[:128], 50)
+    before = tail.combine.launches
+    got = _gram.b_mm_update(U, blocks[:2], C[:128], 50)
+    assert tail.combine.launches == before + 1
+    assert _same_bits(got, chain)
+
+
+@pytest.mark.gpu
+def test_tail_routes_by_dtype_on_card(cuda_device):
+    """Complex blocks and mixed dtypes run the plain version (no launch);
+    shapes the kernels do not take raise."""
+    X = torch.ones((64, 8), dtype=torch.complex64, device=cuda_device)
+    d = torch.ones(32, dtype=torch.complex64, device=cuda_device)
+    counts = [tail.antidiag.launches, tail.compact.launches]
+    assert torch.equal(tail.antidiag(X, d), tail.antidiag_reference(X, d))
+    tail.compact(X, 1, 3)
+    tail.antidiag(X.real.contiguous(), d.real.double())  # mixed: plain
+    assert [tail.antidiag.launches, tail.compact.launches] == counts
+    Xr = torch.ones((64, 8), device=cuda_device)
+    with pytest.raises(ValueError):
+        tail.antidiag(Xr, torch.ones(33, device=cuda_device))
+    with pytest.raises(ValueError):
+        tail.combine([Xr] * 5)
+    with pytest.raises(ValueError):
+        tail.combine([Xr, Xr], out=torch.ones((64, 9), device=cuda_device))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("barriers", [(1.0,), (1.0, 2.0, 3.0)])
+def test_small_solves_through_tail_kernels_are_the_chain_on_card(
+        cuda_device, barriers):
+    """The small BdG well, alone and as a lockstep batch of 3 barriers,
+    through the tail kernels and through the eager tail
+    (tail.eager_chain()): equal eigenvalues and eigenvectors (torch.equal)
+    and iterations; each of the four kernels launched."""
+    lap, d, hi, B, X0 = _small_well(cuda_device, barriers)
+    cfg = tl.SolverConfig(nev=4, size_sub=8, tol=1e-5, max_iter=300)
+    A = lap + tl.DiagonalOperator(d)
+    T = tl.ChebyshevFilter(op=A, lo=2.0, hi=hi, degree=3)
+    names = ("antidiag", "residual", "combine", "compact")
+
+    def solve():
+        before = [getattr(tail, f).launches for f in names]
+        r = tl.ilobpcg(A, X0, B, T, config=cfg,
+                       generator=torch.Generator(device=cuda_device).manual_seed(0))
+        return r, [getattr(tail, f).launches - b for f, b in zip(names, before)]
+
+    got, launched = solve()
+    with tail.eager_chain():
+        chain, chain_launched = solve()
+    assert torch.equal(got.eigenvalues, chain.eigenvalues)
+    assert torch.equal(got.eigenvectors, chain.eigenvectors)
+    assert torch.as_tensor(got.iterations).tolist() == \
+        torch.as_tensor(chain.iterations).tolist()
+    assert min(launched) > 0 and chain_launched == [0, 0, 0, 0]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_abs2_is_abs_squared_on_card(cuda_device, dtype):
+    """x ** 2 (ops/gram.py: abs2, real blocks) is abs(x) ** 2 on the card
+    at [4M, 64], NaN, +-Inf and -0 among the values: elementwise, summed
+    over rows (col_norms) and over the block (tall_frob_norm)."""
+    X = _tail_block(cuda_device, (4_000_000, 64), dtype, 40, special=True)
+    X[:1000] = _tail_block(cuda_device, (1000, 64), dtype, 41)  # finite rows
+    old = torch.abs(X) ** 2
+    assert _same_bits(_gram.abs2(X), old)
+    assert _same_bits(torch.sum(_gram.abs2(X[:, :8]), dim=-2),
+                      torch.sum(old[:, :8], dim=-2))
+    assert _same_bits(torch.sum(_gram.abs2(X[:1000]), dim=-2),
+                      torch.sum(old[:1000], dim=-2))
+    assert _same_bits(_residual.col_norms(X), torch.sqrt(torch.sum(old, dim=-2)))
+    assert _same_bits(_gram.tall_frob_norm(X[:1000]),
+                      torch.sqrt(torch.sum(old[:1000], dim=(-2, -1))))

@@ -163,12 +163,15 @@ def _cfg(**kw):
 
 
 def test_peak_estimate_is_the_anchor_table():
-    """The H100 anchors (tools/plan_anchors.py): with the dual basis on,
-    the forced quality-5 branch lifts the b-cache-off, ax-cache-on peak
-    by one block; pack_applies never enters.  The block part (the
-    estimate less the fixed term) is proportional to the block size."""
-    assert plan.PEAK_BLOCKS_H100[(True, False, True)] == pytest.approx(
-        plan.PEAK_BLOCKS_H100[(False, False, True)] + 1.0, abs=0.01)
+    """The H100 anchors (tools/plan_anchors.py): the dual basis's branch
+    (quality 5 forced) holds no block more than the solve without it;
+    pack_applies never enters.  The block part (the estimate less the
+    fixed term) is proportional to the block size."""
+    for b_cache in (True, False):
+        for ax_cache in (True, False):
+            assert plan.PEAK_BLOCKS_H100[(True, b_cache, ax_cache)] == \
+                pytest.approx(plan.PEAK_BLOCKS_H100[(False, b_cache, ax_cache)],
+                              abs=0.01)
     fixed = plan.FIXED_GB_H100
     block = 4_000_000 * 64 * 4 / 2**30
     for (dual, b_cache, ax_cache), blocks in plan.PEAK_BLOCKS_H100.items():
@@ -178,9 +181,9 @@ def test_peak_estimate_is_the_anchor_table():
             for dt in (torch.float32, np.float32):
                 assert plan.estimate_peak_gb(4_000_000, 64, dt, cfg) - fixed \
                     == pytest.approx(blocks * block, rel=1e-12)
-    # The flagship's full configuration: 13.41 GiB on the card.
+    # The flagship's full configuration: 12.45 GiB on the card.
     assert plan.estimate_peak_gb(4_000_000, 64, torch.float32, _cfg()) == \
-        pytest.approx(13.406, abs=0.01)
+        pytest.approx(12.453, abs=0.01)
     base = plan.estimate_peak_gb(4_000_000, 64, torch.float32, _cfg()) - fixed
     assert plan.estimate_peak_gb(2_000_000, 64, torch.float32, _cfg()) \
         - fixed == pytest.approx(base / 2)
@@ -195,13 +198,11 @@ def test_plan_walks_the_ladder_in_order():
     assert full == _cfg()
     lean = plan.plan_config(_cfg(), 4_000_000, hbm_gb=peak() / 0.95 - 0.01)
     assert not lean.use_b_cache and lean.use_ax_cache and lean.dual_basis
-    leaner = plan.plan_config(
-        _cfg(), 4_000_000, hbm_gb=peak(use_b_cache=False) / 0.95 - 0.01)
-    assert not leaner.use_b_cache and not leaner.dual_basis and leaner.use_ax_cache
+    # The dual basis costs no memory: no rung turns it off.
     leanest = plan.plan_config(
-        _cfg(), 4_000_000,
-        hbm_gb=peak(use_b_cache=False, dual_basis=False) / 0.95 - 0.01)
+        _cfg(), 4_000_000, hbm_gb=peak(use_b_cache=False) / 0.95 - 0.01)
     assert not leanest.use_b_cache and not leanest.use_ax_cache
+    assert leanest.dual_basis
     kept = plan.plan_config(_cfg(use_ax_cache=False), 1_000_000, hbm_gb=80.0)
     assert not kept.use_ax_cache and kept.use_b_cache  # never re-enabled
     with pytest.raises(ValueError, match="shrink size_sub"):
