@@ -27,6 +27,7 @@ from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops import masking
 from lobpcg_tpu_torch.ops.cuda import tail
 from lobpcg_tpu_torch.ops.rows import row_sum
+from lobpcg_tpu_torch.utils.profiling import APPLY, span
 
 # The active Gram precision name ("highest" or "high"), set by
 # precision_ctx for the duration of a solve.
@@ -76,11 +77,14 @@ def mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
     return torch.matmul(A, B)
 
 
-def apply_block_op(op: Optional[LinearOperator], X: torch.Tensor) -> torch.Tensor:
-    """Y = Op @ X for a whole block; identity when op is None."""
+def apply_block_op(op: Optional[LinearOperator], X: torch.Tensor,
+                   role: str = "B") -> torch.Tensor:
+    """Y = Op @ X for a whole block; identity when op is None.  ``role``
+    ("A", "B" or "T") names the apply's span, ``lobpcg.apply.<role>``."""
     if op is None:
         return X
-    return op.matmat(X)
+    with span(APPLY[role]):
+        return op.matmat(X)
 
 
 def _pack_pair_ok(op, ku: int, kv: int) -> bool:
@@ -95,19 +99,21 @@ def _pack_pair_ok(op, ku: int, kv: int) -> bool:
     )
 
 
-def apply_block_op_pair(op, U: torch.Tensor, V: torch.Tensor):
+def apply_block_op_pair(op, U: torch.Tensor, V: torch.Tensor,
+                        role: str = "B"):
     """(op @ U, op @ V), packed into one [n, ku+kv] apply when that is
-    the operator's fast path."""
+    the operator's fast path; one span, as ``apply_block_op``."""
     if op is None:
         return U, V
-    if _pack_pair_ok(op, U.shape[-1], V.shape[-1]):
-        ku = U.shape[-1]
-        Y = op.matmat(torch.cat([U, V], dim=-1))
-        return Y[..., :ku], Y[..., ku:]
-    return op.matmat(U), op.matmat(V)
+    with span(APPLY[role]):
+        if _pack_pair_ok(op, U.shape[-1], V.shape[-1]):
+            ku = U.shape[-1]
+            Y = op.matmat(torch.cat([U, V], dim=-1))
+            return Y[..., :ku], Y[..., ku:]
+        return op.matmat(U), op.matmat(V)
 
 
-def applied_blocks(op, blocks, pre=None, pack=True):
+def applied_blocks(op, blocks, pre=None, pack=True, role="B"):
     """[op @ b for b in blocks], reusing ``pre[j]`` where given and
     packing adjacent same-width applies when the operator prefers the
     combined width (apply_block_op_pair)."""
@@ -122,11 +128,11 @@ def applied_blocks(op, blocks, pre=None, pack=True):
             j2 = todo[i + 1]
             if _pack_pair_ok(op, blocks[j].shape[-1], blocks[j2].shape[-1]):
                 applied[j], applied[j2] = apply_block_op_pair(
-                    op, blocks[j], blocks[j2]
+                    op, blocks[j], blocks[j2], role
                 )
                 i += 2
                 continue
-        applied[j] = apply_block_op(op, blocks[j])
+        applied[j] = apply_block_op(op, blocks[j], role)
         i += 1
     return applied
 
@@ -224,18 +230,18 @@ def _hdot(V: torch.Tensor, U: torch.Tensor, out_dtype=None) -> torch.Tensor:
 
 def gram_self(
     U: torch.Tensor, B: Optional[LinearOperator] = None, out_dtype=None,
-    chunk: Optional[int] = None,
+    chunk: Optional[int] = None, role: str = "B",
 ) -> torch.Tensor:
     """G = U^H B U  (B None -> U^H U).  ``chunk``: assemble G column
     block by column block, so only a [n, chunk] B-application transient
-    is live at a time."""
+    is live at a time.  ``role``: B's span, as in ``apply_block_op``."""
     k = U.shape[-1]
     if chunk is None or B is None or chunk >= k:
-        BU = apply_block_op(B, U)
+        BU = apply_block_op(B, U, role)
         return _hdot(U, BU, out_dtype)
     cols = []
     for j in range(0, k, chunk):
-        BUj = B.matmat(U[..., j : j + chunk])
+        BUj = apply_block_op(B, U[..., j : j + chunk], role)
         cols.append(_hdot(U, BUj, out_dtype))
     return torch.cat(cols, dim=-1)
 

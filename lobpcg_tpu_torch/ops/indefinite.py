@@ -7,7 +7,8 @@ entries last) is two stable argsorts, since torch has no lexsort.
 Sentinel (masked-coordinate) eigenpairs are detected by their coordinate
 mass, get signature 0, and therefore sort last.  Batched (``ops/lanes.py``),
 ``quality`` and ``rr_ok`` are [b] lanes and the dual-basis stabilization
-runs when some problem needs it.
+runs when some problem needs it.  Each entry point is a ``lobpcg.rr``
+span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from lobpcg_tpu_torch.ops.pencil import pencil_eig
 from lobpcg_tpu_torch.ops.rayleigh import _a_gram
 from lobpcg_tpu_torch.ops.svqb import svqb_mat
 from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.utils.profiling import RR, spanned
 
 
 class IndefiniteRRResult(NamedTuple):
@@ -66,6 +68,7 @@ def _b_normalize(V: torch.Tensor, GB: torch.Tensor, tiny: float):
     return V * scale[..., None, :].to(V.dtype), d
 
 
+@spanned(RR)
 def indefinite_rayleigh_ritz(
     X: torch.Tensor,
     A: LinearOperator,
@@ -77,7 +80,7 @@ def indefinite_rayleigh_ritz(
 ):
     """Initial indefinite RR on a full-width block.  Returns (Cx [m,m],
     lam [m] real sorted, sig [m] i32 sorted, ok 0-d bool)."""
-    GA = gram_self(X, A, out_dtype=rr_dtype)
+    GA = gram_self(X, A, out_dtype=rr_dtype, role="A")
     GB = gram_self(X, B, out_dtype=rr_dtype)
     lam, V, ok = pencil_eig(GA, GB, method=method, tiny=tiny)
     V, d = _b_normalize(V, GB, tiny)
@@ -91,6 +94,7 @@ def indefinite_rayleigh_ritz(
     )
 
 
+@spanned(RR)
 def indefinite_rayleigh_ritz_modified(
     S,
     AX: Optional[torch.Tensor],

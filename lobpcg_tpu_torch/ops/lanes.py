@@ -13,12 +13,16 @@ helpers here take either form, so the solvers and ops are written once:
   ``select`` freezes the problems a loop is done with.
 
 A host read of a lanes tensor is one read for the whole batch, so the
-reads an iteration makes do not grow with b.
+reads an iteration makes do not grow with b.  Each read of a tensor is a
+``lobpcg.sync.read`` span (``utils/profiling.py``); a Python value opens
+none.
 """
 
 from __future__ import annotations
 
 import torch
+
+from lobpcg_tpu_torch.utils.profiling import SYNC_READ, span
 
 
 def is_lanes(x) -> bool:
@@ -30,7 +34,8 @@ def read(t):
     """A per-problem device value as the loop uses it: a 0-d tensor is
     read to a Python scalar (one host read); lanes stay on the device."""
     if isinstance(t, torch.Tensor) and t.dim() == 0:
-        return t.item()
+        with span(SYNC_READ):
+            return t.item()
     return t
 
 
@@ -38,22 +43,29 @@ def read_pair(a, b):
     """``read`` of two 0-d values in one host read; lanes unchanged."""
     if is_lanes(a):
         return a, b
-    return torch.stack([a, b]).tolist()
+    with span(SYNC_READ):
+        return torch.stack([a, b]).tolist()
 
 
 def count(x):
     """A live count: a Python int, or lanes of counts."""
-    return x if is_lanes(x) else int(x)
+    return x if is_lanes(x) else int(read(x))
 
 
 def any_(flag) -> bool:
     """Does some problem take ``flag``?  (A host read for lanes.)"""
-    return bool(flag.any()) if isinstance(flag, torch.Tensor) else bool(flag)
+    if not isinstance(flag, torch.Tensor):
+        return bool(flag)
+    with span(SYNC_READ):
+        return bool(flag.any())
 
 
 def all_(flag) -> bool:
     """Does every problem take ``flag``?  (A host read for lanes.)"""
-    return bool(flag.all()) if isinstance(flag, torch.Tensor) else bool(flag)
+    if not isinstance(flag, torch.Tensor):
+        return bool(flag)
+    with span(SYNC_READ):
+        return bool(flag.all())
 
 
 def not_(flag):
@@ -107,7 +119,8 @@ def status(flag):
     read for lanes."""
     if not isinstance(flag, torch.Tensor):
         return bool(flag), bool(flag)
-    some, every = torch.stack([flag.any(), flag.all()]).tolist()
+    with span(SYNC_READ):
+        some, every = torch.stack([flag.any(), flag.all()]).tolist()
     return some, every
 
 

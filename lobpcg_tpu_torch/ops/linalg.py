@@ -17,11 +17,16 @@ an H100, with 13 rr-fail recoveries in 62 iterations; with the eigensolve
 in float64 the same solve converged in 31 iterations with no rr-fail and
 a 1.3e-6 error.  The matrices are at most 3 * size_sub wide, so the
 widening costs nothing measurable next to the tall contractions.
+
+On CUDA torch reads cuSOLVER's status back to the host after the solve,
+so each call waits on the device: a ``lobpcg.sync.eigh`` span.
 """
 
 from __future__ import annotations
 
 import torch
+
+from lobpcg_tpu_torch.utils.profiling import SYNC_EIGH, span
 
 _WIDER = {torch.float32: torch.float64, torch.complex64: torch.complex128}
 
@@ -34,7 +39,9 @@ def eigh(M: torch.Tensor):
     eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
     Msafe = torch.where(finite[..., None, None], 0.5 * (M + M.mH), eye)
     rdt = M.dtype.to_real() if M.is_complex() else M.dtype
-    w, V = torch.linalg.eigh(Msafe.to(_WIDER.get(M.dtype, M.dtype)))
+    Mw = Msafe.to(_WIDER.get(M.dtype, M.dtype))
+    with span(SYNC_EIGH):
+        w, V = torch.linalg.eigh(Mw)
     w = torch.where(finite[..., None], w.to(rdt), float("nan"))
     V = torch.where(finite[..., None, None], V.to(M.dtype), float("nan"))
     return w, V

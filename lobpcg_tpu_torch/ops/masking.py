@@ -8,13 +8,15 @@ eigensolves stay well-posed.
 
 Batched (``ops/lanes.py``): blocks and Grams may carry a leading batch
 dimension, counts may be [b] integer tensors and masks [b, w] boolean
-tensors, one per problem.  An unbatched count is a Python int.
+tensors, one per problem.  An unbatched count is a Python int; a count
+read from the device is read through ``lanes.read``.
 """
 
 from __future__ import annotations
 
 import torch
 
+from lobpcg_tpu_torch.ops import lanes
 from lobpcg_tpu_torch.ops.cuda import tail
 
 
@@ -30,7 +32,7 @@ def as_mask(width: int, live, device=None) -> torch.Tensor:
         if live.dim() >= 1:
             ar = torch.arange(width, device=live.device)
             return ar < live[..., None]
-    return torch.arange(width, device=device) < int(live)
+    return torch.arange(width, device=device) < int(lanes.read(live))
 
 
 def blocks_mask(widths: tuple[int, ...], counts, device=None) -> torch.Tensor:
@@ -63,7 +65,7 @@ def shift_cols(U: torch.Tensor, shift, new_count) -> torch.Tensor:
         src = torch.clamp(ar + shift[..., None], 0, w - 1)
         out = torch.take_along_dim(U, src[..., None, :], dim=-1)
     else:
-        out = U[..., torch.clamp(ar + int(shift), 0, w - 1)]
+        out = U[..., torch.clamp(ar + int(lanes.read(shift)), 0, w - 1)]
     return mask_cols(out, new_count)
 
 
@@ -110,7 +112,7 @@ def compact_by_flag(drop_flag: torch.Tensor):
     key = drop_flag.to(torch.int32)
     perm = torch.argsort(key, dim=-1, stable=True)
     n_kept = torch.sum(1 - key, dim=-1)
-    return perm, (n_kept if n_kept.dim() else int(n_kept))
+    return perm, (n_kept if n_kept.dim() else int(lanes.read(n_kept)))
 
 
 def prefix_count(ok: torch.Tensor):
@@ -118,4 +120,4 @@ def prefix_count(ok: torch.Tensor):
     lanes for a [b, k] input (no host read)."""
     all_prefix = torch.cumprod(ok.to(torch.int32), dim=-1)
     n = torch.sum(all_prefix, dim=-1)
-    return n if n.dim() else int(n)
+    return n if n.dim() else int(lanes.read(n))

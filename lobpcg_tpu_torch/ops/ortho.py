@@ -7,7 +7,8 @@ check Frobenius errors, exit early) is the JAX package's; its
 the same caps.  Each loop test reads one device boolean.  Batched, a
 loop runs until every problem is done and a done problem is frozen
 (``ops/lanes.py``), as under a vmapped ``while_loop``: the test still
-reads once for the whole batch.
+reads once for the whole batch.  Each entry point is a ``lobpcg.ortho``
+span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from lobpcg_tpu_torch.ops.gram import (
 from lobpcg_tpu_torch.ops.rows import row_sum
 from lobpcg_tpu_torch.ops.svqb import _svqb_transform, svqb_mat
 from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.utils.profiling import ORTHO, spanned
 
 
 def _guard(x, eps):
@@ -183,6 +185,7 @@ def _outer_loop(U, nu, vb, B, Bvb, BV_norm, sig, eps_ortho, eps_drop,
     return U, nu, BU
 
 
+@spanned(ORTHO)
 def ortho_drop(
     U: torch.Tensor,
     nu,
@@ -224,6 +227,7 @@ def ortho_drop(
     return U, nu
 
 
+@spanned(ORTHO)
 def ortho_indefinite(
     U: torch.Tensor,
     nu,
@@ -266,6 +270,7 @@ def ortho_indefinite(
     return U, nu
 
 
+@spanned(ORTHO)
 def ortho_indefinite_mat(
     U: torch.Tensor,
     V: torch.Tensor,

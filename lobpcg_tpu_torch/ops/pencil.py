@@ -28,6 +28,7 @@ import torch
 from lobpcg_tpu_torch.ops import lanes, masking
 from lobpcg_tpu_torch.ops.gram import mm
 from lobpcg_tpu_torch.ops.linalg import eigh
+from lobpcg_tpu_torch.utils.profiling import SYNC_COPY, span
 
 BIG = 1e30
 
@@ -126,9 +127,10 @@ def pencil_eig_cholesky(GA, GB, tiny: float, live=None):
         rho = torch.where(
             nGB > 0, nGA / torch.where(nGB > 0, nGB, 1.0), 1.0
         )
-        cs = torch.tensor(_LADDER_C, dtype=rdt, device=GA.device)
-        ss = torch.tensor(_LADDER_T, dtype=rdt, device=GA.device) \
-            * rho[..., None]
+        with span(SYNC_COPY):  # copies from the host wait on the stream
+            cs = torch.tensor(_LADDER_C, dtype=rdt, device=GA.device)
+            ts = torch.tensor(_LADDER_T, dtype=rdt, device=GA.device)
+        ss = ts * rho[..., None]
         Cs = (
             cs[:, None, None].to(dt) * GAh[..., None, :, :]
             + ss[..., :, None, None].to(dt) * GBh[..., None, :, :]
@@ -138,7 +140,8 @@ def pencil_eig_cholesky(GA, GB, tiny: float, live=None):
         idx = torch.argmax(scs, dim=-1)  # best-conditioned definite candidate
         F = torch.take_along_dim(Fs, idx[..., None, None, None], dim=-3)
         s = torch.take_along_dim(ss, idx[..., None], dim=-1)[..., 0]
-        return F[..., 0, :, :], cs[idx], s, torch.any(oks, dim=-1)
+        c = cs[lanes.read(idx)]  # one problem's 0-d index: a host read
+        return F[..., 0, :, :], c, s, torch.any(oks, dim=-1)
 
     F, c, s, ok = lanes.cond(lanes.read(ok0 & (sc0 >= floor)),
                              lambda: (F0, 1.0, 0.0, ok0), ladder)
@@ -182,10 +185,16 @@ def pencil_eig_qz(GA, GB, tiny: float, need=None):
     rdt = _real_dtype(GA.dtype)
     dev = GA.device
     k = GA.shape[-1]
-    GA_h = GA.detach().cpu().numpy().reshape(-1, k, k)
-    GB_h = GB.detach().cpu().numpy().reshape(-1, k, k)
+    with span(SYNC_COPY):
+        GA_h = GA.detach().cpu().numpy().reshape(-1, k, k)
+    with span(SYNC_COPY):
+        GB_h = GB.detach().cpu().numpy().reshape(-1, k, k)
     b = GA_h.shape[0]
-    need = [True] * b if need is None else need.reshape(-1).tolist()
+    if need is None:
+        need = [True] * b
+    else:
+        with span(SYNC_COPY):
+            need = need.reshape(-1).tolist()
     cdt = np.result_type(GA_h.dtype, np.complex64)
     alpha = np.full((b, k), np.nan, dtype=cdt)
     beta = np.full((b, k), np.nan, dtype=cdt)

@@ -7,7 +7,8 @@ extraction reads X-content from the first nx rows; non-definiteness
 (s_min <= 0) raises the retry flag 2.  Dead subspace coordinates carry
 identity in the B-Gram and a sentinel above every live Ritz value.
 Batched (``ops/lanes.py``), the flag and counts are [b] lanes and the
-ortho / Cholesky branch is chosen per problem.
+ortho / Cholesky branch is chosen per problem.  Each entry point is a
+``lobpcg.rr`` span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from lobpcg_tpu_torch.ops.gram import (
 )
 from lobpcg_tpu_torch.ops.linalg import eigh
 from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.utils.profiling import RR, spanned
 
 
 class RRResult(NamedTuple):
@@ -105,6 +107,7 @@ def _cp_extract(Z, nx: int, DiR: Optional[torch.Tensor], n_live: int):
     return masking.mask_cols(Cp, p_count), p_count
 
 
+@spanned(RR)
 def rayleigh_ritz(
     X: torch.Tensor,
     A: LinearOperator,
@@ -116,7 +119,7 @@ def rayleigh_ritz(
     G = gram_self(X, B, out_dtype=rr_dtype)
     DiR, def_ok, _, _ = _whiten_block(G)
     DiR = torch.where(def_ok[..., None, None], DiR, float("nan"))
-    Ap = gram_self(X, A, out_dtype=rr_dtype)
+    Ap = gram_self(X, A, out_dtype=rr_dtype, role="A")
     T1 = mm(Ap, DiR)
     H = mm(DiR.mH, T1)
     w, V = eigh(H)
@@ -128,10 +131,11 @@ def _a_gram(blocks, AX, A, out_dtype=None, pack=True):
     """G_A = S^H A S per column block of S = [X | P | W], reusing the AX
     cache for the X block; upper-triangle contractions only."""
     pre = {0: AX} if AX is not None else {}
-    applied = applied_blocks(A, blocks, pre, pack=pack)
+    applied = applied_blocks(A, blocks, pre, pack=pack, role="A")
     return herm_tile_gram(blocks, applied, out_dtype)
 
 
+@spanned(RR)
 def rayleigh_ritz_modified(
     S,
     AX: Optional[torch.Tensor],

@@ -32,14 +32,14 @@ def get_residual(
     (``linop.half_swap``) is read as X's partner rows, any other B is
     applied first; inside ``tail.eager_chain()`` the eager chain (B X,
     the multiply, the subtraction)."""
-    W = A.matmat(X) if AX is None else AX
+    W = apply_block_op(A, X, "A") if AX is None else AX
     if tail.eager():
         if BX is None:
             BX = apply_block_op(B, X)
         return W - BX * lam[..., None, :].to(BX.dtype)
     swap = half_swap(B, X) if BX is None else None
     if BX is None and swap is None and B is not None:
-        BX = B.matmat(X)
+        BX = apply_block_op(B, X)
     d, copies = swap if swap is not None else (None, 1)
     return tail.residual(W, X, lam, d, BX, copies)
 
@@ -72,17 +72,19 @@ def estimate_norm(
     A: LinearOperator,
     v: torch.Tensor,
     iters: int = 10,
+    role: str = "A",
 ) -> torch.Tensor:
     """||A|| estimate via power iteration from the random start block
     ``v`` ([n, block], or [b, n, block] for a batch; each column
     normalized independently, the estimate is the max per-column growth,
     one per problem).  The caller draws ``v`` (``utils.prng``), where the
-    JAX package passes a key."""
+    JAX package passes a key.  ``role``: the operator's span, as in
+    ``gram.apply_block_op``."""
     nrm0 = col_norms(v, keepdim=True)
     v = v / torch.where(nrm0 > 0, nrm0, 1.0).to(v.dtype)
     nrm = nrm0
     for _ in range(iters):
-        w = A.matmat(v)
+        w = apply_block_op(A, v, role)
         nrm = col_norms(w, keepdim=True)
         v = torch.where(
             nrm > 0, w / torch.where(nrm > 0, nrm, 1.0).to(w.dtype), w

@@ -17,6 +17,7 @@ from lobpcg_tpu_torch.ops import lanes, masking
 from lobpcg_tpu_torch.ops.gram import gram_self, gram_self_mat, mm, scale_diag
 from lobpcg_tpu_torch.ops.linalg import eigh
 from lobpcg_tpu_torch.operators.linop import LinearOperator
+from lobpcg_tpu_torch.utils.profiling import ORTHO, spanned
 
 
 def _svqb_transform(G, count, tau, drop, dtype):
@@ -75,6 +76,7 @@ def svqb(
     return masking.mask_cols(U_new, n_kept), n_kept
 
 
+@spanned(ORTHO)
 def robust_basis_init(X, B, refill, *, tau, rr_dtype=None):
     """Full-rank B-orthonormal start basis from an arbitrary X0: SVQB
     with dropping, dropped slots refilled with random data, and one more

@@ -11,7 +11,7 @@ reads the RR's two branch flags together and the residual norms once.
 A 3-D X0 runs a lockstep batch, as in ``solvers/lobpcg.py``: the stall
 reset, the rr-fail recovery and the quality-5 dual basis are computed
 for the batch when some live problem takes them and selected per
-problem.
+problem.  Its spans under a profiler are those of ``solvers/lobpcg.py``.
 """
 
 from __future__ import annotations
@@ -52,6 +52,7 @@ from lobpcg_tpu_torch.solvers.lobpcg import (
 )
 from lobpcg_tpu_torch.solvers.state import ILOBPCGResult
 from lobpcg_tpu_torch.utils.prng import Draws
+from lobpcg_tpu_torch.utils.profiling import ITER, UPDATE, span
 
 
 def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
@@ -88,10 +89,11 @@ def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
     Cx0, lam, sig, rr_ok0 = indefinite_rayleigh_ritz(
         X, A, B, method=config.rr_method, tiny=tn, rr_dtype=rrdt
     )
-    X = mm(X, Cx0)
-    AX = A.matmat(X)
-    W = get_residual(X, AX, lam, A, B)
-    res = res_norm(W, lam)
+    with span(UPDATE):
+        X = mm(X, Cx0)
+        AX = apply_block_op(A, X, "A")
+        W = get_residual(X, AX, lam, A, B)
+        res = res_norm(W, lam)
 
     P, p_cnt = _start_momentum(P0, p0_cnt, lead, n_loc, m, dtype, device)
     conv = it = q5 = stall = lanes.zeros(nb, device)
@@ -108,135 +110,144 @@ def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
         some, every = lanes.status(run)
         if not some:
             break
-        # Problems that are done stay frozen (see solvers/lobpcg.py).
-        live = True if every else run
-        old = None if every else (X, AX, P, W, lam, sig, res, conv, p_cnt,
-                                  it, q5, stall, rr_fail, res_best)
-        np_act = lanes.minimum(p_cnt, m - conv)
-        nw = lanes.select(it == 0, m, m - conv)
+        with span(ITER):
+            # Problems that are done stay frozen (see solvers/lobpcg.py).
+            live = True if every else run
+            old = None if every else (X, AX, P, W, lam, sig, res, conv,
+                                      p_cnt, it, q5, stall, rr_fail,
+                                      res_best)
+            np_act = lanes.minimum(p_cnt, m - conv)
+            nw = lanes.select(it == 0, m, m - conv)
 
-        # Stagnation stabilizer (SolverConfig.stall_reset): perturb W
-        # with column-norm-scaled noise; dead (zero) columns stay zero.
-        # Every live problem of a batch is at iteration g.
-        tripped = False
-        if config.stall_reset:
-            tripped = lanes.settle(stall >= config.stall_reset, live)
+            # Stagnation stabilizer (SolverConfig.stall_reset): perturb W
+            # with column-norm-scaled noise; dead (zero) columns stay zero.
+            # Every live problem of a batch is at iteration g.
+            tripped = False
+            if config.stall_reset:
+                tripped = lanes.settle(stall >= config.stall_reset, live)
 
-        def perturb():
-            z = rng.fill(f"stall{g}", (n, m), dtype, device)
-            nrm = col_norms(W, keepdim=True).to(dtype)
-            return W + z * (STALL_NOISE * nrm)
+            def perturb():
+                z = rng.fill(f"stall{g}", (n, m), dtype, device)
+                nrm = col_norms(W, keepdim=True).to(dtype)
+                return W + z * (STALL_NOISE * nrm)
 
-        W = lanes.cond(tripped, perturb, lambda: W)
+            W = lanes.cond(tripped, perturb, lambda: W)
 
-        if T is not None:
-            W = masking.mask_cols(T.matmat(W), nw)
+            if T is not None:
+                W = masking.mask_cols(apply_block_op(T, W, "T"), nw)
 
-        # Indefinite orthogonalization against [X, P_active] every
-        # iteration.  With use_b_cache, B@X and B@P are applied once and
-        # feed the ortho projector and the RR B-Gram; the ortho pass
-        # returns B@W.
-        if config.use_b_cache:
-            if config.pack_applies:
-                BX, BP = apply_block_op_pair(B, X, P)
+            # Indefinite orthogonalization against [X, P_active] every
+            # iteration.  With use_b_cache, B@X and B@P are applied once
+            # and feed the ortho projector and the RR B-Gram; the ortho
+            # pass returns B@W.
+            if config.use_b_cache:
+                if config.pack_applies:
+                    BX, BP = apply_block_op_pair(B, X, P)
+                else:
+                    BX, BP = apply_block_op(B, X), apply_block_op(B, P)
+                W, nw, BW = ortho_indefinite(
+                    W, nw, (X, P), m + np_act, B,
+                    eps_ortho=eps_ortho, eps_drop=eps_drop,
+                    max_outer=config.max_outer, max_inner=config.max_inner,
+                    rr_dtype=rrdt, Bvb=(BX, BP), return_bu=True,
+                    entry_check=config.ortho_skip,
+                )
+                Bblocks = (BX, BP, BW)
+                del BX, BP, BW
             else:
-                BX, BP = apply_block_op(B, X), apply_block_op(B, P)
-            W, nw, BW = ortho_indefinite(
-                W, nw, (X, P), m + np_act, B,
+                W, nw = ortho_indefinite(
+                    W, nw, (X, P), m + np_act, B,
+                    eps_ortho=eps_ortho, eps_drop=eps_drop,
+                    max_outer=config.max_outer, max_inner=config.max_inner,
+                    rr_dtype=rrdt, entry_check=config.ortho_skip,
+                )
+                Bblocks = None
+            blocks = (X, P, W)
+
+            rr = indefinite_rayleigh_ritz_modified(
+                blocks, AX, np_act, nw, A, B,
+                nx=m, method=config.rr_method, tiny=tn, quality_tol=qt,
                 eps_ortho=eps_ortho, eps_drop=eps_drop,
                 max_outer=config.max_outer, max_inner=config.max_inner,
-                rr_dtype=rrdt, Bvb=(BX, BP), return_bu=True,
-                entry_check=config.ortho_skip,
+                rr_dtype=rrdt, Bblocks=Bblocks, pack=config.pack_applies,
             )
-            Bblocks = (BX, BP, BW)
-            del BX, BP, BW
-        else:
-            W, nw = ortho_indefinite(
-                W, nw, (X, P), m + np_act, B,
-                eps_ortho=eps_ortho, eps_drop=eps_drop,
-                max_outer=config.max_outer, max_inner=config.max_inner,
-                rr_dtype=rrdt, entry_check=config.ortho_skip,
-            )
-            Bblocks = None
-        blocks = (X, P, W)
+            del Bblocks
 
-        rr = indefinite_rayleigh_ritz_modified(
-            blocks, AX, np_act, nw, A, B,
-            nx=m, method=config.rr_method, tiny=tn, quality_tol=qt,
-            eps_ortho=eps_ortho, eps_drop=eps_drop,
-            max_outer=config.max_outer, max_inner=config.max_inner,
-            rr_dtype=rrdt, Bblocks=Bblocks, pack=config.pack_applies,
-        )
-        del Bblocks
-        rr_ok = lanes.settle(rr.rr_ok, live)
+            def project_good():
+                Xn = b_mm(blocks, rr.Cx)
+                Pn = b_mm(blocks, rr.Cp)
+                AXn = apply_block_op(A, Xn, "A")
+                Wres = get_residual(Xn, AXn, rr.lam, A, B)
+                return Xn, Pn, AXn if config.use_ax_cache else None, Wres
 
-        def project_good():
-            Xn = b_mm(blocks, rr.Cx)
-            Pn = b_mm(blocks, rr.Cp)
-            AXn = A.matmat(Xn)
-            Wres = get_residual(Xn, AXn, rr.lam, A, B)
-            return Xn, Pn, AXn if config.use_ax_cache else None, Wres
+            def project_poor():
+                # Dual basis: residual from the accurate basis, iterate
+                # the stable one.
+                X_acc = b_mm(blocks, rr.Cx)
+                Xn = b_mm(blocks, rr.Cx_ortho)
+                Pn = b_mm(blocks, rr.Cp)
+                AXn = (apply_block_op(A, Xn, "A") if config.use_ax_cache
+                       else None)
+                return Xn, Pn, AXn, get_residual(X_acc, None, rr.lam, A, B)
 
-        def project_poor():
-            # Dual basis: residual from the accurate basis, iterate the
-            # stable one.
-            X_acc = b_mm(blocks, rr.Cx)
-            Xn = b_mm(blocks, rr.Cx_ortho)
-            Pn = b_mm(blocks, rr.Cp)
-            AXn = A.matmat(Xn) if config.use_ax_cache else None
-            return Xn, Pn, AXn, get_residual(X_acc, None, rr.lam, A, B)
+            def update():
+                if not config.dual_basis:
+                    return project_good()
+                return lanes.cond(lanes.settle(rr.quality == 1, live),
+                                  project_good, project_poor)
 
-        def update():
-            if not config.dual_basis:
-                return project_good()
-            return lanes.cond(lanes.settle(rr.quality == 1, live),
-                              project_good, project_poor)
+            def recover():
+                # The projected pencil solve failed: discard the update,
+                # keep X and its eigenvalues, reset the momentum, rebuild
+                # W from X.
+                Wres = get_residual(X, AX, lam, A, B)
+                return X, torch.zeros_like(P), AX, Wres
 
-        def recover():
-            # The projected pencil solve failed: discard the update, keep
-            # X and its eigenvalues, reset the momentum, rebuild W from X.
-            Wres = get_residual(X, AX, lam, A, B)
-            return X, torch.zeros_like(P), AX, Wres
+            with span(UPDATE):
+                rr_ok = lanes.settle(rr.rr_ok, live)
+                Xn, Pn, AXn, Wres = lanes.cond(rr_ok, update, recover)
+                lam_n = lanes.select(rr_ok, rr.lam, lam)
+                sig_n = lanes.select(rr_ok, rr.sig[..., :m], sig)
+                del blocks, W
 
-        Xn, Pn, AXn, Wres = lanes.cond(rr_ok, update, recover)
-        lam_n = lanes.select(rr_ok, rr.lam, lam)
-        sig_n = lanes.select(rr_ok, rr.sig[..., :m], sig)
-        del blocks, W
+                res = res_norm(Wres, lam_n)
+                res_max = lanes.read(torch.amax(res, dim=-1))
+                convn = masking.prefix_count(res <= config.tol)
 
-        res = res_norm(Wres, lam_n)
-        res_max = lanes.read(torch.amax(res, dim=-1))
-        convn = masking.prefix_count(res <= config.tol)
+                act = m - convn
+                p_next = lanes.select(rr_ok, act, 0)
+                P = masking.shift_cols(Pn, convn, p_next)
+                W = masking.shift_cols(Wres, convn, act)
+                del Pn, Wres
 
-        act = m - convn
-        p_next = lanes.select(rr_ok, act, 0)
-        P = masking.shift_cols(Pn, convn, p_next)
-        W = masking.shift_cols(Wres, convn, act)
-        del Pn, Wres
+                observe.log_iteration(config, "ilobpcg", g, lam_n, res,
+                                      convn)
+                failed = lanes.as_int(lanes.not_(rr_ok))
+                flag = rr.quality + 8 * failed + 16 * lanes.as_int(tripped)
+                hist = observe.history_update(hist, g, lam_n, res, convn,
+                                              flag, live)
 
-        observe.log_iteration(config, "ilobpcg", g, lam_n, res, convn)
-        failed = lanes.as_int(lanes.not_(rr_ok))
-        flag = rr.quality + 8 * failed + 16 * lanes.as_int(tripped)
-        hist = observe.history_update(hist, g, lam_n, res, convn, flag, live)
-
-        # Stall accounting: progress = the converged prefix grew or the
-        # worst residual improved 10% on the best seen; an rr-failed
-        # iteration jumps straight to the threshold.
-        improved = (convn > conv) | (res_max < 0.9 * res_best)
-        K = max(config.stall_reset, 1)
-        stall = lanes.select(improved | tripped, 0,
-                             lanes.minimum(stall + 1 + K * failed, 2 * K))
-        q5 = q5 + lanes.as_int((rr.quality == 5) & rr_ok)
-        rr_fail = rr_fail + failed
-        res_best = lanes.minimum(res_best, res_max)
-        X, AX, lam, sig, conv, p_cnt = Xn, AXn, lam_n, sig_n, convn, p_next
-        it = it + 1
-        if old is not None:
-            (X, AX, P, W, lam, sig, res, conv, p_cnt, it, q5, stall, rr_fail,
-             res_best) = lanes.select(live, (X, AX, P, W, lam, sig, res, conv,
-                                             p_cnt, it, q5, stall, rr_fail,
-                                             res_best), old)
-            del old
-        g += 1
+                # Stall accounting: progress = the converged prefix grew or
+                # the worst residual improved 10% on the best seen; an
+                # rr-failed iteration jumps straight to the threshold.
+                improved = (convn > conv) | (res_max < 0.9 * res_best)
+                K = max(config.stall_reset, 1)
+                stall = lanes.select(improved | tripped, 0,
+                                     lanes.minimum(stall + 1 + K * failed,
+                                                   2 * K))
+                q5 = q5 + lanes.as_int((rr.quality == 5) & rr_ok)
+                rr_fail = rr_fail + failed
+                res_best = lanes.minimum(res_best, res_max)
+                X, AX, lam, sig, conv, p_cnt = (Xn, AXn, lam_n, sig_n, convn,
+                                                p_next)
+                it = it + 1
+                if old is not None:
+                    (X, AX, P, W, lam, sig, res, conv, p_cnt, it, q5, stall,
+                     rr_fail, res_best) = lanes.select(
+                        live, (X, AX, P, W, lam, sig, res, conv, p_cnt, it,
+                               q5, stall, rr_fail, res_best), old)
+                    del old
+            g += 1
 
     return ILOBPCGResult(
         eigenvalues=lam[..., :nev],

@@ -24,6 +24,12 @@ norms), so every rank takes the same branches; a reduction is one
 all-reduce for the batch, so a batch makes as many collectives an
 iteration as one problem.  The random draws are the unsharded lockstep
 solve's, cut to this rank's rows.
+
+Under a profiler a solve is a ``lobpcg.solve`` span and each pass of the
+loop a ``lobpcg.iter`` span; the operator applies, the orthogonalization
+and the Rayleigh-Ritz are spans of their own (``ops/gram.py``,
+``ops/ortho.py``, ``ops/rayleigh.py``), and the projection, residual and
+convergence block is ``lobpcg.update`` (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -59,6 +65,13 @@ from lobpcg_tpu_torch.ops.svqb import robust_basis_init
 from lobpcg_tpu_torch.solvers import observe
 from lobpcg_tpu_torch.solvers.state import LOBPCGResult
 from lobpcg_tpu_torch.utils.prng import Draws
+from lobpcg_tpu_torch.utils.profiling import (
+    ITER,
+    SOLVE,
+    SYNC_COPY,
+    UPDATE,
+    span,
+)
 
 
 def _local_rows(n: int):
@@ -100,7 +113,9 @@ def _prepare_p0(P0, A, config, lead=()):
             f"P0 has shape {tuple(P0.shape)}, expected "
             f"({n_loc}, {config.size_sub})"
         )
-    nonzero = (rows.row_max(torch.amax(torch.abs(P0), dim=0)) > 0).cpu().numpy()
+    nonzero = rows.row_max(torch.amax(torch.abs(P0), dim=0)) > 0
+    with span(SYNC_COPY):
+        nonzero = nonzero.cpu().numpy()
     order = np.argsort(~nonzero, kind="stable")
     p0_cnt = int(nonzero.sum())
     if not (order == np.arange(order.size)).all():
@@ -122,7 +137,7 @@ def _norms(A, B, rng, config, n, dtype, device, lead=()):
     a_norm = estimate_norm(A, start("norm_a"), config.norm_iters)
     if B is None:
         return a_norm, torch.ones((), dtype=a_norm.dtype, device=device)
-    b_norm = estimate_norm(B, start("norm_b"), config.norm_iters)
+    b_norm = estimate_norm(B, start("norm_b"), config.norm_iters, role="B")
     return a_norm, b_norm
 
 
@@ -208,7 +223,7 @@ def solve_entry(impl, A, B, T, X0, P0, config, generator, device, draws,
         if device is None and X0 is None:
             device = mesh.device
         mesh = None
-    with rows.rows_ctx(mesh):
+    with span(SOLVE), rows.rows_ctx(mesh):
         _check_rr_chunk_unsharded(config, mesh)
         device = _check_inputs(A, X0, config, it_cap, device)
         P0, p0_cnt = _prepare_p0(P0, A, config, _batch(X0))
@@ -261,10 +276,11 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
     )
 
     Cx0, lam = rayleigh_ritz(X, A, B, rr_dtype=rrdt)
-    X = mm(X, Cx0)
-    AX = A.matmat(X)
-    W = get_residual(X, AX, lam, A, B)
-    res = res_norm(W, lam)
+    with span(UPDATE):
+        X = mm(X, Cx0)
+        AX = apply_block_op(A, X, "A")
+        W = get_residual(X, AX, lam, A, B)
+        res = res_norm(W, lam)
     if not config.use_ax_cache:
         AX = None
 
@@ -296,86 +312,93 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
         some, every = lanes.status(run)
         if not some:
             break
-        # Problems that are done stay frozen: their old state is selected
-        # back at the end of the iteration.
-        live = True if every else run
-        old = None if every else (X, AX, P, W, lam, res, conv, p_cnt,
-                                  use_ortho, it, retries)
-        np_act = lanes.minimum(p_cnt, m - conv)
-        nw = lanes.select(it == 0, m, m - conv)
+        with span(ITER):
+            # Problems that are done stay frozen: their old state is
+            # selected back at the end of the iteration.
+            live = True if every else run
+            old = None if every else (X, AX, P, W, lam, res, conv, p_cnt,
+                                      use_ortho, it, retries)
+            np_act = lanes.minimum(p_cnt, m - conv)
+            nw = lanes.select(it == 0, m, m - conv)
 
-        if T is not None:
-            W = masking.mask_cols(T.matmat(W), nw)
+            if T is not None:
+                W = masking.mask_cols(apply_block_op(T, W, "T"), nw)
 
-        # With cache_b, B@X and B@P are applied once and threaded
-        # through the ortho projector and the RR B-Gram.
-        orth = lanes.settle(use_ortho >= 1, live)
-        Bvb = None
-        if cache_b:
-            if config.pack_applies:
-                BX, BP = apply_block_op_pair(B, X, P)
-            else:
-                BX, BP = apply_block_op(B, X), apply_block_op(B, P)
-            Bvb = (BX, BP)
-            W, nw, BW = lanes.cond(
-                orth, lambda: do_ortho(W, nw, X, P, np_act, Bvb=Bvb),
-                lambda: (W, nw, apply_block_op(B, W)))
-            Bblocks = (BX, BP, BW)
-        else:
-            W, nw = lanes.cond(orth, lambda: do_ortho(W, nw, X, P, np_act),
-                               lambda: (W, nw))
-            Bblocks = None
-
-        rr = rr_modified(W, nw, lanes.as_int(orth), Bblocks)
-        flag0 = rr.flag
-        retried = lanes.settle(flag0 == 2, live)
-        if lanes.any_(retried):
-            # Cholesky/cond failure: orthogonalize W and retry with the
-            # ortho branch (in a batch, for the problems that failed).
-            kept = (rr, W, nw) if lanes.is_lanes(retried) else None
+            # With cache_b, B@X and B@P are applied once and threaded
+            # through the ortho projector and the RR B-Gram.
+            orth = lanes.settle(use_ortho >= 1, live)
+            Bvb = None
             if cache_b:
-                W, nw, BW2 = do_ortho(W, nw, X, P, np_act, Bvb=Bvb)
-                Bblocks = (BX, BP, BW2)
+                if config.pack_applies:
+                    BX, BP = apply_block_op_pair(B, X, P)
+                else:
+                    BX, BP = apply_block_op(B, X), apply_block_op(B, P)
+                Bvb = (BX, BP)
+                W, nw, BW = lanes.cond(
+                    orth, lambda: do_ortho(W, nw, X, P, np_act, Bvb=Bvb),
+                    lambda: (W, nw, apply_block_op(B, W)))
+                Bblocks = (BX, BP, BW)
             else:
-                W, nw = do_ortho(W, nw, X, P, np_act)
+                W, nw = lanes.cond(orth,
+                                   lambda: do_ortho(W, nw, X, P, np_act),
+                                   lambda: (W, nw))
                 Bblocks = None
-            rr = rr_modified(W, nw, 1, Bblocks)
-            if kept is not None:
-                rr, W, nw = lanes.select(retried, (rr, W, nw), kept)
-                del kept
-        use_ortho = lanes.select(retried, 1, lanes.maximum(use_ortho, rr.flag))
-        retries = retries + lanes.as_int(flag0 == 2)
-        Bvb = Bblocks = None
 
-        blocks = (X, P, W)
-        Xn = b_mm(blocks, rr.Cx)
-        Pn = b_mm(blocks, rr.Cp)
-        del blocks
-        AXn = A.matmat(Xn)
-        Wres = get_residual(Xn, AXn, rr.lam, A, B)
-        if not config.use_ax_cache:
-            AXn = None
-        res = res_norm(Wres, rr.lam)
-        convn = masking.prefix_count(res <= config.tol)
+            rr = rr_modified(W, nw, lanes.as_int(orth), Bblocks)
+            flag0 = rr.flag
+            retried = lanes.settle(flag0 == 2, live)
+            if lanes.any_(retried):
+                # Cholesky/cond failure: orthogonalize W and retry with the
+                # ortho branch (in a batch, for the problems that failed).
+                kept = (rr, W, nw) if lanes.is_lanes(retried) else None
+                if cache_b:
+                    W, nw, BW2 = do_ortho(W, nw, X, P, np_act, Bvb=Bvb)
+                    Bblocks = (BX, BP, BW2)
+                else:
+                    W, nw = do_ortho(W, nw, X, P, np_act)
+                    Bblocks = None
+                rr = rr_modified(W, nw, 1, Bblocks)
+                if kept is not None:
+                    rr, W, nw = lanes.select(retried, (rr, W, nw), kept)
+                    del kept
+            use_ortho = lanes.select(retried, 1,
+                                     lanes.maximum(use_ortho, rr.flag))
+            retries = retries + lanes.as_int(flag0 == 2)
+            Bvb = Bblocks = None
 
-        # Soft-locking compaction for the next iteration.
-        act = m - convn
-        p_next = lanes.minimum(lanes.maximum(rr.p_count - convn, 0), act)
-        P = masking.shift_cols(Pn, convn, p_next)
-        W = masking.shift_cols(Wres, convn, act)
-        del Pn, Wres
+            with span(UPDATE):
+                blocks = (X, P, W)
+                Xn = b_mm(blocks, rr.Cx)
+                Pn = b_mm(blocks, rr.Cp)
+                del blocks
+                AXn = apply_block_op(A, Xn, "A")
+                Wres = get_residual(Xn, AXn, rr.lam, A, B)
+                if not config.use_ax_cache:
+                    AXn = None
+                res = res_norm(Wres, rr.lam)
+                convn = masking.prefix_count(res <= config.tol)
 
-        observe.log_iteration(config, "lobpcg", g, rr.lam, res, convn)
-        hist = observe.history_update(hist, g, rr.lam, res, convn, flag0, live)
-        X, AX, lam, conv, p_cnt = Xn, AXn, rr.lam, convn, p_next
-        it = it + 1
-        if old is not None:
-            (X, AX, P, W, lam, res, conv, p_cnt, use_ortho, it,
-             retries) = lanes.select(live, (X, AX, P, W, lam, res, conv,
-                                            p_cnt, use_ortho, it, retries),
-                                     old)
-            del old
-        g += 1
+                # Soft-locking compaction for the next iteration.
+                act = m - convn
+                p_next = lanes.minimum(lanes.maximum(rr.p_count - convn, 0),
+                                       act)
+                P = masking.shift_cols(Pn, convn, p_next)
+                W = masking.shift_cols(Wres, convn, act)
+                del Pn, Wres
+
+                observe.log_iteration(config, "lobpcg", g, rr.lam, res,
+                                      convn)
+                hist = observe.history_update(hist, g, rr.lam, res, convn,
+                                              flag0, live)
+                X, AX, lam, conv, p_cnt = Xn, AXn, rr.lam, convn, p_next
+                it = it + 1
+                if old is not None:
+                    (X, AX, P, W, lam, res, conv, p_cnt, use_ortho, it,
+                     retries) = lanes.select(live, (X, AX, P, W, lam, res,
+                                                    conv, p_cnt, use_ortho,
+                                                    it, retries), old)
+                    del old
+            g += 1
 
     return LOBPCGResult(
         eigenvalues=lam[..., :nev],

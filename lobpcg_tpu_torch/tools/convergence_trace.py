@@ -127,10 +127,11 @@ def device_breakdown(prof, wall: float, traced_wall: float) -> dict:
     seconds, and the idle share of the untraced and the traced wall."""
     sums, counts = {}, {}
     for evt in prof.key_averages():
-        # record_function ranges (profile_well.annotate_package) also
-        # appear on the device timeline, spanning the kernels they hold.
+        # The solver's spans (utils/profiling.py) also appear on the
+        # device timeline, spanning the kernels they hold.
         if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(
-                evt, "is_user_annotation", False) or "): " in evt.key:
+                evt, "is_user_annotation", False) or evt.key.startswith(
+                    "lobpcg."):
             continue
         us = getattr(evt, "device_time_total", None)
         if us is None:

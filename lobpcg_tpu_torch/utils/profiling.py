@@ -3,15 +3,65 @@
 ``trace`` is ``torch.profiler`` over the CPU and, where there is a card,
 its CUDA kernels, exported as a Chrome trace; ``timed`` times whole calls
 with the card synchronised around the timed window.
+
+``span(name)`` marks a phase of a solve.  Run a solve under
+``torch.profiler`` (or ``trace``) to see them: each span is a
+``record_function`` range, on the host thread and clock of the
+operations it holds, so each kernel can be traced to the span open when
+the host launched it.  With no profiler recording, ``span`` returns one
+shared no-op context (no range, no allocation, no clock read); the
+program keeps no buffer or flag of its own.  The names are fixed:
+
+    lobpcg.solve                one solve, from entry to result
+    lobpcg.iter                 one (lockstep) iteration of the host loop
+    lobpcg.apply.{A,B,T}        one operator apply (the filter in apply.T)
+    lobpcg.ortho                orthogonalization, its Grams and SVQB
+    lobpcg.rr                   Rayleigh-Ritz: the Grams and the k x k solve
+    lobpcg.update               projection, residual, convergence, stall
+    lobpcg.sync.{read,eigh,copy}  one point where the host waits on the
+                                device: a read, eigh's check, a copy
 """
 
 from __future__ import annotations
 
 import contextlib
+import functools
 import pathlib
 import time
 
 import torch
+
+SOLVE = "lobpcg.solve"
+ITER = "lobpcg.iter"
+APPLY = {"A": "lobpcg.apply.A", "B": "lobpcg.apply.B", "T": "lobpcg.apply.T"}
+ORTHO = "lobpcg.ortho"
+RR = "lobpcg.rr"
+UPDATE = "lobpcg.update"
+SYNC_READ = "lobpcg.sync.read"
+SYNC_EIGH = "lobpcg.sync.eigh"
+SYNC_COPY = "lobpcg.sync.copy"
+
+_OFF = contextlib.nullcontext()
+_recording = torch._C._autograd._profiler_enabled
+
+
+def span(name: str):
+    """A ``record_function`` range named ``name`` while a profiler
+    records, else the shared no-op context."""
+    if not _recording():
+        return _OFF
+    return torch.profiler.record_function(name)
+
+
+def spanned(name: str):
+    """Decorator: run the function inside ``span(name)``."""
+    def wrap(fn):
+        @functools.wraps(fn)
+        def inner(*args, **kwargs):
+            with span(name):
+                return fn(*args, **kwargs)
+        return inner
+    return wrap
 
 
 def _sync() -> None:

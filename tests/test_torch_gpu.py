@@ -1933,3 +1933,102 @@ def test_abs2_is_abs_squared_on_card(cuda_device, dtype):
     assert _same_bits(_residual.col_norms(X), torch.sqrt(torch.sum(old, dim=-2)))
     assert _same_bits(_gram.tall_frob_norm(X[:1000]),
                       torch.sqrt(torch.sum(old[:1000], dim=(-2, -1))))
+
+
+# --- Spans (utils/profiling.py) on the device trace's clock -------------------
+
+import json  # noqa: E402
+
+from lobpcg_tpu_torch.utils import profiling  # noqa: E402
+
+# Host calls that wait for the device: the reads' stream synchronisation,
+# and any synchronous copy or device-wide wait.
+BLOCKING = ("cudaStreamSynchronize", "cudaDeviceSynchronize", "cudaMemcpy",
+            "cudaEventSynchronize", "cuStreamSynchronize", "cuCtxSynchronize")
+_PHASE_PREFIXES = ("lobpcg.apply.", "lobpcg.ortho", "lobpcg.rr",
+                   "lobpcg.update")
+
+
+def _innermost_at(spans, t):
+    """The innermost of the (start, end, name) spans open at t."""
+    open_ = [s for s in spans if s[0] <= t < s[1]]
+    return min(open_, key=lambda s: s[1] - s[0]) if open_ else None
+
+
+@pytest.mark.gpu
+def test_spans_mark_every_sync_of_a_solve_on_card(cuda_device, tmp_path):
+    """A small BdG well solve traced on the card: every blocking host
+    call inside lobpcg.solve lies in a lobpcg.sync.* span and every span
+    holds one, so the spans count the points where the host waits (an
+    eigh of one matrix waits twice: cuSOLVER's own synchronisation and
+    torch's read of its status); the device runs each stream's operations
+    in the order of the launch calls the trace matches them to; the work
+    launched outside every phase is at most 2% of the device's busy
+    time."""
+    m, well, dt = 100_000, 1024, torch.float32
+    lo = (m - well) // 2
+    V = np.full(m, 2.0)
+    V[lo : lo + well] = 1.0
+    Vd = torch.as_tensor(np.concatenate([V, V]), dtype=dt, device=cuda_device)
+    A = tl.Laplacian1D(scale=1.0, n=2 * m, segments=2, dtype=dt) \
+        + tl.DiagonalOperator(Vd)
+    B = tl.BlockAntiDiagOperator(d=torch.ones(m, dtype=dt, device=cuda_device))
+    T = tl.ChebyshevFilter(op=A, lo=2.0, hi=6.1, degree=3)
+    u = np.zeros((m, 24), np.float32)
+    u[lo : lo + well] = np.random.RandomState(42).uniform(-0.5, 0.5, (well, 24))
+    X0 = torch.as_tensor(np.concatenate([u, u]), device=cuda_device)
+    cfg = tl.SolverConfig(nev=16, size_sub=24, tol=1e-5, max_iter=300)
+
+    def solve():
+        return tl.ilobpcg(A, X0, B, T, config=cfg, generator=torch.Generator(
+            device=cuda_device).manual_seed(0))
+
+    solve()  # kernels built, library handles made
+    with profiling.trace(tmp_path):
+        r = solve()
+    assert r.converged == 16
+    events = [e for e in json.loads((tmp_path / "trace.json").read_text())[
+        "traceEvents"] if e.get("ph") == "X"]
+
+    def iv(e):
+        return float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)), e["name"]
+
+    solve_ev = next(e for e in events if e["name"] == profiling.SOLVE)
+    tid = solve_ev["tid"]
+    s0, s1, _ = iv(solve_ev)
+    host = [e for e in events if e.get("tid") == tid]
+    ours = [iv(e) for e in host if e.get("cat") in ("user_annotation", "cpu_op")
+            and e["name"].startswith("lobpcg.")]
+    syncs = [s for s in ours if s[2].startswith("lobpcg.sync.")]
+    phases = [s for s in ours if s[2].startswith(_PHASE_PREFIXES)]
+    blocking = [iv(e) for e in host if e.get("cat") in ("cuda_runtime",
+                                                        "cuda_driver")
+                and e["name"] in BLOCKING and s0 <= float(e["ts"]) < s1]
+    outside = [b for b in blocking
+               if not any(s[0] <= b[0] and b[1] <= s[1] for s in syncs)]
+    assert blocking and outside == [], outside[:5]
+    empty = [s for s in syncs
+             if not any(s[0] <= b[0] and b[1] <= s[1] for b in blocking)]
+    assert syncs and empty == [], empty[:5]
+
+    launches = {e["args"]["correlation"]: float(e["ts"]) for e in host
+                if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                and "correlation" in e.get("args", {})}
+    device = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy",
+                                                     "gpu_memset")]
+    ours_dev = [e for e in device
+                if s0 <= launches.get(e["args"]["correlation"], -1.0) < s1]
+    assert ours_dev
+    # Each device operation is matched to its launch call by correlation:
+    # on each stream the operations run in the order of their launches.
+    # (The device's times are not compared with the host's: the profiler
+    # may place them milliseconds apart, by an amount that moves.)
+    for stream in {e["args"].get("stream") for e in ours_dev}:
+        starts = [float(e["ts"]) for e in sorted(
+            (e for e in ours_dev if e["args"].get("stream") == stream),
+            key=lambda e: launches[e["args"]["correlation"]])]
+        assert starts == sorted(starts), stream
+    busy = sum(float(e["dur"]) for e in ours_dev)
+    unphased = sum(float(e["dur"]) for e in ours_dev if _innermost_at(
+        phases, launches[e["args"]["correlation"]]) is None)
+    assert unphased <= 0.02 * busy, (unphased, busy)
