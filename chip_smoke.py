@@ -7,8 +7,8 @@ non-zero; there is no CPU fallback):
 
 1. device     — requires CUDA; the card's name and power limit.
 2. build      — builds the kernels (csrc/stencil1d.cu, stencil3d.cu,
-                bsr.cu, copy.cu, tail.cu) with nvcc, one process per
-                source, all at once.
+                bsr.cu, copy.cu, tail.cu, gram.cu) with nvcc, one process
+                per source, all at once.
 3. kernel K1  — the 1-D stencil against its plain version and cuDNN's
                 depthwise conv1d (lobpcg_tpu_torch/tools/
                 stencil_widths.py) at the BdG solve's shapes, the
@@ -41,6 +41,13 @@ non-zero; there is no CPU fallback):
                 equal to its plain version and to the eager chain it
                 replaces, bit for bit; on finite inputs timed beside both
                 and its bound.
+   kernel gram — the tall Gram V^T U (csrc/gram.cu) at [4M, 164] and
+                [4M, 64] (the 4M x 150 and 4M x 56 solves' Grams) and
+                [4.1M, 16], its error against the float64 product no worse
+                than torch.matmul's, then at widths 1-256 over 4M rows:
+                launched once, two launches bit for bit; ms beside its
+                bound, the plain version and torch.matmul, and the route
+                ops/gram.py takes there.
 4. kernel K7  — the streaming copy against its plain version (clone) at
                 [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
                 GB/s, bound, and Tensor.copy_ as the library time.
@@ -277,6 +284,7 @@ from lobpcg_tpu_torch.ops import residual as resid
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import build as cuda_build
 from lobpcg_tpu_torch.ops.cuda import copy as k7
+from lobpcg_tpu_torch.ops.cuda import gram as kg
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 from lobpcg_tpu_torch.ops.cuda import tail
@@ -386,6 +394,10 @@ KERNELS = {
                      "lobpcg_tpu/ops/ortho.py:231"),
     "tail_compact": (tail.compact, "lobpcg_tpu_torch/csrc/tail.cu",
                      "lobpcg_tpu/ops/masking.py:60"),
+    # The tall Gram V^H U: XLA's dot at HIGHEST in the JAX package (no
+    # pallas_call; "replaces" names the contraction).
+    "tall_gram": (kg.tall_gram, "lobpcg_tpu_torch/csrc/gram.cu",
+                  "lobpcg_tpu/ops/gram.py:_hdot"),
 }
 TAIL = ("tail_antidiag", "tail_residual", "tail_combine", "tail_compact")
 
@@ -454,7 +466,7 @@ def free() -> None:
 def build_phase() -> None:
     t0 = time.perf_counter()
     recs = cuda_build.build_all(["stencil1d", "stencil3d", "bsr", "copy",
-                                 "tail"])
+                                 "tail", "gram"])
     for rec in recs:
         emit({"phase": "build", "kernel": rec["name"], "nvcc_ran": rec["built"],
               "nvcc_s": rec["seconds"],
@@ -752,6 +764,63 @@ def tail_phase(dev) -> list[dict]:
     for case in TAIL_SHAPES:
         recs += tail_case(dev, *case)
     return recs
+
+
+# The tall Gram (csrc/gram.cu): the 4M x 150 and 4M x 56 solves' Grams
+# and [4.1M, 16] (a Chebyshev chunk's width), then the widths of the
+# port's other tall Grams (the 3-D solves' 16 and 48, the lockstep's 30,
+# the realify path's 60) and the kernel's range at n 4M, for the dispatch.
+GRAM_SHAPES = ((4_000_000, 164), (4_000_000, 64), (4_100_000, 16))
+GRAM_WIDTHS = (1, 4, 8, 12, 30, 32, 48, 60, 96, 100, 128, 150, 200, 256)
+
+
+def gram_case(dev, n, k, strict: bool = True) -> dict:
+    """V^T U of V, U [n, k] (uniform [0, 1) and standard normal): the
+    kernel launched once, two launches bit for bit, and (``strict``) its
+    largest error against the float64 product relative to the largest
+    entry no worse than torch.matmul's; then ms beside its bound, the
+    plain version and torch.matmul (cuBLAS's nt kernel, which the port no
+    longer calls where ops/gram.py dispatches the kernel; the plain
+    version is that same call, on the CPU's route) and which of the two
+    ops/gram.py runs at this shape."""
+    gen = torch.Generator(device=dev).manual_seed(19)
+    V = torch.rand((n, k), generator=gen, device=dev)
+    U = torch.randn((n, k), generator=gen, device=dev)
+    want = torch.matmul(V.double().mT, U.double())
+    before = kg.tall_gram.launches
+    got = kg.tall_gram(V, U)
+    launched = kg.tall_gram.launches - before
+    again = kg.tall_gram(V, U)
+    lib = torch.matmul(V.mT, U)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got.double() - want).abs().max())
+    rec = {"phase": "kernel", "name": "tall_gram", "shape": [n, k, k],
+           "launched": launched, "repeats": bool(torch.equal(got, again)),
+           "max_abs_err": err, "max_rel_err": err / scale,
+           "library_max_rel_err":
+               float((lib.double() - want).abs().max()) / scale}
+    del want, got, again, lib
+    rec["route"] = gram._tall_route(V, U)
+    if not (launched == 1 and rec["repeats"]) or (
+            strict and rec["max_rel_err"] > rec["library_max_rel_err"]):
+        emit(rec)
+        raise AssertionError(f"tall Gram at [{n}, {k}]: {rec}")
+    rec.update({"ms": timed_untracked(lambda: kg.tall_gram(V, U)),
+                "plain_ms": time_ms(lambda: kg.tall_gram_reference(V, U)),
+                "library_ms": time_ms(lambda: torch.matmul(V.mT, U)),
+                **bound(2 * n * k * 4 + k * k * 4, 2 * n * k * k)})
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    emit(rec)
+    del V, U
+    free()
+    return rec
+
+
+def gram_phase(dev) -> list[dict]:
+    """The tall Gram at GRAM_SHAPES, then at GRAM_WIDTHS over 4M rows."""
+    return ([gram_case(dev, n, k) for n, k in GRAM_SHAPES]
+            + [gram_case(dev, N_MAIN, k, strict=False) for k in GRAM_WIDTHS])
 
 
 def quickstart_phase(dev) -> None:
@@ -2858,6 +2927,7 @@ def main() -> None:
     k1_recs = kernel_phase(dev)
     fused_recs = fused_phase(dev)
     tail_recs = tail_phase(dev)
+    gram_recs = gram_phase(dev)
     k7_recs = copy_phase(dev)
     quickstart_phase(dev)
     main_rec, main_lam = main_phase(dev, "highest")
@@ -2970,6 +3040,10 @@ def main() -> None:
         *(kernel_entry(name, main_rec["launches"][name],
                        [r for r in tail_recs if r["name"].startswith(name)],
                        tail_at[name]) for name in TAIL),
+        # The tall Gram at the 4M x 150 solve's [4M, 164], launched on the
+        # BdG solve (its [4M, 64] Grams).
+        kernel_entry("tall_gram", main_rec["launches"]["tall_gram"], gram_recs,
+                     gram_recs[0]),
     ]}
     emit(kernels)
     idle = [e["name"] for e in kernels["kernels"] if e["launches"] < 1]

@@ -1,9 +1,11 @@
 """Gram-matrix assembly: the contraction-over-n hot spot (port of
 ``lobpcg_tpu/ops/gram.py``).
 
-One ``torch.matmul`` per Gram: a [k, n] x [n, k] contraction that goes to
-cuBLAS on the GPU.  The full k x k matrix is always formed (k <= 3 *
-size_sub); ``eigh`` symmetrizes the round-off.
+One product per Gram: a [k, n] x [n, k] contraction.  On the card a tall
+2-D real f32 pair goes to the hand-written kernel ``csrc/gram.cu``
+(``ops/cuda/gram.py:tall_gram``), every other product to
+``torch.matmul`` (cuBLAS).  The full k x k matrix is always formed (k <=
+3 * size_sub); ``eigh`` symmetrizes the round-off.
 
 Under a row group (a sharded solve, ``ops/rows.py``) every contraction
 over the rows of tall blocks (``_hdot`` and the Grams built on it) is
@@ -25,6 +27,7 @@ import torch
 
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops import masking
+from lobpcg_tpu_torch.ops.cuda import gram as gram_kernel
 from lobpcg_tpu_torch.ops.cuda import tail
 from lobpcg_tpu_torch.ops.rows import row_sum
 from lobpcg_tpu_torch.utils.profiling import APPLY, span
@@ -181,20 +184,60 @@ def _split_rows(n: int) -> int:
     return _SPLIT_MAX
 
 
-def _tall_hmm(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
-    """V^H @ U for tall blocks.  A batched pair [b, n, k] is cut into
-    pieces of ``_split_rows(n)`` rows that run as one batched GEMM, and
-    the pieces' products (and that of the rows left over) are summed:
-    cuBLAS's strided-batched GEMM gives each problem's small output to a
-    few thread blocks that run the whole n-long reduction in f32, slow
-    and less accurate than the split over rows its unbatched GEMM
-    makes."""
+# Rows from which a 2-D Gram on the card is tall enough for csrc/gram.cu.
+_KERNEL_MIN_ROWS = 65_536
+
+
+def _kernel_widths(kv: int, ku: int) -> bool:
+    """Widths at which csrc/gram.cu ran faster than cuBLAS on the card
+    (4M rows, PERF.md's tall Gram row): both from 4 up to 96, where one
+    block's tile holds the whole Gram and the product is byte-bound or
+    nearly, and both in (128, 168], where one tile of up to 441 threads
+    covers it.  cuBLAS's 64 x 64 tiles won at 100-128 and at 200 and 256
+    (two tiles a side; 169-199 stays cuBLAS's too, untimed but 176), and
+    its dot kernel at width 1, faster and with half the error."""
+    lo, hi = min(kv, ku), max(kv, ku)
+    return (4 <= lo and hi <= 96) or (128 < lo and hi <= 168)
+
+
+def _kernel_takes(V: torch.Tensor, U: torch.Tensor) -> bool:
+    """Does a pair on the card go to ``gram_kernel.tall_gram``?  Both
+    2-D, real f32, column stride 1 (``gram_kernel.takes``), n >=
+    _KERNEL_MIN_ROWS and widths the kernel wins at (``_kernel_widths``),
+    by shape, dtype and layout alone."""
+    return (V.shape[-2] >= _KERNEL_MIN_ROWS and gram_kernel.takes(V, U)
+            and _kernel_widths(V.shape[-1], U.shape[-1]))
+
+
+def _tall_route(V: torch.Tensor, U: torch.Tensor) -> str:
+    """The product ``_tall_hmm`` runs: "kernel" (csrc/gram.cu: a pair on
+    the card that ``_kernel_takes``), "split" (a batched pair cut over
+    rows) or "matmul" (one ``torch.matmul``: the k x k ``_mat`` Grams,
+    complex and f64 blocks, the widened ``rr_dtype`` chunks, CPU
+    tensors)."""
     if V.dim() == 2:
+        if V.is_cuda and U.is_cuda and _kernel_takes(V, U):
+            return "kernel"
+        return "matmul"
+    n = V.shape[-2]
+    return "matmul" if _split_rows(n) == n else "split"
+
+
+def _tall_hmm(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """V^H @ U for tall blocks, by ``_tall_route``.  A batched pair [b, n,
+    k] is cut into pieces of ``_split_rows(n)`` rows that run as one
+    batched GEMM, and the pieces' products (and that of the rows left
+    over) are summed: cuBLAS's strided-batched GEMM gives each problem's
+    small output to a few thread blocks that run the whole n-long
+    reduction in f32, slow and less accurate than the split over rows
+    its unbatched GEMM makes."""
+    route = _tall_route(V, U)
+    if route == "kernel":
+        return gram_kernel.tall_gram(V, U)
+    if route == "matmul":
         return torch.matmul(V.mH, U)
     n = V.shape[-2]
     r = _split_rows(n)
-    if r == n:
-        return torch.matmul(V.mH, U)
     m = n - n % r
     lead = V.shape[:-2]
     Vs = V[..., :m, :].reshape(lead + (m // r, r, V.shape[-1]))

@@ -6,7 +6,7 @@ not installed:
 
 Each kernel (K1 stencil and its fused forms stencil_diag and
 cheb_step, K2 3-D stencil, K3/K4/K5/K6 block-sparse SpMMs, K7 streaming
-copy) is held against its plain PyTorch version on the card (the fused
+copy, the tall Gram) is held against its plain PyTorch version on the card (the fused
 forms also against the eager chain they replace, bit for bit), and
 small solves must go through the kernels; the row-sharded layer runs at
 world size 1 on NCCL.
@@ -19,6 +19,7 @@ import torch
 import lobpcg_tpu_torch as tl
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import copy as k7
+from lobpcg_tpu_torch.ops.cuda import gram as kg
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 
@@ -2032,3 +2033,111 @@ def test_spans_mark_every_sync_of_a_solve_on_card(cuda_device, tmp_path):
     unphased = sum(float(e["dur"]) for e in ours_dev if _innermost_at(
         phases, launches[e["args"]["correlation"]]) is None)
     assert unphased <= 0.02 * busy, (unphased, busy)
+
+
+# --- the tall Gram (csrc/gram.cu) ----------------------------------------------
+
+
+def _gram_operands(n, kv, ku, dist, sliced, device, seed):
+    """V [n, kv] and U [n, ku] on the card, uniform [0, 1) (sums of n
+    positive terms) or standard normal; ``sliced``: V a column slice of a
+    wider block (row stride kv + 8, 16 bytes past the row's start)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    draw = torch.rand if dist == "uniform" else torch.randn
+    V = draw((n, kv + 8 if sliced else kv), generator=gen, device=device)
+    if sliced:
+        V = V[:, 4:4 + kv]
+    return V, draw((n, ku), generator=gen, device=device)
+
+
+def _gram_errors(V, U):
+    """The kernel's and torch.matmul's largest error against the float64
+    product, relative to its largest entry."""
+    from lobpcg_tpu_torch.ops.gram import precision_ctx
+
+    with precision_ctx("highest"):  # TF32 off for the yardstick too
+        want = torch.matmul(V.double().mT, U.double())
+        lib = torch.matmul(V.mT, U)
+        before = kg.tall_gram.launches
+        got = kg.tall_gram(V, U)
+        assert kg.tall_gram.launches == before + 1
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    return (float((got.double() - want).abs().max()) / scale,
+            float((lib.double() - want).abs().max()) / scale)
+
+
+# (n, kv, ku, V a column slice): the solves' shapes, and every width at
+# 2 x 500,009 rows (a row count with no divisor near 8,192).
+GRAM_CASES = ([(4_000_000, 164, 164, False), (4_000_000, 64, 64, False),
+               (1_000_000, 164, 164, False), (1_000_018, 164, 164, True),
+               (4_000_000, 60, 60, True)]
+              + [(1_000_018, k, k, False) for k in (1, 16, 30, 63, 65, 163, 164, 256)]
+              + [(1_000_018, 16, 164, False), (1_000_018, 256, 30, True)])
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,kv,ku,sliced", GRAM_CASES)
+@pytest.mark.parametrize("dist", ["uniform", "randn"])
+def test_tall_gram_accuracy_on_card(cuda_device, n, kv, ku, sliced, dist):
+    """The kernel's largest error relative to the largest entry of the
+    float64 product is no worse than torch.matmul's on the same inputs,
+    from width 4.  At width 1 cuBLAS runs a dot kernel that sums more
+    accurately (and faster): ops/gram.py keeps it there."""
+    from lobpcg_tpu_torch.ops import gram
+
+    V, U = _gram_operands(n, kv, ku, dist, sliced, cuda_device, seed=kv + ku)
+    err, lib_err = _gram_errors(V, U)
+    if min(kv, ku) >= 4:
+        assert err <= lib_err, (err, lib_err)
+    else:
+        assert gram._tall_route(V, U) == "matmul"
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,kv,ku", [(4_000_000, 164, 164), (1_000_018, 16, 16),
+                                     (1_000_018, 256, 256)])
+def test_tall_gram_repeats_bit_for_bit_on_card(cuda_device, n, kv, ku):
+    V, U = _gram_operands(n, kv, ku, "randn", False, cuda_device, seed=5)
+    first = kg.tall_gram(V, U)
+    assert torch.equal(kg.tall_gram(V, U), first)
+
+
+@pytest.mark.gpu
+def test_tall_gram_rejects_what_it_does_not_take(cuda_device):
+    X = torch.zeros((4096, 64), device=cuda_device)
+    for V, U in ((X.double(), X.double()), (X.mT[:, :64], X[:64]),
+                 (torch.zeros((4096, 257), device=cuda_device), X),
+                 (X, X[:100]), (X[None], X[None])):
+        with pytest.raises(ValueError):
+            kg.tall_gram(V, U)
+
+
+@pytest.mark.gpu
+def test_well_solve_takes_every_tall_gram_through_the_kernel(cuda_device):
+    """In a short ilobpcg on the well at n 262,144, every 2-D f32 tall
+    Gram (n >= 65,536) is one kernel launch."""
+    from lobpcg_tpu_torch.benchmarks.solve_bdg import well_problem
+    from lobpcg_tpu_torch.ops import gram
+
+    A, B, T, X0, _, _ = well_problem(262_144, 8, 16, dtype=torch.float32, cheb=3,
+                                     precond=True, device=cuda_device)
+    seen = []
+    tall_hmm = gram._tall_hmm
+
+    def spy(V, U):
+        if (V.dim() == 2 and V.dtype == torch.float32
+                and V.shape[0] >= gram._KERNEL_MIN_ROWS):
+            seen.append((tuple(V.shape), tuple(U.shape)))
+        return tall_hmm(V, U)
+
+    gram._tall_hmm = spy
+    try:
+        before = kg.tall_gram.launches
+        r = tl.ilobpcg(A, X0, B, T, nev=8, size_sub=16, tol=1e-5, max_iter=6,
+                       generator=torch.Generator(device=cuda_device).manual_seed(0))
+        launches = kg.tall_gram.launches - before
+    finally:
+        gram._tall_hmm = tall_hmm
+    assert r.iterations >= 1 and seen
+    assert launches == len(seen), (launches, len(seen))
