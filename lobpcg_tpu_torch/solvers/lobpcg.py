@@ -7,6 +7,9 @@ blocks keep the JAX package's fixed [n, m] shapes with dead columns
 exactly zero, and the live-column counts are Python ints.  Beyond the
 reads the ortho loops' early exits and the SVQB kept counts need, each
 iteration reads the RR's retry flag and the residual norms once.
+``live_cols`` counts the live W and P columns each Rayleigh-Ritz takes,
+summed over the iterations (a Python int; [b] lanes in a batch): the
+tall work runs on all 2 m columns of W and P, the others dead.
 
 Lockstep batched solves (what ``jax.vmap`` gives the JAX package): an
 X0 of shape [b, n, m] solves b problems in one loop, one set of launches
@@ -285,7 +288,7 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
         AX = None
 
     P, p_cnt = _start_momentum(P0, p0_cnt, lead, n_loc, m, dtype, device)
-    conv = use_ortho = it = retries = lanes.zeros(nb, device)
+    conv = use_ortho = it = retries = live_cols = lanes.zeros(nb, device)
     hist = observe.history_init(config, m, lam.dtype, res.dtype, device, lead)
     cache_b = config.use_b_cache and B is not None
 
@@ -317,7 +320,7 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
             # selected back at the end of the iteration.
             live = True if every else run
             old = None if every else (X, AX, P, W, lam, res, conv, p_cnt,
-                                      use_ortho, it, retries)
+                                      use_ortho, it, retries, live_cols)
             np_act = lanes.minimum(p_cnt, m - conv)
             nw = lanes.select(it == 0, m, m - conv)
 
@@ -364,6 +367,7 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
             use_ortho = lanes.select(retried, 1,
                                      lanes.maximum(use_ortho, rr.flag))
             retries = retries + lanes.as_int(flag0 == 2)
+            live_cols = live_cols + nw + np_act
             Bvb = Bblocks = None
 
             with span(UPDATE):
@@ -394,9 +398,9 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
                 it = it + 1
                 if old is not None:
                     (X, AX, P, W, lam, res, conv, p_cnt, use_ortho, it,
-                     retries) = lanes.select(live, (X, AX, P, W, lam, res,
-                                                    conv, p_cnt, use_ortho,
-                                                    it, retries), old)
+                     retries, live_cols) = lanes.select(
+                        live, (X, AX, P, W, lam, res, conv, p_cnt, use_ortho,
+                               it, retries, live_cols), old)
                     del old
             g += 1
 
@@ -410,6 +414,7 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
         momentum=P,
         history=hist,
         ortho_retries=retries,
+        live_cols=live_cols,
     )
 
 

@@ -36,6 +36,7 @@ class LOBPCGResult(NamedTuple):
     momentum: Optional[torch.Tensor] = None  # P block (warm restart P0)
     history: Optional[SolveHistory] = None
     ortho_retries: Optional[int] = None  # Cholesky-path RR retries
+    live_cols: Optional[int] = None  # sum over iterations of live W + P columns at the RR
 
 
 class ILOBPCGResult(NamedTuple):
