@@ -7,7 +7,7 @@ non-zero; there is no CPU fallback):
 
 1. device     — requires CUDA; the card's name and power limit.
 2. build      — builds the kernels (csrc/stencil1d.cu, stencil3d.cu,
-                bsr.cu, copy.cu, tail.cu, gram.cu) with nvcc, one process
+                bsr.cu, copy.cu, tail.cu, gram.cu, proj.cu) with nvcc, one process
                 per source, all at once.
 3. kernel K1  — the 1-D stencil against its plain version and cuDNN's
                 depthwise conv1d (lobpcg_tpu_torch/tools/
@@ -48,6 +48,16 @@ non-zero; there is no CPU fallback):
                 launched once, two launches bit for bit; ms beside its
                 bound, the plain version and torch.matmul, and the route
                 ops/gram.py takes there.
+   kernel proj — the tall projection live * (U - sum_i V_i C_i)
+                (csrc/proj.cu) at the three solve cells' widths (164, 64,
+                16) in b_mm's form (3 terms), the ortho update's (U, 2
+                terms, a count) and SVQB's (1 term, a count), then b_mm's
+                form at widths 4, 96, 129, 168 over 4M rows: launched once,
+                two launches bit for bit, its error against the float64
+                projection no worse than cuBLAS's GEMMs plus combine (and
+                whether it equals them bit for bit); ms beside its bound,
+                the plain version and that cuBLAS route, and the route
+                ops/gram.py takes there.
 4. kernel K7  — the streaming copy against its plain version (clone) at
                 [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
                 GB/s, bound, and Tensor.copy_ as the library time.
@@ -56,13 +66,16 @@ non-zero; there is no CPU fallback):
                 lobpcg_tpu_torch/benchmarks/solve_bdg.py at n 4,000,000,
                 nev 56, size_sub 64, Chebyshev degree 3, f32, against its
                 dense well oracle; A must go through stencil_diag, T
-                through cheb_step (K1's fused forms) and each tail kernel
-                must launch at least once an iteration.  Run under
+                through cheb_step (K1's fused forms), each tail kernel but
+                combine and the tall projection must launch at least once
+                an iteration, and every projection must take the kernel's
+                route (none cuBLAS's).  Run under
                 gram_precision "highest" and "high" (both TF32-free), and
                 once more under "highest" through the eager chain (the
                 diagonal as a ChainDiagonal, which the fused route does
                 not take: K1 and PyTorch's passes; the solve inside
-                tail.eager_chain(): no tail kernel): the same eigenvalues
+                tail.eager_chain(): no tail kernel, the projections
+                cuBLAS's GEMMs and eager adds): the same eigenvalues
                 (torch.equal) and iterations, as many K1 launches as the
                 K1 family made, a peak no higher than the chain's.
 7. bench      — the SpMM headline, lobpcg_tpu_torch.bench.measure_spmm
@@ -285,6 +298,7 @@ from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import build as cuda_build
 from lobpcg_tpu_torch.ops.cuda import copy as k7
 from lobpcg_tpu_torch.ops.cuda import gram as kg
+from lobpcg_tpu_torch.ops.cuda import proj as kp
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 from lobpcg_tpu_torch.ops.cuda import tail
@@ -294,7 +308,7 @@ from lobpcg_tpu_torch.parallel.sharding import (
     GatheredOperator,
 )
 from lobpcg_tpu_torch.physics.bdg import BlockDiag2Operator
-from lobpcg_tpu_torch.tools import stencil_widths
+from lobpcg_tpu_torch.tools import proj_widths, stencil_widths
 from lobpcg_tpu_torch.utils import native
 
 N_MAIN = 4_000_000
@@ -398,6 +412,10 @@ KERNELS = {
     # pallas_call; "replaces" names the contraction).
     "tall_gram": (kg.tall_gram, "lobpcg_tpu_torch/csrc/gram.cu",
                   "lobpcg_tpu/ops/gram.py:_hdot"),
+    # The tall projection live * (U - sum_i V_i C_i): XLA's dot and its
+    # fusion in the JAX package (no pallas_call; "replaces" names b_mm).
+    "tall_proj": (kp.project, "lobpcg_tpu_torch/csrc/proj.cu",
+                  "lobpcg_tpu/ops/gram.py:b_mm"),
 }
 TAIL = ("tail_antidiag", "tail_residual", "tail_combine", "tail_compact")
 
@@ -466,7 +484,7 @@ def free() -> None:
 def build_phase() -> None:
     t0 = time.perf_counter()
     recs = cuda_build.build_all(["stencil1d", "stencil3d", "bsr", "copy",
-                                 "tail", "gram"])
+                                 "tail", "gram", "proj"])
     for rec in recs:
         emit({"phase": "build", "kernel": rec["name"], "nvcc_ran": rec["built"],
               "nvcc_s": rec["seconds"],
@@ -823,6 +841,77 @@ def gram_phase(dev) -> list[dict]:
             + [gram_case(dev, N_MAIN, k, strict=False) for k in GRAM_WIDTHS])
 
 
+# The tall projection (csrc/proj.cu): the 4M x 150, 4M x 56 and 160^3
+# solves' widths in b_mm's form (3 terms), the ortho update's (U, 2 terms,
+# a live count) and SVQB's (1 term, a live count), then b_mm's form at
+# the widths of the dispatch's edges.
+PROJ_SHAPES = tuple((n, terms, m) for n, m in ((4_000_000, 164), (4_000_000, 64),
+                                               (4_096_000, 16))
+                    for terms in (3, 2, 1))
+PROJ_WIDTHS = (4, 96, 129, 168)
+
+
+def proj_case(dev, n, terms, m) -> dict:
+    """live * (U - sum_i V_i C_i) of ``terms`` uniform [0, 1) blocks [n, m]
+    and standard normal C and U: the kernel launched once, two launches
+    bit for bit, its largest error against the float64 projection
+    relative to the largest entry no worse than the cuBLAS GEMMs plus
+    combine it replaces (ops/gram.py:_gemms_combined; whether the two are
+    equal bit for bit is recorded); then ms beside its
+    bound, the plain version (project_reference: torch.matmul a term and
+    combine's plain chain) and that cuBLAS route, and the route
+    ops/gram.py takes at this shape."""
+    with_u = terms == 2
+    live = m - 3 if terms < 3 else None
+    blocks, C, U = proj_widths.operands(n, (m,) * terms, m, with_u, dev,
+                                        seed=22 + m + terms)
+    want = torch.zeros((n, m), dtype=torch.float64, device=dev)
+    for i, b in enumerate(blocks):
+        want += torch.matmul(b.double(), C[i * m:(i + 1) * m].double())
+    if with_u:
+        want = U.double() - want
+    if live is not None:
+        want[:, live:] = 0.0
+    before = kp.project.launches
+    got = kp.project(blocks, C, U, live)
+    launched = kp.project.launches - before
+    again = kp.project(blocks, C, U, live)
+    lib = gram._gemms_combined(blocks, C, U, live)
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    err = float((got.double() - want).abs().max())
+    rec = {"phase": "kernel", "name": "tall_proj", "shape": [n, terms, m],
+           "u": with_u, "live": live, "launched": launched,
+           "repeats": bool(torch.equal(got, again)),
+           "max_abs_err": err, "max_rel_err": err / scale,
+           "library_max_rel_err":
+               float((lib.double() - want).abs().max()) / scale,
+           "equal_to_library": bool(torch.equal(got, lib)),
+           "route": gram._proj_route(blocks, C, U, live)}
+    del want, got, again, lib
+    if not (launched == 1 and rec["repeats"]
+            and rec["max_rel_err"] <= rec["library_max_rel_err"]):
+        emit(rec)
+        raise AssertionError(f"tall projection at {[n, terms, m]}: {rec}")
+    out = torch.empty((n, m), device=dev)
+    rec.update({"ms": timed_untracked(lambda: kp.project(blocks, C, U, live, out=out)),
+                "plain_ms": time_ms(lambda: kp.project_reference(blocks, C, U, live)),
+                "library_ms": time_ms(lambda: gram._gemms_combined(blocks, C, U, live)),
+                **proj_widths.proj_bound(n, terms * m, m, with_u)})
+    rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
+    emit(rec)
+    del blocks, C, U, out
+    free()
+    return rec
+
+
+def proj_phase(dev) -> list[dict]:
+    """The tall projection at PROJ_SHAPES, then b_mm's form at PROJ_WIDTHS
+    over 4M rows."""
+    return ([proj_case(dev, *shape) for shape in PROJ_SHAPES]
+            + [proj_case(dev, N_MAIN, 3, m) for m in PROJ_WIDTHS])
+
+
 def quickstart_phase(dev) -> None:
     """README quick start: the standard solver on the 1-D Laplacian."""
     n = 256
@@ -899,12 +988,15 @@ def main_phase(dev, precision: str, chain: bool = False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
+    routes = (gram._projected.kernel, gram._projected.cublas)
     t0 = time.perf_counter()
     with tail.eager_chain() if chain else contextlib.nullcontext():
         r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen)
         lam32 = r.eigenvalues.cpu()
     wall = time.perf_counter() - t0
     counts = read_counts()
+    routes = {"kernel": gram._projected.kernel - routes[0],
+              "cublas": gram._projected.cublas - routes[1]}
     lam = lam32.double().numpy()
 
     exact = solve_bdg.well_eigs_oracle(solve_bdg.WELL, NEV, solve_bdg.BARRIER)
@@ -916,7 +1008,7 @@ def main_phase(dev, precision: str, chain: bool = False):
         "tol": TOL, "gram_precision": precision,
         "converged": r.converged, "iterations": r.iterations,
         "quality5": r.quality5_count, "rr_failed": r.rr_fail_count,
-        "wall_s": wall, "launches": counts,
+        "wall_s": wall, "launches": counts, "proj_routes": routes,
         "max_rel_err": float(rel.max()),
         "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30,
     }
@@ -936,21 +1028,28 @@ def main_phase(dev, precision: str, chain: bool = False):
             f"iterations (fused: A through stencil_diag, T through cheb_step; "
             f"chain: K1 alone)"
         )
-    tail_launches = [counts[name] for name in TAIL]
-    if (any(tail_launches) if chain else min(tail_launches) < r.iterations):
+    # Fused, every tall projection is csrc/proj.cu's (the route counts:
+    # none to cuBLAS), which also sums the terms, so combine need not run.
+    fused_tail = [name for name in TAIL if name != "tail_combine"] + ["tall_proj"]
+    tail_launches = [counts[name] for name in TAIL + ("tall_proj",)]
+    if (any(tail_launches) or rec["proj_routes"]["kernel"] if chain
+            else min(counts[name] for name in fused_tail) < r.iterations
+            or rec["proj_routes"]["cublas"]):
         raise AssertionError(
-            f"the tail kernels launched {dict(zip(TAIL, tail_launches))} in "
-            f"{r.iterations} iterations (fused: each at least once an "
-            f"iteration; chain: none)")
+            f"the tail kernels launched "
+            f"{dict(zip(TAIL + ('tall_proj',), tail_launches))} and the "
+            f"projections took the routes {rec['proj_routes']} in "
+            f"{r.iterations} iterations (fused: each but combine at least once "
+            f"an iteration, every projection csrc/proj.cu's; chain: none)")
     return rec, lam32
 
 
 def chain_check(main_rec, main_lam, chain_rec, chain_lam) -> dict:
-    """The flagship through the fused kernels (K1's fused forms and the
-    tail kernels) against the fully eager chain: the same eigenvalues
-    (torch.equal) and iterations, one K1 launch in the chain for each
-    launch of the K1 family, a peak no higher than the chain's; both
-    walls and the tail launches."""
+    """The flagship through the fused kernels (K1's fused forms, the tail
+    kernels and the tall projection) against the fully eager chain: the
+    same eigenvalues (torch.equal) and iterations, one K1 launch in the
+    chain for each launch of the K1 family, a peak no higher than the
+    chain's; both walls and the tail launches."""
     mem = [main_rec["max_memory_allocated_gib"],
            chain_rec["max_memory_allocated_gib"]]
     rec = {"phase": "main_vs_chain",
@@ -958,7 +1057,8 @@ def chain_check(main_rec, main_lam, chain_rec, chain_lam) -> dict:
            "iterations": [main_rec["iterations"], chain_rec["iterations"]],
            "k1_family_launches": [k1_family(main_rec["launches"]),
                                   chain_rec["launches"]["stencil1d"]],
-           "tail_launches": {name: main_rec["launches"][name] for name in TAIL},
+           "tail_launches": {name: main_rec["launches"][name]
+                             for name in TAIL + ("tall_proj",)},
            "wall_s": [main_rec["wall_s"], chain_rec["wall_s"]],
            "max_memory_allocated_gib": mem}
     emit(rec)
@@ -2928,6 +3028,7 @@ def main() -> None:
     fused_recs = fused_phase(dev)
     tail_recs = tail_phase(dev)
     gram_recs = gram_phase(dev)
+    proj_recs = proj_phase(dev)
     k7_recs = copy_phase(dev)
     quickstart_phase(dev)
     main_rec, main_lam = main_phase(dev, "highest")
@@ -3036,14 +3137,21 @@ def main() -> None:
         kernel_entry("copy", bench_rec["launches"]["copy"], k7_recs,
                      k7_recs[0]),
         # The tail kernels at the flagship's [4M, 64] f32 (combine: the
-        # projection update), launched on the BdG solve.
-        *(kernel_entry(name, main_rec["launches"][name],
+        # projection update), launched on the BdG solve; combine's on the
+        # lockstep sweep's, whose batched [b, n, k] projections keep the
+        # GEMMs and combine (the flagship's are csrc/proj.cu's).
+        *(kernel_entry(name, (lock_recs[0] if name == "tail_combine"
+                              else main_rec)["launches"][name],
                        [r for r in tail_recs if r["name"].startswith(name)],
                        tail_at[name]) for name in TAIL),
         # The tall Gram at the 4M x 150 solve's [4M, 164], launched on the
         # BdG solve (its [4M, 64] Grams).
         kernel_entry("tall_gram", main_rec["launches"]["tall_gram"], gram_recs,
                      gram_recs[0]),
+        # The tall projection at the 4M x 150 solve's [4M, 164] x 3,
+        # launched on the BdG solve (its [4M, 64] projections).
+        kernel_entry("tall_proj", main_rec["launches"]["tall_proj"], proj_recs,
+                     proj_recs[0]),
     ]}
     emit(kernels)
     idle = [e["name"] for e in kernels["kernels"] if e["launches"] < 1]

@@ -7,6 +7,12 @@ One product per Gram: a [k, n] x [n, k] contraction.  On the card a tall
 ``torch.matmul`` (cuBLAS).  The full k x k matrix is always formed (k <=
 3 * size_sub); ``eigh`` symmetrizes the round-off.
 
+The projections back to the tall space (``b_mm``, ``b_mm_update``,
+``mm_masked``) go on the card to the hand-written kernel ``csrc/proj.cu``
+(``ops/cuda/proj.py:project``) where ``_proj_takes`` says so: the sum over
+the terms, U - sum and the column mask in its epilogue.  Every other
+projection runs a ``torch.matmul`` a term and a ``tail.combine`` pass.
+
 Under a row group (a sharded solve, ``ops/rows.py``) every contraction
 over the rows of tall blocks (``_hdot`` and the Grams built on it) is
 all-reduced; the ``_mat`` Grams act on k x k coefficients and are not.
@@ -28,6 +34,7 @@ import torch
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops import masking
 from lobpcg_tpu_torch.ops.cuda import gram as gram_kernel
+from lobpcg_tpu_torch.ops.cuda import proj as proj_kernel
 from lobpcg_tpu_torch.ops.cuda import tail
 from lobpcg_tpu_torch.ops.rows import row_sum
 from lobpcg_tpu_torch.utils.profiling import APPLY, span
@@ -339,9 +346,8 @@ def bh_dot(blocks, Y: torch.Tensor, out_dtype=None) -> torch.Tensor:
 
 
 def b_mm(blocks, C: torch.Tensor) -> torch.Tensor:
-    """Sum_i blocks_i @ C[rows_i] — project-back without materializing S.
-    The GEMMs are torch.matmul; their outputs are summed left to right
-    in ``tail.combine`` passes (the eager adds inside
+    """Sum_i blocks_i @ C[rows_i] — project-back without materializing S
+    (``_projected``; the GEMMs and the eager adds inside
     ``tail.eager_chain()``)."""
     if tail.eager():
         out = None
@@ -357,12 +363,27 @@ def b_mm(blocks, C: torch.Tensor) -> torch.Tensor:
 
 def b_mm_update(U: torch.Tensor, blocks, C: torch.Tensor, live) -> torch.Tensor:
     """mask_cols(U - b_mm(blocks, C), live), the projection update of
-    ``ops/ortho.py``: the GEMMs, then one ``tail.combine`` pass for the
-    sum, the subtraction and the mask (the eager chain inside
+    ``ops/ortho.py`` (``_projected``; the eager chain inside
     ``tail.eager_chain()``)."""
     if tail.eager():
         return masking.mask_cols(U - b_mm(blocks, C), live)
     return _projected(blocks, C, U, live)
+
+
+def mm_masked(U: torch.Tensor, T: torch.Tensor, live,
+              in_place: bool = True) -> torch.Tensor:
+    """mask_cols(mm(U, T), live): SVQB's transform of a tall block and its
+    mask (``_projected``; the GEMM and ``mask_cols`` inside
+    ``tail.eager_chain()``).  ``in_place``: the mask may be written over
+    the GEMM output where the GEMM runs, so a second SVQB pass holds one
+    tall block fewer."""
+    def library(blocks, C, _, live):
+        UT = mm(blocks[0], C)
+        return masking.mask_cols(UT, live, out=UT if in_place else None)
+
+    if tail.eager():
+        return library((U,), T, None, live)
+    return _projected((U,), T, None, live, library=library)
 
 
 # Terms a combine pass sums before the next GEMM: as many tall blocks as
@@ -370,10 +391,59 @@ def b_mm_update(U: torch.Tensor, blocks, C: torch.Tensor, live) -> torch.Tensor:
 _COMBINE_GROUP = 3
 
 
-def _projected(blocks, C, U=None, live=None):
-    """The GEMM outputs blocks_i @ C[rows_i] summed left to right in
+def _proj_widths(m: int) -> bool:
+    """Output widths m at which csrc/proj.cu ran faster than cuBLAS's
+    GEMMs plus combine on the card (three terms at 4M rows,
+    ``tools/proj_widths.py``, PERF.md's projection row): 4 to 128, and 161
+    to 168, where the tile of the 4M x 150 solve's 164 is fixed at compile
+    time.  From 129 to 160 the generic tile ran 3-9% slower than cuBLAS
+    (m 129: 23.9 against 23.0 ms; 150: 23.6 against 23.2)."""
+    return 4 <= m <= 128 or 160 < m <= proj_kernel.MAX_M
+
+
+def _proj_takes(blocks, C, U=None, live=None) -> bool:
+    """Does a projection on the card go to ``proj_kernel.project``?  1 to
+    ``proj_kernel.MAX_TERMS`` 2-D real f32 blocks with column stride 1,
+    C [sum of their widths, m], U None or [n, m], a live count or boolean
+    [m] (``proj_kernel.takes``), n >= _KERNEL_MIN_ROWS and an m the kernel
+    wins at (``_proj_widths``): by shape, dtype and layout alone."""
+    return (blocks[0].shape[-2] >= _KERNEL_MIN_ROWS
+            and proj_kernel.takes(blocks, C, U, live)
+            and _proj_widths(C.shape[-1]))
+
+
+def _proj_route(blocks, C, U=None, live=None) -> str:
+    """The product ``_projected`` runs: "kernel" (csrc/proj.cu: operands
+    on the card that ``_proj_takes``), "cublas" (a ``torch.matmul`` a
+    term and a ``tail.combine`` pass on the card: batched [b, n, k] blocks,
+    complex and f64, n under _KERNEL_MIN_ROWS, other widths) or "host"
+    (CPU tensors: the same chain's plain versions)."""
+    if not all(T.is_cuda for T in (*blocks, C)):
+        return "host"
+    return "kernel" if _proj_takes(blocks, C, U, live) else "cublas"
+
+
+def _projected(blocks, C, U=None, live=None, library=None):
+    """live * (U - sum_i blocks_i @ C[rows_i]) by ``_proj_route``,
+    counting the projections on the card in ``_projected.kernel`` and
+    ``_projected.cublas``.  The cuBLAS and host route: ``library(blocks,
+    C, U, live)``, by default the GEMM outputs summed left to right in
     ``tail.combine`` passes of up to _COMBINE_GROUP terms (each written
     over its first term), the last one also forming live * (U - sum)."""
+    route = _proj_route(blocks, C, U, live)
+    if route == "kernel":
+        _projected.kernel += 1
+        return proj_kernel.project(blocks, C, U, live)
+    if route == "cublas":
+        _projected.cublas += 1
+    return (library or _gemms_combined)(blocks, C, U, live)
+
+
+_projected.kernel = 0
+_projected.cublas = 0
+
+
+def _gemms_combined(blocks, C, U, live):
     acc, j = [], 0
     for i, b in enumerate(blocks):
         w = b.shape[-1]

@@ -31,6 +31,7 @@ from lobpcg_tpu_torch.ops.gram import (
     gram_self_mat,
     herm_tile_gram,
     mm,
+    mm_masked,
     ortho_err,
     scale_diag,
     tall_frob_norm,
@@ -97,11 +98,7 @@ def _svqb_inner_loop(
         # Lanes that are done keep their state (only a batch holds it).
         kept = (U, BU, G, nu) if lanes.is_lanes(done) else None
         T, nu = _svqb_transform(G, nu, eps_drop, True, U.dtype)
-        UT = mm(U, T)
-        # UT is this pass's scratch: the mask is written over it, so a
-        # second pass holds one tall block fewer.
-        U = masking.mask_cols(UT, nu, out=UT)
-        del UT
+        U = mm_masked(U, T, nu)
         BU = apply_block_op(B, U)
         G = _hdot(U, BU, rr_dtype)
         if kept is not None:

@@ -14,7 +14,7 @@ from typing import Optional
 import torch
 
 from lobpcg_tpu_torch.ops import lanes, masking
-from lobpcg_tpu_torch.ops.gram import gram_self, gram_self_mat, mm, scale_diag
+from lobpcg_tpu_torch.ops.gram import gram_self, gram_self_mat, mm, mm_masked, scale_diag
 from lobpcg_tpu_torch.ops.linalg import eigh
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.utils.profiling import ORTHO, spanned
@@ -72,8 +72,7 @@ def svqb(
     U = masking.mask_cols(U, count)
     G = gram_self(U, B, out_dtype=rr_dtype)
     T, n_kept = _svqb_transform(G, count, tau, drop, U.dtype)
-    U_new = mm(U, T)
-    return masking.mask_cols(U_new, n_kept), n_kept
+    return mm_masked(U, T, n_kept, in_place=False), n_kept
 
 
 @spanned(ORTHO)

@@ -27,7 +27,6 @@ from lobpcg_tpu_torch.ops.gram import (
     apply_block_op,
     apply_block_op_pair,
     b_mm,
-    mm,
 )
 from lobpcg_tpu_torch.ops.indefinite import (
     indefinite_rayleigh_ritz,
@@ -90,7 +89,7 @@ def _ilobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
         X, A, B, method=config.rr_method, tiny=tn, rr_dtype=rrdt
     )
     with span(UPDATE):
-        X = mm(X, Cx0)
+        X = b_mm((X,), Cx0)
         AX = apply_block_op(A, X, "A")
         W = get_residual(X, AX, lam, A, B)
         res = res_norm(W, lam)

@@ -54,7 +54,6 @@ from lobpcg_tpu_torch.ops.gram import (
     apply_block_op_pair,
     b_mm,
     mixed_chunk_ctx,
-    mm,
     precision_ctx,
 )
 from lobpcg_tpu_torch.ops.ortho import ortho_drop
@@ -280,7 +279,7 @@ def _lobpcg_impl(A, B, T, X0, rng: Draws, config: SolverConfig, device,
 
     Cx0, lam = rayleigh_ritz(X, A, B, rr_dtype=rrdt)
     with span(UPDATE):
-        X = mm(X, Cx0)
+        X = b_mm((X,), Cx0)
         AX = apply_block_op(A, X, "A")
         W = get_residual(X, AX, lam, A, B)
         res = res_norm(W, lam)

@@ -6,8 +6,9 @@ not installed:
 
 Each kernel (K1 stencil and its fused forms stencil_diag and
 cheb_step, K2 3-D stencil, K3/K4/K5/K6 block-sparse SpMMs, K7 streaming
-copy, the tall Gram) is held against its plain PyTorch version on the card (the fused
-forms also against the eager chain they replace, bit for bit), and
+copy, the tall Gram, the tall projection) is held against its plain PyTorch version on
+the card (the fused forms also against the eager chain they replace, and the
+projection against cuBLAS's GEMMs plus combine, bit for bit), and
 small solves must go through the kernels; the row-sharded layer runs at
 world size 1 on NCCL.
 """
@@ -2141,3 +2142,206 @@ def test_well_solve_takes_every_tall_gram_through_the_kernel(cuda_device):
         gram._tall_hmm = tall_hmm
     assert r.iterations >= 1 and seen
     assert launches == len(seen), (launches, len(seen))
+
+
+# --- the tall projection (csrc/proj.cu) ----------------------------------------
+
+from lobpcg_tpu_torch.ops.cuda import proj as kp  # noqa: E402
+
+
+def _proj_operands(n, terms, m, device, seed, *, with_u=False, sliced=False,
+                   ints=False):
+    """``terms`` blocks [n, m] (column slices of one wider block where
+    ``sliced``), C [terms m, m] and U [n, m] on the card: uniform [0, 1)
+    blocks and standard normal C and U, or integers in [-8, 8] (every
+    product and sum then exact in f32)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+
+    def draw(shape, normal):
+        if ints:
+            return torch.randint(-8, 9, shape, generator=gen, device=device).float()
+        return (torch.randn if normal else torch.rand)(shape, generator=gen,
+                                                       device=device)
+
+    if sliced:
+        S = draw((n, terms * m + 5), False)
+        blocks = [S[:, 1 + i * m:1 + (i + 1) * m] for i in range(terms)]
+    else:
+        blocks = [draw((n, m), False) for _ in range(terms)]
+    C = draw((terms * m, m), True)
+    return blocks, C, draw((n, m), True) if with_u else None
+
+
+def _proj_errors(blocks, C, U, live):
+    """The kernel's and the cuBLAS route's (ops/gram.py:_gemms_combined: a
+    GEMM a term and combine) largest error against the float64
+    projection, relative to its largest entry."""
+    from lobpcg_tpu_torch.ops.gram import precision_ctx
+
+    m = C.shape[1]
+    with precision_ctx("highest"):  # TF32 off for the yardstick too
+        want = sum(torch.matmul(b.double(), C[i * m:(i + 1) * m].double())
+                   for i, b in enumerate(blocks))
+        if U is not None:
+            want = U.double() - want
+        want = want * _masking.as_mask(m, live, want.device).double() \
+            if live is not None else want
+        lib = _gram._gemms_combined(blocks, C, U, live)
+        before = kp.project.launches
+        got = kp.project(blocks, C, U, live)
+        assert kp.project.launches == before + 1
+    torch.cuda.synchronize()
+    scale = float(want.abs().max())
+    return (float((got.double() - want).abs().max()) / scale,
+            float((lib.double() - want).abs().max()) / scale)
+
+
+# (n, terms, m, U, live, sliced): the three solve cells' projections, then
+# widths 4, 96, 129 and 168 with 1-4 terms and every form of the epilogue.
+PROJ_CASES = [(4_000_000, 3, 164, False, None, False),
+              (4_000_000, 3, 64, False, None, False),
+              (4_096_000, 3, 16, False, None, False),
+              (4_000_000, 2, 164, True, 150, False),
+              (4_096_000, 1, 16, False, 10, False),
+              (1_000_018, 1, 4, False, None, False),
+              (1_000_018, 4, 4, True, 3, True),
+              (1_000_018, 2, 96, True, 90, True),
+              (1_000_018, 3, 96, False, None, False),
+              (1_000_018, 1, 129, False, 100, False),
+              (1_000_018, 3, 129, True, None, True),
+              (1_000_018, 4, 168, False, None, False),
+              (1_000_018, 2, 168, True, 160, False)]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,terms,m,with_u,live,sliced", PROJ_CASES)
+def test_tall_proj_accuracy_on_card(cuda_device, n, terms, m, with_u, live, sliced):
+    """The kernel's largest error relative to the largest entry of the
+    float64 projection is no worse than that of the cuBLAS GEMMs plus
+    combine it replaces, on the same inputs."""
+    blocks, C, U = _proj_operands(n, terms, m, cuda_device, seed=n % 7 + m + terms,
+                                  with_u=with_u, sliced=sliced)
+    err, lib_err = _proj_errors(blocks, C, U, live)
+    assert err <= lib_err, (err, lib_err)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("m", [4, 7, 13, 16, 30, 64, 97, 129, 164, 168])
+@pytest.mark.parametrize("terms", [1, 2, 3, 4])
+@pytest.mark.parametrize("layout", ["contiguous", "sliced", "unaligned"])
+def test_tall_proj_is_exact_on_integers_on_card(cuda_device, m, terms, layout):
+    """On integer entries every product and sum is exact in f32, so the
+    kernel equals its plain version bit for bit: every form of the live
+    mask, U or none, a last slab that is short, and copies of 16, 8 and 4
+    bytes (a row stride and a base of one float: ``unaligned``)."""
+    n = 70_001
+    blocks, C, U = _proj_operands(n, terms, m, cuda_device, seed=m * terms,
+                                  with_u=True, sliced=layout != "contiguous",
+                                  ints=True)
+    if layout == "unaligned":
+        blocks = [b[1:] for b in blocks]
+        U = U[1:]
+        n -= 1
+    lives = [None, m // 2, torch.tensor(m - 1, device=cuda_device),
+             torch.arange(m, device=cuda_device) % 3 != 1]
+    for live in lives:
+        for u in (None, U):
+            want = kp.project_reference(blocks, C, u, live)
+            before = kp.project.launches
+            got = kp.project(blocks, C, u, live)
+            assert kp.project.launches == before + 1
+            assert got.shape == (n, m) and torch.equal(got, want), (live, u is None)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,terms,m", [(4_000_000, 3, 164), (1_000_018, 3, 16),
+                                       (1_000_018, 2, 129)])
+def test_tall_proj_repeats_bit_for_bit_on_card(cuda_device, n, terms, m):
+    blocks, C, U = _proj_operands(n, terms, m, cuda_device, seed=5, with_u=True)
+    first = kp.project(blocks, C, U, m - 2)
+    out = torch.empty_like(first)
+    assert kp.project(blocks, C, U, m - 2, out=out) is out
+    assert torch.equal(out, first)
+
+
+@pytest.mark.gpu
+def test_tall_proj_rejects_what_it_does_not_take(cuda_device):
+    X = torch.zeros((4096, 64), device=cuda_device)
+    C = torch.zeros((64, 64), device=cuda_device)
+    for blocks, C_, U, live in (
+            ([X.double()], C.double(), None, None),       # f64
+            ([X.mT[:, :64]], C, None, None),              # column stride
+            ([X] * 5, torch.zeros((320, 64), device=cuda_device), None, None),
+            ([X], torch.zeros((64, 169), device=cuda_device), None, None),
+            ([X], C[:60], None, None),                    # C's rows
+            ([X], C, X[:100], None),                      # U's rows
+            ([X[None]], C, None, None),                   # batched
+            ([X], C, None, torch.tensor([3, 4], device=cuda_device))):
+        with pytest.raises(ValueError):
+            kp.project(blocks, C_, U, live)
+    with pytest.raises(ValueError):
+        kp.project([X], C, out=torch.empty((4096, 60), device=cuda_device))
+
+
+def _cell_solve(cell, device):
+    """One short solve at a solve cell's shapes (bench_port/configs and
+    mixes): the BdG well at 4M x 56 and 4M x 150, lobpcg on the 160^3
+    Laplacian at size_sub 16."""
+    if cell == "lap3d_160.nd":
+        h = 1.0 / 161
+        A = tl.LaplacianND(scale=1.0 / (h * h), grid=(160, 160, 160))
+        X0 = torch.rand((160 ** 3, 16), device=device,
+                        generator=torch.Generator(device=device).manual_seed(0))
+        cfg = tl.SolverConfig(nev=10, size_sub=16, tol=1e-5, max_iter=3)
+        return lambda: tl.lobpcg(A, X0, config=cfg)
+    from lobpcg_tpu_torch.benchmarks.solve_bdg import well_problem
+
+    nev, ss = (56, 64) if cell.endswith("nev56") else (150, 164)
+    A, B, T, X0, _, _ = well_problem(4_000_000, nev, ss, dtype=torch.float32,
+                                     cheb=3, precond=True, device=device,
+                                     cheb_chunk=16)
+    cfg = tl.SolverConfig(nev=nev, size_sub=ss, tol=1e-5, max_iter=2,
+                          rr_method="cholesky", gram_precision="high",
+                          use_ax_cache=True, use_b_cache=True, dual_basis=True)
+    return lambda: tl.ilobpcg(A, X0, B, T, config=cfg,
+                              generator=torch.Generator(device=device).manual_seed(0))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("cell", ["bdg_well_4M.nev56", "bdg_well_4M.nev150",
+                                  "lap3d_160.nd"])
+def test_solve_cells_take_every_projection_through_the_kernel(cuda_device, cell):
+    """A short solve at each solve cell's shapes routes every tall
+    projection to csrc/proj.cu: the route counts read none to cuBLAS, one
+    kernel launch each, and no combine launch."""
+    solve = _cell_solve(cell, cuda_device)
+    before = (_gram._projected.kernel, _gram._projected.cublas,
+              kp.project.launches, tail.combine.launches)
+    r = solve()
+    routed = _gram._projected.kernel - before[0]
+    assert r.iterations >= 1 and routed > 0
+    assert _gram._projected.cublas == before[1]
+    assert kp.project.launches - before[2] == routed
+    assert tail.combine.launches == before[3]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("n,terms,m,with_u,live", [
+    (4_000_000, 3, 164, False, None), (4_000_000, 2, 164, True, 150),
+    (4_000_000, 1, 164, False, 161), (4_000_000, 3, 64, False, None),
+    (4_000_000, 2, 64, True, 60), (4_096_000, 3, 16, False, None),
+    (4_096_000, 1, 16, False, 13), (1_000_018, 3, 96, True, None)])
+def test_tall_proj_is_the_cublas_route_bit_for_bit_on_card(cuda_device, n, terms,
+                                                           m, with_u, live):
+    """Each term one FFMA chain over its K in order, the chains added left
+    to right: the bits of cuBLAS's GEMMs and combine (or mask_cols for one
+    term) at the solves' shapes, so a solve through the kernel keeps the
+    trajectory it had."""
+    blocks, C, U = _proj_operands(n, terms, m, cuda_device, seed=terms + m,
+                                  with_u=with_u)
+    from lobpcg_tpu_torch.ops.gram import precision_ctx
+
+    with precision_ctx("highest"):
+        want = _gram._gemms_combined(blocks, C, U, live)
+        got = kp.project(blocks, C, U, live)
+    assert _same_bits(got, want)
