@@ -47,7 +47,7 @@ non-zero; there is no CPU fallback):
                 than torch.matmul's, then at widths 1-256 over 4M rows:
                 launched once, two launches bit for bit; ms beside its
                 bound, the plain version and torch.matmul, and the route
-                ops/gram.py takes there.
+                tall_gram takes there.
    kernel proj — the tall projection live * (U - sum_i V_i C_i)
                 (csrc/proj.cu) at the three solve cells' widths (164, 64,
                 16) in b_mm's form (3 terms), the ortho update's (U, 2
@@ -57,7 +57,7 @@ non-zero; there is no CPU fallback):
                 projection no worse than cuBLAS's GEMMs plus combine (and
                 whether it equals them bit for bit); ms beside its bound,
                 the plain version and that cuBLAS route, and the route
-                ops/gram.py takes there.
+                project takes there.
 4. kernel K7  — the streaming copy against its plain version (clone) at
                 [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
                 GB/s, bound, and Tensor.copy_ as the library time.
@@ -74,7 +74,7 @@ non-zero; there is no CPU fallback):
                 once more under "highest" through the eager chain (the
                 diagonal as a ChainDiagonal, which the fused route does
                 not take: K1 and PyTorch's passes; the solve inside
-                tail.eager_chain(): no tail kernel, the projections
+                chains.eager_chain(): no tail kernel, the projections
                 cuBLAS's GEMMs and eager adds): the same eigenvalues
                 (torch.equal) and iterations, as many K1 launches as the
                 K1 family made, a peak no higher than the chain's.
@@ -298,6 +298,7 @@ from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import build as cuda_build
 from lobpcg_tpu_torch.ops.cuda import copy as k7
 from lobpcg_tpu_torch.ops.cuda import gram as kg
+from lobpcg_tpu_torch.ops.cuda import chains
 from lobpcg_tpu_torch.ops.cuda import proj as kp
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
@@ -679,9 +680,12 @@ def same_bits(a, b) -> bool:
 
 def tail_case(dev, name, b, n, k, dtype, special) -> list[dict]:
     """The four tail kernels on b problems of [n, k] in ``dtype``: each
-    against its plain version and the eager chain it replaces (the call
-    sites inside tail.eager_chain(); for combine the chain's adds, the
-    subtraction and mask_cols), bit for bit; then, on finite inputs,
+    against its plain version and the eager chain it replaces, bit for
+    bit (written out here as the call sites ran it before the kernels:
+    the anti-diagonal's two multiplies and ``cat``, B X times lam cast to
+    the block's dtype subtracted from AX, the adds, the subtraction and
+    the mask, the clamp-index gather and the mask; the mask a multiply by
+    the live mask cast to the block's dtype); then, on finite inputs,
     timed beside both and its bound (bytes: every input once, the output
     once)."""
     gen = torch.Generator(device=dev).manual_seed(16)
@@ -710,11 +714,22 @@ def tail_case(dev, name, b, n, k, dtype, special) -> list[dict]:
         shift = torch.arange(b, device=dev) % 4
         count = k - 1 - torch.arange(b, device=dev) % k
 
-    def eager(fn):
-        def run():
-            with tail.eager_chain():
-                return fn()
-        return run
+    def live(S, counts):
+        ar = torch.arange(S.shape[-1], device=dev)
+        alive = ar < (counts[..., None] if isinstance(counts, torch.Tensor)
+                      else counts)
+        return S * alive[..., None, :].to(S.dtype)
+
+    def swapped():
+        dd = d[..., None]
+        return torch.cat([dd * X[..., m:, :], dd * X[..., :m, :]], dim=-2)
+
+    def shifted():
+        ar = torch.arange(k, device=dev)
+        if isinstance(shift, torch.Tensor):
+            src = torch.clamp(ar + shift[..., None], 0, k - 1)
+            return live(torch.take_along_dim(U, src[..., None, :], dim=-1), count)
+        return live(U[..., torch.clamp(ar + shift, 0, k - 1)], count)
 
     size = X.element_size()
     nk = b * n * k
@@ -722,17 +737,17 @@ def tail_case(dev, name, b, n, k, dtype, special) -> list[dict]:
     forms = {
         "tail_antidiag": (
             lambda: tail.antidiag(X, d), lambda: tail.antidiag_reference(X, d),
-            eager(lambda: B.matmat(X)), 2 * nk + d.numel(), nk),
+            swapped, 2 * nk + d.numel(), nk),
         "tail_residual": (
             lambda: resid.get_residual(X, AX, lam, None, B),
             lambda: tail.residual_reference(AX, X, lam, d),
-            eager(lambda: resid.get_residual(X, AX, lam, None, B)),
+            lambda: AX - swapped() * lam[..., None, :].to(dtype),
             3 * nk + d.numel(), 3 * nk),
         # The projection update over two GEMM outputs (ops/ortho.py).
         "tail_combine": (
             lambda: tail.combine(terms[:2], U, nu),
             lambda: tail.combine_reference(terms[:2], U, nu),
-            eager(lambda: masking.mask_cols(U - (terms[0] + terms[1]), nu)),
+            lambda: live(U - (terms[0] + terms[1]), nu),
             4 * nk, 3 * nk),
         # b_mm's sum of three GEMM outputs (the project-back of [X, P, W]).
         "tail_combine_sum": (
@@ -741,7 +756,7 @@ def tail_case(dev, name, b, n, k, dtype, special) -> list[dict]:
         "tail_compact": (
             lambda: masking.shift_cols(U, shift, count),
             lambda: tail.compact_reference(U, shift, count),
-            eager(lambda: masking.shift_cols(U, shift, count)), 2 * nk, nk),
+            shifted, 2 * nk, nk),
     }
     recs = []
     for form, (kernel, plain, chain, nelem, ops) in forms.items():
@@ -798,17 +813,17 @@ def gram_case(dev, n, k, strict: bool = True) -> dict:
     largest error against the float64 product relative to the largest
     entry no worse than torch.matmul's; then ms beside its bound, the
     plain version and torch.matmul (cuBLAS's nt kernel, which the port no
-    longer calls where ops/gram.py dispatches the kernel; the plain
-    version is that same call, on the CPU's route) and which of the two
-    ops/gram.py runs at this shape."""
+    longer calls where tall_gram launches the kernel; the plain version is
+    that same call, tall_gram's other route) and which of the two
+    tall_gram runs at this shape."""
     gen = torch.Generator(device=dev).manual_seed(19)
     V = torch.rand((n, k), generator=gen, device=dev)
     U = torch.randn((n, k), generator=gen, device=dev)
     want = torch.matmul(V.double().mT, U.double())
     before = kg.tall_gram.launches
-    got = kg.tall_gram(V, U)
+    got = kg.launch(V, U)
     launched = kg.tall_gram.launches - before
-    again = kg.tall_gram(V, U)
+    again = kg.launch(V, U)
     lib = torch.matmul(V.mT, U)
     torch.cuda.synchronize()
     scale = float(want.abs().max())
@@ -819,12 +834,12 @@ def gram_case(dev, n, k, strict: bool = True) -> dict:
            "library_max_rel_err":
                float((lib.double() - want).abs().max()) / scale}
     del want, got, again, lib
-    rec["route"] = gram._tall_route(V, U)
+    rec["route"] = "kernel" if kg.takes(V, U) else "matmul"
     if not (launched == 1 and rec["repeats"]) or (
             strict and rec["max_rel_err"] > rec["library_max_rel_err"]):
         emit(rec)
         raise AssertionError(f"tall Gram at [{n}, {k}]: {rec}")
-    rec.update({"ms": timed_untracked(lambda: kg.tall_gram(V, U)),
+    rec.update({"ms": timed_untracked(lambda: kg.launch(V, U)),
                 "plain_ms": time_ms(lambda: kg.tall_gram_reference(V, U)),
                 "library_ms": time_ms(lambda: torch.matmul(V.mT, U)),
                 **bound(2 * n * k * 4 + k * k * 4, 2 * n * k * k)})
@@ -856,11 +871,10 @@ def proj_case(dev, n, terms, m) -> dict:
     and standard normal C and U: the kernel launched once, two launches
     bit for bit, its largest error against the float64 projection
     relative to the largest entry no worse than the cuBLAS GEMMs plus
-    combine it replaces (ops/gram.py:_gemms_combined; whether the two are
-    equal bit for bit is recorded); then ms beside its
-    bound, the plain version (project_reference: torch.matmul a term and
-    combine's plain chain) and that cuBLAS route, and the route
-    ops/gram.py takes at this shape."""
+    combine it replaces (proj.library; whether the two are equal bit for
+    bit is recorded); then ms beside its bound, the plain version
+    (project_reference: mm a term and combine's plain chain) and that
+    cuBLAS route, and the route project takes at this shape."""
     with_u = terms == 2
     live = m - 3 if terms < 3 else None
     blocks, C, U = proj_widths.operands(n, (m,) * terms, m, with_u, dev,
@@ -873,10 +887,10 @@ def proj_case(dev, n, terms, m) -> dict:
     if live is not None:
         want[:, live:] = 0.0
     before = kp.project.launches
-    got = kp.project(blocks, C, U, live)
+    got = kp.launch(blocks, C, U, live)
     launched = kp.project.launches - before
-    again = kp.project(blocks, C, U, live)
-    lib = gram._gemms_combined(blocks, C, U, live)
+    again = kp.launch(blocks, C, U, live)
+    lib = kp.library(blocks, C, U, live)
     torch.cuda.synchronize()
     scale = float(want.abs().max())
     err = float((got.double() - want).abs().max())
@@ -887,16 +901,16 @@ def proj_case(dev, n, terms, m) -> dict:
            "library_max_rel_err":
                float((lib.double() - want).abs().max()) / scale,
            "equal_to_library": bool(torch.equal(got, lib)),
-           "route": gram._proj_route(blocks, C, U, live)}
+           "route": "kernel" if kp.takes(blocks, C, U, live) else "cublas"}
     del want, got, again, lib
     if not (launched == 1 and rec["repeats"]
             and rec["max_rel_err"] <= rec["library_max_rel_err"]):
         emit(rec)
         raise AssertionError(f"tall projection at {[n, terms, m]}: {rec}")
     out = torch.empty((n, m), device=dev)
-    rec.update({"ms": timed_untracked(lambda: kp.project(blocks, C, U, live, out=out)),
+    rec.update({"ms": timed_untracked(lambda: kp.launch(blocks, C, U, live, out=out)),
                 "plain_ms": time_ms(lambda: kp.project_reference(blocks, C, U, live)),
-                "library_ms": time_ms(lambda: gram._gemms_combined(blocks, C, U, live)),
+                "library_ms": time_ms(lambda: kp.library(blocks, C, U, live)),
                 **proj_widths.proj_bound(n, terms * m, m, with_u)})
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     emit(rec)
@@ -970,7 +984,7 @@ def main_phase(dev, precision: str, chain: bool = False):
     and eigenvalues.  ``chain``: A's diagonal as a ChainDiagonal, so that
     A and the filter run the eager chain of operations (K1 and PyTorch's
     elementwise passes) instead of the fused kernels, and the solve
-    inside tail.eager_chain(), so that the tall tail (B applies,
+    inside chains.eager_chain(), so that the tall tail (B applies,
     residuals, projection updates, compactions) runs its eager chains
     instead of the tail kernels."""
     A, B, T, X0, _, _ = solve_bdg.well_problem(
@@ -988,15 +1002,15 @@ def main_phase(dev, precision: str, chain: bool = False):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     zero_counts()
-    routes = (gram._projected.kernel, gram._projected.cublas)
+    routes = (kp.project.launches, kp.project.fallbacks)
     t0 = time.perf_counter()
-    with tail.eager_chain() if chain else contextlib.nullcontext():
+    with chains.eager_chain() if chain else contextlib.nullcontext():
         r = lt.ilobpcg(A, X0, B, T, config=cfg, generator=gen)
         lam32 = r.eigenvalues.cpu()
     wall = time.perf_counter() - t0
     counts = read_counts()
-    routes = {"kernel": gram._projected.kernel - routes[0],
-              "cublas": gram._projected.cublas - routes[1]}
+    routes = {"kernel": kp.project.launches - routes[0],
+              "fallback": kp.project.fallbacks - routes[1]}
     lam = lam32.double().numpy()
 
     exact = solve_bdg.well_eigs_oracle(solve_bdg.WELL, NEV, solve_bdg.BARRIER)
@@ -1034,7 +1048,7 @@ def main_phase(dev, precision: str, chain: bool = False):
     tail_launches = [counts[name] for name in TAIL + ("tall_proj",)]
     if (any(tail_launches) or rec["proj_routes"]["kernel"] if chain
             else min(counts[name] for name in fused_tail) < r.iterations
-            or rec["proj_routes"]["cublas"]):
+            or rec["proj_routes"]["fallback"]):
         raise AssertionError(
             f"the tail kernels launched "
             f"{dict(zip(TAIL + ('tall_proj',), tail_launches))} and the "

@@ -119,6 +119,8 @@ class SolverConfig:
     use_ax_cache: bool = True
     use_b_cache: bool = True
     dual_basis: bool = True
+    # Accepted for parity: the port applies each block on its own either
+    # way (ops/gram.py:applied_blocks), so it moves no allocation or bit.
     pack_applies: bool = True
     ortho_skip: bool = False
     stall_reset: int = 0

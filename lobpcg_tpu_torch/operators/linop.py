@@ -437,12 +437,13 @@ def half_swap(op, X):
     """(d, copies) with which ``tail.antidiag(X, d, copies)`` applies the
     operator ``op`` to X: a BlockAntiDiagOperator, copies of one (the
     split-real B) or the sharded form whose rows are a local permutation
-    (its ``half_swap`` method says); None for any other operator, inside
-    ``tail.eager_chain()`` (the eager chain: the multiplies and the
-    ``cat``), and for per-problem scales [b, .] over an unbatched X (the
-    chain's broadcast)."""
+    (its ``half_swap`` method says); None for any other operator, and
+    for per-problem scales [b, .] over an unbatched X (the chain's
+    broadcast).  Inside ``chains.eager_chain()`` ``tail.antidiag`` runs
+    its plain version, which has the bits of these operators' ``matmat``
+    bodies."""
     found = getattr(op, "half_swap", lambda: None)() if op is not None else None
-    if found is None or tail.eager() or (found[0].dim() == 2 and X.dim() != 3):
+    if found is None or (found[0].dim() == 2 and X.dim() != 3):
         return None
     return found
 

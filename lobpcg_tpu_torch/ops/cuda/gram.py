@@ -10,10 +10,12 @@ tile of G, stages slabs of rows through shared memory by ``cp.async`` and
 sums the slabs' partial Grams in a second pass in a fixed order (no
 float atomics: a Gram repeats bit for bit); every product is an f32 FFMA.
 
-``tall_gram`` launches it for CUDA tensors and runs the plain version
-``tall_gram_reference`` only for CPU tensors.  ``ops/gram.py:_tall_hmm``
-decides which tall Grams come here.  ``plan`` and ``slab_plan`` choose
-the launch's shape from the widths alone (csrc/gram.cu says how).
+``tall_gram`` takes any V^H U: it launches the kernel for a pair on the
+card that ``takes`` accepts (tall enough, at the widths where the kernel
+beat cuBLAS) and runs the plain version ``tall_gram_reference`` for
+every other pair.  ``launch`` is the kernel alone, for the measurements
+that time it outside that route.  ``plan`` and ``slab_plan`` choose the
+launch's shape from the widths alone (csrc/gram.cu says how).
 """
 
 from __future__ import annotations
@@ -29,7 +31,8 @@ from lobpcg_tpu_torch.ops.cuda.build import build_record, check, load_library
 MAX_THREADS = 448  # compute threads a block (csrc/gram.cu: kMaxThreads)
 STAGES = 4  # shared-memory stages (kStages)
 MAX_K = 256  # widths the kernel takes
-MAX_ROWS = 8192  # rows of a slab: ops/gram.py's _SPLIT_MAX
+MAX_ROWS = 8192  # rows of a slab, and of a piece of ops/gram.py's batched split
+MIN_ROWS = 65_536  # rows from which a pair on the card is tall enough
 GROUP_THREADS = 256  # threads a block of a small tile reaches with groups
 STAGE_BYTES = 24 * 1024  # bytes of a stage, where a tile's rows allow
 
@@ -135,16 +138,37 @@ def vector_width(V: torch.Tensor, U: torch.Tensor) -> int:
     return 1
 
 
-def takes(V: torch.Tensor, U: torch.Tensor) -> bool:
-    """Does the kernel take V^H U, by shape, dtype and layout (the caller
-    checks the device)?  Two 2-D real f32 blocks of the same rows, widths
-    in [1, MAX_K], column stride 1 and a positive row stride."""
+def _fits(V: torch.Tensor, U: torch.Tensor) -> bool:
+    """Can the kernel run V^H U, by shape, dtype and layout?  Two 2-D real
+    f32 blocks of the same rows, widths in [1, MAX_K], column stride 1
+    and a positive row stride."""
     return (V.dim() == 2 and U.dim() == 2
             and V.dtype == torch.float32 and U.dtype == torch.float32
             and V.shape[0] == U.shape[0] and V.shape[0] >= 1
             and 1 <= V.shape[1] <= MAX_K and 1 <= U.shape[1] <= MAX_K
             and V.stride(1) == 1 and U.stride(1) == 1
             and V.stride(0) >= 1 and U.stride(0) >= 1)
+
+
+def _widths(kv: int, ku: int) -> bool:
+    """Widths at which csrc/gram.cu ran faster than cuBLAS on the card
+    (4M rows, PERF.md's tall Gram row): both from 4 up to 96, where one
+    block's tile holds the whole Gram and the product is byte-bound or
+    nearly, and both in (128, 168], where one tile of up to 441 threads
+    covers it.  cuBLAS's 64 x 64 tiles won at 100-128 and at 200 and 256
+    (two tiles a side; 169-199 stays cuBLAS's too, untimed but 176), and
+    its dot kernel at width 1, faster and with half the error."""
+    lo, hi = min(kv, ku), max(kv, ku)
+    return (4 <= lo and hi <= 96) or (128 < lo and hi <= 168)
+
+
+def takes(V: torch.Tensor, U: torch.Tensor) -> bool:
+    """Does ``tall_gram`` launch the kernel for this pair on the card?  A
+    pair of n >= MIN_ROWS rows that the kernel can run (``_fits``), at
+    widths it wins at (``_widths``): by shape, dtype and layout alone, the
+    device being ``tall_gram``'s check."""
+    return (V.shape[-2] >= MIN_ROWS and _fits(V, U)
+            and _widths(V.shape[1], U.shape[1]))
 
 
 def tall_gram_reference(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
@@ -167,25 +191,42 @@ def _slots(device_index: int, p: Plan, w: int) -> int:
 
 
 def tall_gram(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
-    """G = V^H U [kv, ku] of V [n, kv] and U [n, ku].
+    """G = V^H U of V [..., n, kv] and U [..., n, ku].
 
-    CUDA tensors: launches ``csrc/gram.cu`` (the slabs' partial Grams into
-    a scratch buffer, then their sum) on the current stream, without
-    synchronising, and counts the call in ``tall_gram.launches``; a pair
-    the kernel does not take (``takes``) raises.  CPU tensors: the plain
-    version.
+    A pair on the card that ``takes`` accepts: one launch of the kernel
+    (``launch``).  Any other pair (CPU tensors; on the card batched,
+    complex, f64, short or of other widths): the plain version, one
+    ``torch.matmul``.  Operands on two devices raise.
     """
-    if V.device.type == "cpu" and U.device.type == "cpu":
-        return tall_gram_reference(V, U)
+    if V.device != U.device:
+        raise ValueError(f"tall_gram: V and U on one device, got {V.device} "
+                         f"and {U.device}")
+    if V.is_cuda and takes(V, U):
+        return _launch(V, U)
+    return tall_gram_reference(V, U)
+
+
+def launch(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """The kernel alone, whatever ``takes`` says: launches ``csrc/gram.cu``
+    (the slabs' partial Grams into a scratch buffer, then their sum) on
+    the current stream, without synchronising, and counts it in
+    ``tall_gram.launches``.  Operands off the card, or a pair the kernel
+    cannot run (``_fits``), raise."""
     if V.device.type != "cuda" or V.device != U.device:
         raise ValueError(f"tall_gram: V and U on one CUDA device, got "
                          f"{V.device} and {U.device}")
-    if not takes(V, U):
+    if not _fits(V, U):
         raise ValueError(
             f"tall_gram: the kernel takes two [n, k] real f32 blocks with "
             f"column stride 1 and k <= {MAX_K}, got {tuple(V.shape)} "
             f"{V.dtype} {V.stride()} and {tuple(U.shape)} {U.dtype} "
             f"{U.stride()}")
+    return _launch(V, U)
+
+
+def _launch(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
+    """One launch of csrc/gram.cu, counted in ``tall_gram.launches``; the
+    callers check the operands."""
     n, kv = V.shape
     ku = U.shape[1]
     w = vector_width(V, U)

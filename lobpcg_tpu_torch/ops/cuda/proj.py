@@ -14,11 +14,17 @@ and the mask in registers: no term block is written.  Every product is an
 f32 FFMA, each term one FFMA chain over its K in order, the chains added
 left to right as combine adds the GEMM outputs.
 
-``project`` launches it for CUDA tensors and runs the plain version
-``project_reference`` (``torch.matmul`` a term, then
-``tail.combine_reference``) only for CPU tensors.  ``ops/gram.py``
-decides which projections come here.  ``plan`` chooses the launch's shape
-from m alone (csrc/proj.cu says how).
+``project`` takes any projection (``ops/gram.py``'s ``b_mm``,
+``b_mm_update`` and ``mm_masked`` are calls of it): it launches the kernel
+for operands on the card that ``takes`` accepts (tall enough, at the
+widths where the kernel beat cuBLAS), runs the library chain the kernel
+replaced (``library``: a GEMM a term, then ``tail.combine`` passes, or
+``tail.compact`` after one masked GEMM) for every other projection, and
+runs the plain version ``project_reference`` (``mm`` a term, then
+``tail.combine_reference``: the eager chain) inside
+``chains.eager_chain()``.  ``launch`` is the kernel alone, for the
+measurements that time it outside that route.  ``plan`` chooses the
+launch's shape from m alone (csrc/proj.cu says how).
 """
 
 from __future__ import annotations
@@ -32,6 +38,8 @@ import torch
 
 from lobpcg_tpu_torch.ops.cuda import tail
 from lobpcg_tpu_torch.ops.cuda.build import build_record, check, load_library
+from lobpcg_tpu_torch.ops.cuda.chains import eager, mm
+from lobpcg_tpu_torch.ops.cuda.gram import MIN_ROWS
 
 MAX_THREADS = 256  # threads a block (csrc/proj.cu: kMaxThreads)
 STAGES = 4  # shared-memory stages (kStages)
@@ -39,6 +47,10 @@ MAX_TERMS = tail.MAX_TERMS  # terms of one launch (kMaxTerms)
 PAD = 4  # K a stage holds beyond its bk: a term's rest of up to 4 (kPad)
 MAX_M = 168  # output columns: one block's 2 hn, 21 threads of 8 columns
 STAGE_BYTES = 56 * 1024  # bytes of a stage at most: 4 stages fit 227 KB
+# Terms a combine pass of the library chain sums before the next GEMM: as
+# many tall blocks as the eager chain held at once (the running sum, a
+# term and their sum).
+COMBINE_GROUP = 3
 
 _P, _I = ctypes.c_void_p, ctypes.c_int64
 # The C entry point of csrc/proj.cu and its argument types (it returns
@@ -129,13 +141,13 @@ def _live_kind(live) -> Optional[str]:
     return "count"
 
 
-def takes(blocks: Sequence[torch.Tensor], C: torch.Tensor,
+def _fits(blocks: Sequence[torch.Tensor], C: torch.Tensor,
           U: Optional[torch.Tensor] = None, live=None) -> bool:
-    """Does the kernel take live * (U - sum_i blocks_i C_i), by shape,
-    dtype and layout (the caller checks the device)?  1 to MAX_TERMS 2-D
-    real f32 blocks of the same rows, C [sum of their widths, m] with m in
-    [1, MAX_M], U None or [n, m], every column stride 1 and every row
-    stride at least the width; ``live`` None, a count, or a boolean [m]."""
+    """Can the kernel run live * (U - sum_i blocks_i C_i), by shape, dtype
+    and layout?  1 to MAX_TERMS 2-D real f32 blocks of the same rows, C
+    [sum of their widths, m] with m in [1, MAX_M], U None or [n, m], every
+    column stride 1 and every row stride at least the width; ``live``
+    None, a count, or a boolean [m]."""
     if not 1 <= len(blocks) <= MAX_TERMS or C.dim() != 2:
         return False
     n, (K, m) = blocks[0].shape[0], C.shape
@@ -154,17 +166,68 @@ def takes(blocks: Sequence[torch.Tensor], C: torch.Tensor,
     return kind is not None and (kind != "mask" or live.shape[0] == m)
 
 
+def _widths(m: int) -> bool:
+    """Output widths m at which csrc/proj.cu ran faster than cuBLAS's
+    GEMMs plus combine on the card (three terms at 4M rows,
+    ``tools/proj_widths.py``, PERF.md's projection row): 4 to 128, and 161
+    to 168, where the tile of the 4M x 150 solve's 164 is fixed at compile
+    time.  From 129 to 160 the generic tile ran 3-9% slower than cuBLAS
+    (m 129: 23.9 against 23.0 ms; 150: 23.6 against 23.2)."""
+    return 4 <= m <= 128 or 160 < m <= MAX_M
+
+
+def takes(blocks: Sequence[torch.Tensor], C: torch.Tensor,
+          U: Optional[torch.Tensor] = None, live=None) -> bool:
+    """Does ``project`` launch the kernel for these operands on the card?
+    Operands of n >= MIN_ROWS rows that the kernel can run (``_fits``), at
+    an m it wins at (``_widths``): by shape, dtype and layout alone, the
+    device being ``project``'s check."""
+    return (blocks[0].shape[-2] >= MIN_ROWS and _fits(blocks, C, U, live)
+            and _widths(C.shape[1]))
+
+
 def project_reference(blocks: Sequence[torch.Tensor], C: torch.Tensor,
                       U: Optional[torch.Tensor] = None, live=None) -> torch.Tensor:
-    """Plain version: ``torch.matmul`` a term, then
-    ``tail.combine_reference`` (the sum left to right, U - sum, the
-    mask)."""
+    """Plain version: ``mm`` a term, then ``tail.combine_reference`` (the
+    sum left to right, U - sum, the mask): the eager chain of ``b_mm``,
+    ``b_mm_update`` and ``mm_masked``."""
     terms, j = [], 0
     for b in blocks:
         w = b.shape[-1]
-        terms.append(torch.matmul(b, C[..., j:j + w, :]))
+        terms.append(mm(b, C[..., j:j + w, :]))
         j += w
     return tail.combine_reference(terms, U, live)
+
+
+def library(blocks: Sequence[torch.Tensor], C: torch.Tensor,
+            U: Optional[torch.Tensor] = None, live=None,
+            in_place: bool = True) -> torch.Tensor:
+    """The library chain the kernel replaced, each pass a wrapper that
+    takes its own route: one ``mm`` (cuBLAS on the card) a term, summed
+    left to right in ``tail.combine`` passes of up to COMBINE_GROUP terms,
+    the last one also forming live * (U - sum); one term with a mask and
+    no U is ``mm_masked``'s GEMM and a ``tail.compact`` pass.
+    ``in_place``: each pass may write over the GEMM output it reads (where
+    contiguous)."""
+    if len(blocks) == 1 and U is None and live is not None:
+        T = mm(blocks[0], C)
+        return tail.compact(T, 0, live, out=T if in_place else None)
+    acc, j = [], 0
+    for i, b in enumerate(blocks):
+        w = b.shape[-1]
+        acc.append(mm(b, C[..., j:j + w, :]))
+        j += w
+        if len(acc) == COMBINE_GROUP and i < len(blocks) - 1:
+            acc = [_combine(acc, in_place=in_place)]
+    return _combine(acc, U, live, in_place)
+
+
+def _combine(terms, U=None, live=None, in_place=True):
+    if len(terms) == 1 and U is None and live is None:
+        return terms[0]
+    t0 = terms[0]
+    out = t0 if in_place and t0.is_contiguous() else None
+    return tail.combine(terms, U, live, out=out)
 
 
 def _live_args(live, m: int, device):
@@ -188,29 +251,49 @@ def _live_args(live, m: int, device):
 
 def project(blocks: Sequence[torch.Tensor], C: torch.Tensor,
             U: Optional[torch.Tensor] = None, live=None,
-            out: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Y = live * (U - sum_i blocks_i @ C[rows_i]) [n, m], term i's rows
-    of C following term i - 1's; without U the sum, without ``live`` no
-    mask (``live`` as ``masking.mask_cols`` takes it for a 2-D block: a
-    count, as an int or a 0-d tensor, or a boolean [m]).  ``out``: a
-    contiguous [n, m] f32 block the kernel writes into (none of the
-    operands); the result is returned.
+            in_place: bool = True) -> torch.Tensor:
+    """Y = live * (U - sum_i blocks_i @ C[rows_i]), term i's rows of C
+    following term i - 1's; without U the sum, without ``live`` no mask
+    (``live`` as ``masking.mask_cols`` takes it).  ``in_place``: as
+    ``library`` takes it.
 
-    CUDA tensors: launches ``csrc/proj.cu`` on the current stream without
-    synchronising and counts it in ``project.launches``; operands the
-    kernel does not take (``takes``) raise.  CPU tensors: the plain
-    version (``out`` left alone).
+    Operands on the card that ``takes`` accepts: one launch of the kernel.
+    Any other operands: ``library`` (CPU tensors run its passes' plain
+    versions), counted on the card in ``project.fallbacks``.  Inside
+    ``chains.eager_chain()``: ``project_reference``.  Terms, C and U on
+    two devices raise.
     """
     blocks = list(blocks)
     if not blocks:
         raise ValueError("tall projection: no terms")
-    if all(T.device.type == "cpu" for T in blocks + [C] + ([] if U is None else [U])):
-        return project_reference(blocks, C, U, live)
     dev = C.device
-    if dev.type != "cuda" or any(T.device != dev for T in blocks
-                                 + ([] if U is None else [U])):
+    if any(T.device != dev for T in blocks + ([] if U is None else [U])):
+        raise ValueError("tall projection: operands on one device")
+    if eager():
+        return project_reference(blocks, C, U, live)
+    if dev.type == "cuda":
+        if takes(blocks, C, U, live):
+            return _launch(blocks, C, U, live)
+        project.fallbacks += 1
+    return library(blocks, C, U, live, in_place)
+
+
+def launch(blocks: Sequence[torch.Tensor], C: torch.Tensor,
+           U: Optional[torch.Tensor] = None, live=None,
+           out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The kernel alone, whatever ``takes`` says: Y [n, m] as ``project``
+    forms it (``live`` a count, as an int or a 0-d tensor, or a boolean
+    [m]), launched on the current stream without synchronising and
+    counted in ``project.launches``.  ``out``: a contiguous [n, m] f32
+    block the kernel writes into (none of the operands); the result is
+    returned.  Operands off the card, or ones the kernel cannot run
+    (``_fits``), raise."""
+    blocks = list(blocks)
+    dev = C.device
+    if not blocks or dev.type != "cuda" or any(
+            T.device != dev for T in blocks + ([] if U is None else [U])):
         raise ValueError("tall projection: operands on one CUDA device")
-    if not takes(blocks, C, U, live):
+    if not _fits(blocks, C, U, live):
         raise ValueError(
             f"tall projection: the kernel takes 1 to {MAX_TERMS} [n, w] real "
             f"f32 blocks, C [sum w, m <= {MAX_M}], U [n, m] or None, column "
@@ -218,22 +301,22 @@ def project(blocks: Sequence[torch.Tensor], C: torch.Tensor,
             f"{[(tuple(b.shape), b.dtype, b.stride()) for b in blocks]}, C "
             f"{tuple(C.shape)} {C.dtype} {C.stride()}, U "
             f"{None if U is None else (tuple(U.shape), U.dtype, U.stride())}")
+    return _launch(blocks, C, U, live, out)
+
+
+def _launch(blocks, C, U, live, out=None, p: Optional[Plan] = None):
+    """One launch of csrc/proj.cu into ``out`` (allocated where None)
+    with plan p (``plan(m)`` where None), counted in ``project.launches``;
+    the callers check the operands (``tools/proj_widths.py --tune`` times
+    other plans)."""
     n, m = blocks[0].shape[0], C.shape[1]
     if out is None:
-        out = torch.empty((n, m), dtype=torch.float32, device=dev)
-    elif (out.shape != (n, m) or out.dtype != torch.float32 or out.device != dev
-          or not out.is_contiguous()):
+        out = torch.empty((n, m), dtype=torch.float32, device=C.device)
+    elif (out.shape != (n, m) or out.dtype != torch.float32
+          or out.device != C.device or not out.is_contiguous()):
         raise ValueError("tall projection: out must be a contiguous [n, m] f32 "
                          "block on the operands' device")
-    _launch(blocks, C, U, live, out, plan(m))
-    project.launches += 1
-    return out
-
-
-def _launch(blocks, C, U, live, out, p: Plan) -> None:
-    """One launch of csrc/proj.cu with plan p (``project`` checks the
-    operands; ``tools/proj_widths.py --tune`` times other plans)."""
-    n, m = out.shape
+    p = p or plan(m)
     widths = [b.shape[1] for b in blocks]
     w = vector_width(list(blocks) + [C, out] + ([] if U is None else [U]),
                      widths + [m])
@@ -252,6 +335,9 @@ def _launch(blocks, C, U, live, out, p: Plan) -> None:
             w, stream)
     del keep
     check(lib, code, "tall projection launch")
+    project.launches += 1
+    return out
 
 
 project.launches = 0
+project.fallbacks = 0

@@ -32,12 +32,10 @@ tensor of any other dtype (complex, bf16, f16) or of mixed dtypes runs
 the plain version, as the eager chain did.  A shape the kernel does not
 take raises.  Nothing is retried after a failure.  No Python scalar
 enters these chains: lam, d and the live counts are tensors or ints.
-
-``eager_chain()`` is the A/B switch of ``chip_smoke.py`` and the tests:
-inside it the call sites (``operators/linop.py``, ``ops/residual.py``,
-``ops/gram.py``, ``ops/masking.py``, ``parallel/sharding.py``) run the
-eager chains they ran before these kernels.  The solver never enters
-it.
+Inside ``chains.eager_chain()`` every wrapper runs its plain version,
+which is the eager chain of its call site (``operators/linop.py``,
+``ops/residual.py``, ``ops/masking.py``, ``proj.py``,
+``parallel/sharding.py``) before these kernels.
 """
 
 from __future__ import annotations
@@ -48,8 +46,8 @@ from typing import Optional, Sequence
 
 import torch
 
-from lobpcg_tpu_torch.ops import masking
 from lobpcg_tpu_torch.ops.cuda.build import build_record, check, load_library
+from lobpcg_tpu_torch.ops.cuda.chains import as_mask, eager, read
 from lobpcg_tpu_torch.ops.cuda.stencil import items_per_load
 
 KERNEL_DTYPES = (torch.float32, torch.float64)
@@ -74,29 +72,6 @@ SIGNATURES = {
     **{f"lobpcg_tail_compact_{s}": _TALL + [_P, _I, _I] + _LIVE + _SHAPE
        for s in _SUFFIX.values()},
 }
-
-_EAGER = [False]
-
-
-class eager_chain:
-    """Context manager: the call sites of these kernels run the eager
-    chains they replaced (one PyTorch pass an operation) while it is
-    open; restores the previous state on exit."""
-
-    def __enter__(self):
-        self._old = _EAGER[0]
-        _EAGER[0] = True
-        return self
-
-    def __exit__(self, *exc):
-        _EAGER[0] = self._old
-        return False
-
-
-def eager() -> bool:
-    """Is ``eager_chain`` open?"""
-    return _EAGER[0]
-
 
 @functools.cache
 def _lib():
@@ -148,7 +123,7 @@ def item_width(k: int, itemsize: int, operands) -> int:
 def _mask(S: torch.Tensor, live) -> torch.Tensor:
     """``masking.mask_cols``' chain: S times its live mask cast to S's
     dtype."""
-    m = masking.as_mask(S.shape[-1], live, S.device)
+    m = as_mask(S.shape[-1], live, S.device)
     return S * m[..., None, :].to(S.dtype)
 
 
@@ -255,10 +230,11 @@ def antidiag(X: torch.Tensor, d: torch.Tensor, copies: int = 1) -> torch.Tensor:
     CUDA tensor of real f32 or f64 (d of X's dtype): launches
     ``csrc/tail.cu``'s antidiag on the current stream, without
     synchronising, and counts it in ``antidiag.launches``; X at any
-    strides.  Other dtypes on CUDA, and CPU tensors: the plain version.
+    strides.  Other dtypes on CUDA, CPU tensors, and inside
+    ``chains.eager_chain()``: the plain version.
     """
     h, per_row = _swap_scales(X, d, copies)
-    if X.device.type == "cpu" or not _kernel_route(X, d):
+    if eager() or X.device.type == "cpu" or not _kernel_route(X, d):
         return antidiag_reference(X, d, copies)
     _check_device("antidiag", X, d)
     b, n, k = _dims(X)
@@ -304,8 +280,11 @@ def residual(AX: torch.Tensor, X: torch.Tensor, lam: torch.Tensor,
     CUDA tensors of real f32 or f64 (AX, X, BX and d of one dtype):
     launches ``csrc/tail.cu``'s residual on the current stream and counts
     it in ``residual.launches``; blocks at any strides.  Other dtypes on
-    CUDA, and CPU tensors: the plain version.
+    CUDA, CPU tensors, and inside ``chains.eager_chain()``: the plain
+    version.
     """
+    if eager():
+        return residual_reference(AX, X, lam, d, BX, copies)
     if d is not None and BX is not None:
         raise ValueError("residual: B is the anti-diagonal of d or the block "
                          "BX, not both")
@@ -381,8 +360,11 @@ def combine(terms: Sequence[torch.Tensor], U: Optional[torch.Tensor] = None,
     CUDA tensors of real f32 or f64 (terms and U of one dtype): launches
     ``csrc/tail.cu``'s combine on the current stream and counts it in
     ``combine.launches``; operands at any strides.  Other dtypes on
-    CUDA, and CPU tensors: the plain version.
+    CUDA, CPU tensors, and inside ``chains.eager_chain()``: the plain
+    version.
     """
+    if eager():
+        return combine_reference(terms, U, live)
     terms = list(terms)
     if not 1 <= len(terms) <= MAX_TERMS:
         raise ValueError(f"combine: 1 to {MAX_TERMS} terms, got {len(terms)}")
@@ -429,7 +411,8 @@ def compact_reference(U: torch.Tensor, shift=0, live=None) -> torch.Tensor:
     column gather U[..., clamp(j + shift, 0, w - 1)] (per problem for [b]
     shifts), then ``mask_cols``; shift 0 the mask alone."""
     w = U.shape[-1]
-    if isinstance(shift, torch.Tensor) and shift.dim() >= 1:
+    shift = read(shift)
+    if isinstance(shift, torch.Tensor):
         ar = torch.arange(w, device=U.device)
         src = torch.clamp(ar + shift[..., None], 0, w - 1)
         out = torch.take_along_dim(U, src[..., None, :], dim=-1)
@@ -455,12 +438,13 @@ def compact(U: torch.Tensor, shift=0, live=None,
 
     CUDA tensor of real f32 or f64: launches ``csrc/tail.cu``'s compact
     on the current stream and counts it in ``compact.launches``; U at any
-    strides.  Other dtypes on CUDA, and CPU tensors: the plain version.
+    strides.  Other dtypes on CUDA, CPU tensors, and inside
+    ``chains.eager_chain()``: the plain version.
     """
     if live is None:
         raise ValueError("compact: live (a count, counts or a mask) is "
                          "required")
-    if U.device.type == "cpu" or not _kernel_route(U):
+    if eager() or U.device.type == "cpu" or not _kernel_route(U):
         return compact_reference(U, shift, live)
     b, n, k = _dims(U)
     _check_device("compact", U)

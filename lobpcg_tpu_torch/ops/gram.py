@@ -1,17 +1,16 @@
 """Gram-matrix assembly: the contraction-over-n hot spot (port of
 ``lobpcg_tpu/ops/gram.py``).
 
-One product per Gram: a [k, n] x [n, k] contraction.  On the card a tall
-2-D real f32 pair goes to the hand-written kernel ``csrc/gram.cu``
-(``ops/cuda/gram.py:tall_gram``), every other product to
-``torch.matmul`` (cuBLAS).  The full k x k matrix is always formed (k <=
-3 * size_sub); ``eigh`` symmetrizes the round-off.
+One product per Gram: a [k, n] x [n, k] contraction, by
+``ops/cuda/gram.py:tall_gram`` (the hand-written kernel ``csrc/gram.cu``
+where it takes the pair, else ``torch.matmul``); a batched pair is cut
+over rows here first.  The full k x k matrix is always formed (k <= 3 *
+size_sub); ``eigh`` symmetrizes the round-off.
 
 The projections back to the tall space (``b_mm``, ``b_mm_update``,
-``mm_masked``) go on the card to the hand-written kernel ``csrc/proj.cu``
-(``ops/cuda/proj.py:project``) where ``_proj_takes`` says so: the sum over
-the terms, U - sum and the column mask in its epilogue.  Every other
-projection runs a ``torch.matmul`` a term and a ``tail.combine`` pass.
+``mm_masked``) are calls of ``ops/cuda/proj.py:project`` (the
+hand-written kernel ``csrc/proj.cu`` where it takes the operands, else
+the GEMMs and the tail kernels it replaced).
 
 Under a row group (a sharded solve, ``ops/rows.py``) every contraction
 over the rows of tall blocks (``_hdot`` and the Grams built on it) is
@@ -34,8 +33,8 @@ import torch
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.ops import masking
 from lobpcg_tpu_torch.ops.cuda import gram as gram_kernel
-from lobpcg_tpu_torch.ops.cuda import proj as proj_kernel
-from lobpcg_tpu_torch.ops.cuda import tail
+from lobpcg_tpu_torch.ops.cuda.chains import mm
+from lobpcg_tpu_torch.ops.cuda.proj import project
 from lobpcg_tpu_torch.ops.rows import row_sum
 from lobpcg_tpu_torch.utils.profiling import APPLY, span
 
@@ -78,15 +77,6 @@ class precision_ctx:
         return False
 
 
-def mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:
-    """Numerically-sensitive matmul at the context's precision; the
-    result has B's dtype (the JAX package's preferred_element_type)."""
-    if A.dtype != B.dtype:
-        dt = torch.promote_types(A.dtype, B.dtype)
-        return torch.matmul(A.to(dt), B.to(dt)).to(B.dtype)
-    return torch.matmul(A, B)
-
-
 def apply_block_op(op: Optional[LinearOperator], X: torch.Tensor,
                    role: str = "B") -> torch.Tensor:
     """Y = Op @ X for a whole block; identity when op is None.  ``role``
@@ -97,54 +87,23 @@ def apply_block_op(op: Optional[LinearOperator], X: torch.Tensor,
         return op.matmat(X)
 
 
-def _pack_pair_ok(op, ku: int, kv: int) -> bool:
-    """Pack two adjacent same-width applies into one wide call iff the
-    operator's fast path needs the combined width.  Every operator of
-    the port answers apply_width_ok True, so this is never the case."""
-    return (
-        op is not None
-        and ku == kv
-        and not op.apply_width_ok(ku)
-        and op.apply_width_ok(ku + kv)
-    )
-
-
 def apply_block_op_pair(op, U: torch.Tensor, V: torch.Tensor,
                         role: str = "B"):
-    """(op @ U, op @ V), packed into one [n, ku+kv] apply when that is
-    the operator's fast path; one span, as ``apply_block_op``."""
+    """(op @ U, op @ V) in one span, as ``apply_block_op``."""
     if op is None:
         return U, V
     with span(APPLY[role]):
-        if _pack_pair_ok(op, U.shape[-1], V.shape[-1]):
-            ku = U.shape[-1]
-            Y = op.matmat(torch.cat([U, V], dim=-1))
-            return Y[..., :ku], Y[..., ku:]
         return op.matmat(U), op.matmat(V)
 
 
 def applied_blocks(op, blocks, pre=None, pack=True, role="B"):
-    """[op @ b for b in blocks], reusing ``pre[j]`` where given and
-    packing adjacent same-width applies when the operator prefers the
-    combined width (apply_block_op_pair)."""
+    """[op @ b for b in blocks], reusing ``pre[j]`` where given.
+    ``pack`` (the JAX package's packing of two same-width applies into
+    one) is accepted for parity and has no effect: every operator of the
+    port applies any width on its fast path."""
     pre = pre or {}
-    n_b = len(blocks)
-    todo = [j for j in range(n_b) if pre.get(j) is None]
-    applied = [pre.get(j) for j in range(n_b)]
-    i = 0
-    while i < len(todo):
-        j = todo[i]
-        if pack and i + 1 < len(todo):
-            j2 = todo[i + 1]
-            if _pack_pair_ok(op, blocks[j].shape[-1], blocks[j2].shape[-1]):
-                applied[j], applied[j2] = apply_block_op_pair(
-                    op, blocks[j], blocks[j2], role
-                )
-                i += 2
-                continue
-        applied[j] = apply_block_op(op, blocks[j], role)
-        i += 1
-    return applied
+    return [apply_block_op(op, b, role) if pre.get(j) is None else pre[j]
+            for j, b in enumerate(blocks)]
 
 
 # Row-chunk size for WIDENED contractions (rr_dtype wider than storage):
@@ -174,77 +133,37 @@ class mixed_chunk_ctx:
 
 
 # Rows of one piece of a batched tall contraction (_tall_hmm): at most
-# this many, at least _SPLIT_MIN where n has such a divisor.
-_SPLIT_MAX, _SPLIT_MIN = 8192, 1024
+# gram_kernel.MAX_ROWS (the kernel's slab), at least _SPLIT_MIN where n
+# has such a divisor.
+_SPLIT_MIN = 1024
 
 
 @functools.lru_cache(maxsize=64)
 def _split_rows(n: int) -> int:
-    """Rows of one piece: n itself up to _SPLIT_MAX, else the largest
-    divisor of n in [_SPLIT_MIN, _SPLIT_MAX], else _SPLIT_MAX (the last
-    n % _SPLIT_MAX rows then make a product of their own)."""
-    if n <= _SPLIT_MAX:
+    """Rows of one piece: n itself up to MAX_ROWS, else the largest
+    divisor of n in [_SPLIT_MIN, MAX_ROWS], else MAX_ROWS (the last n %
+    MAX_ROWS rows then make a product of their own)."""
+    top = gram_kernel.MAX_ROWS
+    if n <= top:
         return n
-    for r in range(_SPLIT_MAX, _SPLIT_MIN - 1, -1):
+    for r in range(top, _SPLIT_MIN - 1, -1):
         if n % r == 0:
             return r
-    return _SPLIT_MAX
-
-
-# Rows from which a 2-D Gram on the card is tall enough for csrc/gram.cu.
-_KERNEL_MIN_ROWS = 65_536
-
-
-def _kernel_widths(kv: int, ku: int) -> bool:
-    """Widths at which csrc/gram.cu ran faster than cuBLAS on the card
-    (4M rows, PERF.md's tall Gram row): both from 4 up to 96, where one
-    block's tile holds the whole Gram and the product is byte-bound or
-    nearly, and both in (128, 168], where one tile of up to 441 threads
-    covers it.  cuBLAS's 64 x 64 tiles won at 100-128 and at 200 and 256
-    (two tiles a side; 169-199 stays cuBLAS's too, untimed but 176), and
-    its dot kernel at width 1, faster and with half the error."""
-    lo, hi = min(kv, ku), max(kv, ku)
-    return (4 <= lo and hi <= 96) or (128 < lo and hi <= 168)
-
-
-def _kernel_takes(V: torch.Tensor, U: torch.Tensor) -> bool:
-    """Does a pair on the card go to ``gram_kernel.tall_gram``?  Both
-    2-D, real f32, column stride 1 (``gram_kernel.takes``), n >=
-    _KERNEL_MIN_ROWS and widths the kernel wins at (``_kernel_widths``),
-    by shape, dtype and layout alone."""
-    return (V.shape[-2] >= _KERNEL_MIN_ROWS and gram_kernel.takes(V, U)
-            and _kernel_widths(V.shape[-1], U.shape[-1]))
-
-
-def _tall_route(V: torch.Tensor, U: torch.Tensor) -> str:
-    """The product ``_tall_hmm`` runs: "kernel" (csrc/gram.cu: a pair on
-    the card that ``_kernel_takes``), "split" (a batched pair cut over
-    rows) or "matmul" (one ``torch.matmul``: the k x k ``_mat`` Grams,
-    complex and f64 blocks, the widened ``rr_dtype`` chunks, CPU
-    tensors)."""
-    if V.dim() == 2:
-        if V.is_cuda and U.is_cuda and _kernel_takes(V, U):
-            return "kernel"
-        return "matmul"
-    n = V.shape[-2]
-    return "matmul" if _split_rows(n) == n else "split"
+    return top
 
 
 def _tall_hmm(V: torch.Tensor, U: torch.Tensor) -> torch.Tensor:
-    """V^H @ U for tall blocks, by ``_tall_route``.  A batched pair [b, n,
-    k] is cut into pieces of ``_split_rows(n)`` rows that run as one
-    batched GEMM, and the pieces' products (and that of the rows left
-    over) are summed: cuBLAS's strided-batched GEMM gives each problem's
-    small output to a few thread blocks that run the whole n-long
-    reduction in f32, slow and less accurate than the split over rows
-    its unbatched GEMM makes."""
-    route = _tall_route(V, U)
-    if route == "kernel":
-        return gram_kernel.tall_gram(V, U)
-    if route == "matmul":
-        return torch.matmul(V.mH, U)
+    """V^H @ U for tall blocks: ``gram_kernel.tall_gram`` (the kernel or
+    one ``torch.matmul``), except that a batched pair [b, n, k] of more
+    than MAX_ROWS rows is cut into pieces of ``_split_rows(n)`` rows that
+    run as one batched GEMM, and the pieces' products (and that of the
+    rows left over) are summed: cuBLAS's strided-batched GEMM gives each
+    problem's small output to a few thread blocks that run the whole
+    n-long reduction in f32, slow and less accurate than the split over
+    rows its unbatched GEMM makes."""
     n = V.shape[-2]
-    r = _split_rows(n)
+    if V.dim() == 2 or (r := _split_rows(n)) == n:
+        return gram_kernel.tall_gram(V, U)
     m = n - n % r
     lead = V.shape[:-2]
     Vs = V[..., :m, :].reshape(lead + (m // r, r, V.shape[-1]))
@@ -347,118 +266,23 @@ def bh_dot(blocks, Y: torch.Tensor, out_dtype=None) -> torch.Tensor:
 
 def b_mm(blocks, C: torch.Tensor) -> torch.Tensor:
     """Sum_i blocks_i @ C[rows_i] — project-back without materializing S
-    (``_projected``; the GEMMs and the eager adds inside
-    ``tail.eager_chain()``)."""
-    if tail.eager():
-        out = None
-        j = 0
-        for b in blocks:
-            w = b.shape[-1]
-            t = mm(b, C[..., j : j + w, :])
-            out = t if out is None else out + t
-            j += w
-        return out
-    return _projected(blocks, C)
+    (``project``)."""
+    return project(blocks, C)
 
 
 def b_mm_update(U: torch.Tensor, blocks, C: torch.Tensor, live) -> torch.Tensor:
     """mask_cols(U - b_mm(blocks, C), live), the projection update of
-    ``ops/ortho.py`` (``_projected``; the eager chain inside
-    ``tail.eager_chain()``)."""
-    if tail.eager():
-        return masking.mask_cols(U - b_mm(blocks, C), live)
-    return _projected(blocks, C, U, live)
+    ``ops/ortho.py`` (``project``)."""
+    return project(blocks, C, U, live)
 
 
 def mm_masked(U: torch.Tensor, T: torch.Tensor, live,
               in_place: bool = True) -> torch.Tensor:
     """mask_cols(mm(U, T), live): SVQB's transform of a tall block and its
-    mask (``_projected``; the GEMM and ``mask_cols`` inside
-    ``tail.eager_chain()``).  ``in_place``: the mask may be written over
-    the GEMM output where the GEMM runs, so a second SVQB pass holds one
-    tall block fewer."""
-    def library(blocks, C, _, live):
-        UT = mm(blocks[0], C)
-        return masking.mask_cols(UT, live, out=UT if in_place else None)
-
-    if tail.eager():
-        return library((U,), T, None, live)
-    return _projected((U,), T, None, live, library=library)
-
-
-# Terms a combine pass sums before the next GEMM: as many tall blocks as
-# the eager chain held at once (the running sum, a term and their sum).
-_COMBINE_GROUP = 3
-
-
-def _proj_widths(m: int) -> bool:
-    """Output widths m at which csrc/proj.cu ran faster than cuBLAS's
-    GEMMs plus combine on the card (three terms at 4M rows,
-    ``tools/proj_widths.py``, PERF.md's projection row): 4 to 128, and 161
-    to 168, where the tile of the 4M x 150 solve's 164 is fixed at compile
-    time.  From 129 to 160 the generic tile ran 3-9% slower than cuBLAS
-    (m 129: 23.9 against 23.0 ms; 150: 23.6 against 23.2)."""
-    return 4 <= m <= 128 or 160 < m <= proj_kernel.MAX_M
-
-
-def _proj_takes(blocks, C, U=None, live=None) -> bool:
-    """Does a projection on the card go to ``proj_kernel.project``?  1 to
-    ``proj_kernel.MAX_TERMS`` 2-D real f32 blocks with column stride 1,
-    C [sum of their widths, m], U None or [n, m], a live count or boolean
-    [m] (``proj_kernel.takes``), n >= _KERNEL_MIN_ROWS and an m the kernel
-    wins at (``_proj_widths``): by shape, dtype and layout alone."""
-    return (blocks[0].shape[-2] >= _KERNEL_MIN_ROWS
-            and proj_kernel.takes(blocks, C, U, live)
-            and _proj_widths(C.shape[-1]))
-
-
-def _proj_route(blocks, C, U=None, live=None) -> str:
-    """The product ``_projected`` runs: "kernel" (csrc/proj.cu: operands
-    on the card that ``_proj_takes``), "cublas" (a ``torch.matmul`` a
-    term and a ``tail.combine`` pass on the card: batched [b, n, k] blocks,
-    complex and f64, n under _KERNEL_MIN_ROWS, other widths) or "host"
-    (CPU tensors: the same chain's plain versions)."""
-    if not all(T.is_cuda for T in (*blocks, C)):
-        return "host"
-    return "kernel" if _proj_takes(blocks, C, U, live) else "cublas"
-
-
-def _projected(blocks, C, U=None, live=None, library=None):
-    """live * (U - sum_i blocks_i @ C[rows_i]) by ``_proj_route``,
-    counting the projections on the card in ``_projected.kernel`` and
-    ``_projected.cublas``.  The cuBLAS and host route: ``library(blocks,
-    C, U, live)``, by default the GEMM outputs summed left to right in
-    ``tail.combine`` passes of up to _COMBINE_GROUP terms (each written
-    over its first term), the last one also forming live * (U - sum)."""
-    route = _proj_route(blocks, C, U, live)
-    if route == "kernel":
-        _projected.kernel += 1
-        return proj_kernel.project(blocks, C, U, live)
-    if route == "cublas":
-        _projected.cublas += 1
-    return (library or _gemms_combined)(blocks, C, U, live)
-
-
-_projected.kernel = 0
-_projected.cublas = 0
-
-
-def _gemms_combined(blocks, C, U, live):
-    acc, j = [], 0
-    for i, b in enumerate(blocks):
-        w = b.shape[-1]
-        acc.append(mm(b, C[..., j : j + w, :]))
-        j += w
-        if len(acc) == _COMBINE_GROUP and i < len(blocks) - 1:
-            acc = [_combine(acc)]
-    return _combine(acc, U, live)
-
-
-def _combine(terms, U=None, live=None):
-    if len(terms) == 1 and U is None and live is None:
-        return terms[0]
-    t0 = terms[0]
-    return tail.combine(terms, U, live, out=t0 if t0.is_contiguous() else None)
+    mask (``project``).  ``in_place``: the mask may be written over the
+    GEMM output where the GEMM runs, so a second SVQB pass holds one tall
+    block fewer."""
+    return project((U,), T, None, live, in_place=in_place)
 
 
 def herm_tile_gram(blocks, applied, out_dtype=None) -> torch.Tensor:

@@ -22,21 +22,13 @@ from __future__ import annotations
 
 import torch
 
+from lobpcg_tpu_torch.ops.cuda.chains import read
 from lobpcg_tpu_torch.utils.profiling import SYNC_READ, span
 
 
 def is_lanes(x) -> bool:
     """Is ``x`` a per-problem [b] (or [b, ...]) tensor of a batched solve?"""
     return isinstance(x, torch.Tensor) and x.dim() >= 1
-
-
-def read(t):
-    """A per-problem device value as the loop uses it: a 0-d tensor is
-    read to a Python scalar (one host read); lanes stay on the device."""
-    if isinstance(t, torch.Tensor) and t.dim() == 0:
-        with span(SYNC_READ):
-            return t.item()
-    return t
 
 
 def read_pair(a, b):

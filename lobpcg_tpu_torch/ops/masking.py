@@ -18,21 +18,7 @@ import torch
 
 from lobpcg_tpu_torch.ops import lanes
 from lobpcg_tpu_torch.ops.cuda import tail
-
-
-def as_mask(width: int, live, device=None) -> torch.Tensor:
-    """Normalize `live` to a boolean [width] mask ([b, width] for lanes).
-
-    `live` may be an int (prefix count), a boolean mask, or an integer
-    tensor of per-problem prefix counts [b].
-    """
-    if isinstance(live, torch.Tensor):
-        if live.dtype == torch.bool:
-            return live
-        if live.dim() >= 1:
-            ar = torch.arange(width, device=live.device)
-            return ar < live[..., None]
-    return torch.arange(width, device=device) < int(lanes.read(live))
+from lobpcg_tpu_torch.ops.cuda.chains import as_mask
 
 
 def blocks_mask(widths: tuple[int, ...], counts, device=None) -> torch.Tensor:
@@ -43,30 +29,17 @@ def blocks_mask(widths: tuple[int, ...], counts, device=None) -> torch.Tensor:
 
 
 def mask_cols(U: torch.Tensor, live, out=None) -> torch.Tensor:
-    """Zero the dead columns of U (one ``tail.compact`` pass; the eager
-    multiply inside ``tail.eager_chain()``).  ``out``: where the kernel
-    may write the result, U itself when U is the caller's scratch."""
-    if not tail.eager():
-        return tail.compact(U, 0, live, out)
-    m = as_mask(U.shape[-1], live, U.device)
-    return U * m[..., None, :].to(U.dtype)
+    """Zero the dead columns of U (one ``tail.compact`` pass).  ``out``:
+    where the kernel may write the result, U itself when U is the
+    caller's scratch."""
+    return tail.compact(U, 0, live, out)
 
 
 def shift_cols(U: torch.Tensor, shift, new_count) -> torch.Tensor:
     """Drop the first `shift` columns and compact the rest to the front:
     output column j = U[..., j+shift] for j < new_count, zero otherwise
-    (per problem for [b] shifts).  One ``tail.compact`` pass; inside
-    ``tail.eager_chain()`` the eager gather, then ``mask_cols``."""
-    if not tail.eager():
-        return tail.compact(U, shift, new_count)
-    w = U.shape[-1]
-    ar = torch.arange(w, device=U.device)
-    if isinstance(shift, torch.Tensor) and shift.dim() >= 1:
-        src = torch.clamp(ar + shift[..., None], 0, w - 1)
-        out = torch.take_along_dim(U, src[..., None, :], dim=-1)
-    else:
-        out = U[..., torch.clamp(ar + int(lanes.read(shift)), 0, w - 1)]
-    return mask_cols(out, new_count)
+    (per problem for [b] shifts).  One ``tail.compact`` pass."""
+    return tail.compact(U, shift, new_count)
 
 
 def permute_cols(U: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:

@@ -30,13 +30,8 @@ def get_residual(
     """W = A X - B X diag(lam).  AX may be a cached A@X; BX likewise a
     pre-applied B@X.  One ``tail.residual`` pass: an anti-diagonal B
     (``linop.half_swap``) is read as X's partner rows, any other B is
-    applied first; inside ``tail.eager_chain()`` the eager chain (B X,
-    the multiply, the subtraction)."""
+    applied first."""
     W = apply_block_op(A, X, "A") if AX is None else AX
-    if tail.eager():
-        if BX is None:
-            BX = apply_block_op(B, X)
-        return W - BX * lam[..., None, :].to(BX.dtype)
     swap = half_swap(B, X) if BX is None else None
     if BX is None and swap is None and B is not None:
         BX = apply_block_op(B, X)

@@ -4,15 +4,12 @@ pair's residual over the iterations.
 
     python -m lobpcg_tpu_torch.tools.convergence_trace --grid 160 160 160 \
         [--operator nd|bsr] [--dtype float32|float64] [--rr-dtype float64] \
-        [--max-iter 2500] [--profile]
+        [--max-iter 2500]
 
 Runs on the CUDA card, with chip_smoke.py's laplacian3d settings: nev 10,
 size_sub 16, tol 1e-5, X0 uniform(-0.5, 0.5) from RandomState(0).  Prints
-one JSON line.  ``--profile`` then solves the same problem again under
-torch.profiler and adds the device time by kernel category, the device
-busy time, and the idle share against the untraced solve's wall-clock
-(tracing ~700k launches slows the host, so the traced wall overstates
-the idle share; both walls are printed).
+one JSON line.  The device time of the same solve by kernel and by phase
+is ``bench_port/run.py --workload lap3d_160.nd --trace 1``'s.
 """
 
 from __future__ import annotations
@@ -37,7 +34,6 @@ def main() -> None:
     ap.add_argument("--dtype", choices=("float32", "float64"), default="float32")
     ap.add_argument("--rr-dtype", default=None)
     ap.add_argument("--max-iter", type=int, default=2500)
-    ap.add_argument("--profile", action="store_true")
     args = ap.parse_args()
 
     dev = torch.device("cuda")
@@ -83,67 +79,7 @@ def main() -> None:
         "last_pair_residual_every_100": res_last[::100].tolist(),
         "max_err_over_lam_max": float(np.abs(lam - exact).max() / lam_max),
     }
-    if args.profile:
-        del r
-        with torch.profiler.profile(activities=[
-                torch.profiler.ProfilerActivity.CPU,
-                torch.profiler.ProfilerActivity.CUDA]) as prof:
-            r, _, traced_wall = solve()
-        rec.update(traced_iterations=r.iterations,
-                   **device_breakdown(prof, wall, traced_wall))
     print(json.dumps(rec), flush=True)
-
-
-# Kernel-name substrings of each category of device time.
-CATEGORIES = (
-    ("K2 stencil3d", ("stencil3d_kernel",)),
-    ("K3 bsr_ell", ("bsr_ell_kernel",)),
-    # K1 and its fused forms (stencil_diag, cheb_step): one kernel template.
-    ("K1 family (stencil1d_kernel)", ("stencil1d_kernel",)),
-    # The solver's tall tail (csrc/tail.cu).
-    ("tail (antidiag, residual, combine, compact)",
-     ("tail_antidiag_kernel", "tail_residual_kernel", "tail_combine_kernel",
-      "tail_compact_kernel")),
-    ("GEMM (cuBLAS)", ("gemm", "gemv", "cutlass", "sm90_xmma", "Kernel2")),
-    ("eigh / QR (cuSOLVER)", ("syevj", "syevd", "sytrd", "stedc", "steqr",
-                              "sterf", "ormtr", "orgtr", "geqrf", "orgqr",
-                              "ormqr", "potrf", "trsm", "cusolver", "jacobi")),
-    ("memcpy / memset", ("Memcpy", "Memset")),
-)
-
-
-ELEMENTWISE = "elementwise / reductions / other"
-
-
-def category(kernel_name: str) -> str:
-    """The category of CATEGORIES a kernel name falls in (ELEMENTWISE:
-    PyTorch's own elementwise, reduction, cat, index and copy kernels)."""
-    return next((c for c, keys in CATEGORIES
-                 if any(k in kernel_name for k in keys)), ELEMENTWISE)
-
-
-def device_breakdown(prof, wall: float, traced_wall: float) -> dict:
-    """Device seconds by category (CUDA events of the trace), device busy
-    seconds, and the idle share of the untraced and the traced wall."""
-    sums, counts = {}, {}
-    for evt in prof.key_averages():
-        # The solver's spans (utils/profiling.py) also appear on the
-        # device timeline, spanning the kernels they hold.
-        if evt.device_type != torch.autograd.DeviceType.CUDA or getattr(
-                evt, "is_user_annotation", False) or evt.key.startswith(
-                    "lobpcg."):
-            continue
-        us = getattr(evt, "device_time_total", None)
-        if us is None:
-            us = evt.cuda_time_total
-        cat = category(evt.key)
-        sums[cat] = sums.get(cat, 0.0) + us / 1e6
-        counts[cat] = counts.get(cat, 0) + evt.count
-    busy = sum(sums.values())
-    return {"device_s_by_category": sums, "launches_by_category": counts,
-            "device_busy_s": busy, "traced_wall_s": traced_wall,
-            "idle_share": 1.0 - busy / wall,
-            "traced_idle_share": 1.0 - busy / traced_wall}
 
 
 if __name__ == "__main__":

@@ -6,11 +6,11 @@ on the card.
     python -m lobpcg_tpu_torch.tools.proj_widths --tune    # plans at the solves' widths
 
 The sweep runs ``b_mm``'s form (three terms of width m, no U, no mask) at
-n 4,000,000 for each m of WIDTHS: ms of the kernel and of
-``ops/gram.py:_gemms_combined`` (the cuBLAS route), the bound (the
-larger of 2 n K m operations over 67 TFLOP/s and (K + m) n 4 bytes over
-3.35 TB/s, K = 3 m) and the route ``ops/gram.py`` takes there: the table
-behind ``_proj_widths``.  ``--tune`` times other launch plans (the K a
+n 4,000,000 for each m of WIDTHS: ms of the kernel (``proj.launch``) and
+of ``proj.library`` (the cuBLAS route), the bound (the larger of 2 n K m
+operations over 67 TFLOP/s and (K + m) n 4 bytes over 3.35 TB/s, K = 3 m)
+and the route ``proj.project`` takes there: the table behind
+``proj._widths``.  ``--tune`` times other launch plans (the K a
 stage and the rows of threads) at m 164, 64 and 16 beside the one
 ``plan`` picks; a plan the source does not fix at compile time runs the
 generic instantiation.  Prints one JSON line a point, then the card's
@@ -28,7 +28,6 @@ import json
 import torch
 
 from lobpcg_tpu_torch import bench
-from lobpcg_tpu_torch.ops import gram
 from lobpcg_tpu_torch.ops.cuda import proj as kp
 from lobpcg_tpu_torch.tools.stencil_widths import bound, card_line
 
@@ -58,10 +57,9 @@ def sweep_point(dev, m: int, n: int = N_MAIN) -> dict:
     blocks, C, _ = operands(n, (m, m, m), m, False, dev, seed=m)
     out = torch.empty((n, m), device=dev)
     rec = {"m": m, "n": n, "terms": 3,
-           "route": gram._proj_route(blocks, C),
-           "ms": bench.time_ms(lambda: kp.project(blocks, C, out=out), dev),
-           "library_ms": bench.time_ms(
-               lambda: gram._gemms_combined(blocks, C, None, None), dev),
+           "route": "kernel" if kp.takes(blocks, C) else "cublas",
+           "ms": bench.time_ms(lambda: kp.launch(blocks, C, out=out), dev),
+           "library_ms": bench.time_ms(lambda: kp.library(blocks, C), dev),
            **proj_bound(n, 3 * m, m, False)}
     rec["share_of_bound"] = rec["bound_ms"] / rec["ms"]
     return rec
@@ -84,7 +82,7 @@ def tune_plans(m: int):
 def tune_point(dev, m: int, n: int = N_MAIN) -> list[dict]:
     blocks, C, _ = operands(n, (m, m, m), m, False, dev, seed=m)
     out = torch.empty((n, m), device=dev)
-    want = kp.project(blocks, C)
+    want = kp.launch(blocks, C)
     recs = []
     for p in tune_plans(m):
         kp._launch(blocks, C, None, None, out, p)

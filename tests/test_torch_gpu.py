@@ -1642,7 +1642,9 @@ def test_pytorch_scalar_rules_the_fused_kernels_follow_on_card(cuda_device,
 from lobpcg_tpu_torch.ops import gram as _gram  # noqa: E402
 from lobpcg_tpu_torch.ops import masking as _masking  # noqa: E402
 from lobpcg_tpu_torch.ops import residual as _residual  # noqa: E402
-from lobpcg_tpu_torch.ops.cuda import tail  # noqa: E402
+from lobpcg_tpu_torch.ops.cuda import chains, tail  # noqa: E402
+
+import eager_chains as ec  # noqa: E402
 
 # Widths of the tail's blocks: whole 16-byte vectors or not, the lockstep
 # 30, the flagship 64, the 1M x 150 solve's 164, the complex gate's 320.
@@ -1689,7 +1691,9 @@ def _launched(fn, wrapper):
                                   "col_slice", "row_slice"])
 def test_tail_antidiag_on_card(cuda_device, k, dtype, form):
     """antidiag launched once, bit for bit its plain version and the
-    operators' eager chain: one and two copies, a batch with per-problem
+    operators' eager chain (written out in ``eager_chains``; and the
+    operators inside ``chains.eager_chain()``): one and two copies, a
+    batch with per-problem
     d, the sharded form's per-row scales, a column slice of a wider
     block, a row slice X[1:]; NaN, +-Inf and -0 among the inputs."""
     m = 1000
@@ -1706,14 +1710,18 @@ def test_tail_antidiag_on_card(cuda_device, k, dtype, form):
         X = X[1:]
     if form == "per_row":
         d = _tail_block(cuda_device, (n,), dtype, 2, special=True)
-        chain = d[..., None] * torch.cat([X[m:], X[:m]])
+        chain = ec.scaled_swap(X, d)
+        with chains.eager_chain():
+            eager = tail.antidiag(X, d)
     else:
         d = _tail_block(cuda_device, lead + (m,), dtype, 2, special=True)
         B = tl.BlockAntiDiagOperator(d=d)
         if copies == 2:
             B = tl.BlockDiagOperator(B, 2)
-        with tail.eager_chain():
-            chain = B.matmat(X)
+        chain = ec.antidiag(X, d, copies)
+        with chains.eager_chain():
+            eager = B.matmat(X)
+    assert _same_bits(eager, chain)
     got = _launched(lambda: tail.antidiag(X, d, copies), tail.antidiag)
     assert _same_bits(got, tail.antidiag_reference(X, d, copies))
     assert _same_bits(got, chain)
@@ -1726,7 +1734,9 @@ def test_tail_antidiag_on_card(cuda_device, k, dtype, form):
                                     "batched", "col_slice", "row_slice"])
 def test_tail_residual_on_card(cuda_device, k, dtype, b_kind):
     """residual launched once, bit for bit its plain version and
-    get_residual's eager chain: B anti-diagonal (one and two copies,
+    get_residual's eager chain (written out in ``eager_chains``; and
+    get_residual inside ``chains.eager_chain()``): B anti-diagonal (one
+    and two copies,
     per-problem d and lam), B None, a given BX, column slices of wider
     blocks (W[..., :nev]), row slices; lam in f64, cast as the chain
     casts it; NaN, +-Inf and -0 among the inputs."""
@@ -1752,8 +1762,13 @@ def test_tail_residual_on_card(cuda_device, k, dtype, b_kind):
         B = tl.BlockDiagOperator(tl.BlockAntiDiagOperator(d=d), 2)
     BX = _tail_block(cuda_device, lead + (n, k), dtype, 7, special=True) \
         if b_kind == "bx" else None
-    with tail.eager_chain():
-        chain = _residual.get_residual(X, AX, lam, None, B, BX)
+    if BX is None:
+        BX_chain = X if B is None else ec.antidiag(X, d, copies)
+    else:
+        BX_chain = BX
+    chain = ec.residual(AX, BX_chain, lam)
+    with chains.eager_chain():
+        assert _same_bits(_residual.get_residual(X, AX, lam, None, B, BX), chain)
     got = _launched(lambda: _residual.get_residual(X, AX, lam, None, B, BX),
                     tail.residual)
     plain = tail.residual_reference(AX, X, lam, d if B is not None else None,
@@ -1803,7 +1818,9 @@ def test_tail_combine_on_card(cuda_device, k, dtype, nterms, form):
                                   "row_slice"])
 def test_tail_compact_on_card(cuda_device, k, dtype, case):
     """compact launched once, bit for bit its plain version and
-    masking's eager chain: the mask alone (a count, a boolean mask),
+    masking's eager chain (written out in ``eager_chains``; and
+    shift_cols inside ``chains.eager_chain()``): the mask alone (a count,
+    a boolean mask),
     Python shifts (past the last column too), [b] shifts and counts, a
     column slice, a row slice; a dead NaN/Inf column gives NaN, a
     negative value -0."""
@@ -1825,8 +1842,9 @@ def test_tail_compact_on_card(cuda_device, k, dtype, case):
         "col_slice": (1, k - 1),
         "row_slice": (0, k - 1),
     }[case]
-    with tail.eager_chain():
-        chain = _masking.shift_cols(U, shift, live)
+    chain = ec.shift(U, shift, live)
+    with chains.eager_chain():
+        assert _same_bits(_masking.shift_cols(U, shift, live), chain)
     got = _launched(lambda: _masking.shift_cols(U, shift, live), tail.compact)
     assert _same_bits(got, tail.compact_reference(U, shift, live))
     assert _same_bits(got, chain)
@@ -1850,18 +1868,22 @@ def test_tail_compact_over_its_input_on_card(cuda_device, k, dtype):
 @pytest.mark.gpu
 def test_tail_b_mm_and_update_are_the_chain_on_card(cuda_device):
     """b_mm of 3 and 5 blocks and the projection update of 2, through the
-    GEMMs and combine, against the eager chain, bit for bit."""
+    GEMMs and combine, against the eager chain (written out in
+    ``eager_chains``; and the call sites inside ``chains.eager_chain()``),
+    bit for bit."""
     gen = torch.Generator(device=cuda_device).manual_seed(3)
     blocks = [torch.rand((40_000, 64), generator=gen, device=cuda_device) - 0.5
               for _ in range(5)]
     C = torch.rand((320, 64), generator=gen, device=cuda_device) - 0.5
     U = torch.rand((40_000, 64), generator=gen, device=cuda_device) - 0.5
     for nb in (3, 5):
-        with tail.eager_chain():
-            chain = _gram.b_mm(blocks[:nb], C[: 64 * nb])
+        chain = ec.b_mm(blocks[:nb], C[: 64 * nb])
+        with chains.eager_chain():
+            assert _same_bits(_gram.b_mm(blocks[:nb], C[: 64 * nb]), chain)
         assert _same_bits(_gram.b_mm(blocks[:nb], C[: 64 * nb]), chain)
-    with tail.eager_chain():
-        chain = _gram.b_mm_update(U, blocks[:2], C[:128], 50)
+    chain = ec.b_mm_update(U, blocks[:2], C[:128], 50)
+    with chains.eager_chain():
+        assert _same_bits(_gram.b_mm_update(U, blocks[:2], C[:128], 50), chain)
     before = tail.combine.launches
     got = _gram.b_mm_update(U, blocks[:2], C[:128], 50)
     assert tail.combine.launches == before + 1
@@ -1894,7 +1916,7 @@ def test_small_solves_through_tail_kernels_are_the_chain_on_card(
         cuda_device, barriers):
     """The small BdG well, alone and as a lockstep batch of 3 barriers,
     through the tail kernels and through the eager tail
-    (tail.eager_chain()): equal eigenvalues and eigenvectors (torch.equal)
+    (chains.eager_chain()): equal eigenvalues and eigenvectors (torch.equal)
     and iterations; each of the four kernels launched."""
     lap, d, hi, B, X0 = _small_well(cuda_device, barriers)
     cfg = tl.SolverConfig(nev=4, size_sub=8, tol=1e-5, max_iter=300)
@@ -1909,7 +1931,7 @@ def test_small_solves_through_tail_kernels_are_the_chain_on_card(
         return r, [getattr(tail, f).launches - b for f, b in zip(names, before)]
 
     got, launched = solve()
-    with tail.eager_chain():
+    with chains.eager_chain():
         chain, chain_launched = solve()
     assert torch.equal(got.eigenvalues, chain.eigenvalues)
     assert torch.equal(got.eigenvectors, chain.eigenvectors)
@@ -2060,7 +2082,7 @@ def _gram_errors(V, U):
         want = torch.matmul(V.double().mT, U.double())
         lib = torch.matmul(V.mT, U)
         before = kg.tall_gram.launches
-        got = kg.tall_gram(V, U)
+        got = kg.launch(V, U)
         assert kg.tall_gram.launches == before + 1
     torch.cuda.synchronize()
     scale = float(want.abs().max())
@@ -2084,15 +2106,13 @@ def test_tall_gram_accuracy_on_card(cuda_device, n, kv, ku, sliced, dist):
     """The kernel's largest error relative to the largest entry of the
     float64 product is no worse than torch.matmul's on the same inputs,
     from width 4.  At width 1 cuBLAS runs a dot kernel that sums more
-    accurately (and faster): ops/gram.py keeps it there."""
-    from lobpcg_tpu_torch.ops import gram
-
+    accurately (and faster): tall_gram keeps it there."""
     V, U = _gram_operands(n, kv, ku, dist, sliced, cuda_device, seed=kv + ku)
     err, lib_err = _gram_errors(V, U)
     if min(kv, ku) >= 4:
         assert err <= lib_err, (err, lib_err)
     else:
-        assert gram._tall_route(V, U) == "matmul"
+        assert not kg.takes(V, U)
 
 
 @pytest.mark.gpu
@@ -2100,18 +2120,24 @@ def test_tall_gram_accuracy_on_card(cuda_device, n, kv, ku, sliced, dist):
                                      (1_000_018, 256, 256)])
 def test_tall_gram_repeats_bit_for_bit_on_card(cuda_device, n, kv, ku):
     V, U = _gram_operands(n, kv, ku, "randn", False, cuda_device, seed=5)
-    first = kg.tall_gram(V, U)
-    assert torch.equal(kg.tall_gram(V, U), first)
+    first = kg.launch(V, U)
+    assert torch.equal(kg.launch(V, U), first)
 
 
 @pytest.mark.gpu
 def test_tall_gram_rejects_what_it_does_not_take(cuda_device):
-    X = torch.zeros((4096, 64), device=cuda_device)
+    """The kernel alone (launch) refuses what it cannot run; tall_gram
+    runs its plain version there, bit for bit, with no launch."""
+    X = torch.rand((4096, 64), device=cuda_device)
     for V, U in ((X.double(), X.double()), (X.mT[:, :64], X[:64]),
-                 (torch.zeros((4096, 257), device=cuda_device), X),
+                 (torch.rand((4096, 257), device=cuda_device), X),
                  (X, X[:100]), (X[None], X[None])):
         with pytest.raises(ValueError):
-            kg.tall_gram(V, U)
+            kg.launch(V, U)
+        if V.shape[-2] == U.shape[-2]:
+            before = kg.tall_gram.launches
+            assert torch.equal(kg.tall_gram(V, U), kg.tall_gram_reference(V, U))
+            assert kg.tall_gram.launches == before
 
 
 @pytest.mark.gpu
@@ -2128,7 +2154,7 @@ def test_well_solve_takes_every_tall_gram_through_the_kernel(cuda_device):
 
     def spy(V, U):
         if (V.dim() == 2 and V.dtype == torch.float32
-                and V.shape[0] >= gram._KERNEL_MIN_ROWS):
+                and V.shape[0] >= kg.MIN_ROWS):
             seen.append((tuple(V.shape), tuple(U.shape)))
         return tall_hmm(V, U)
 
@@ -2173,9 +2199,9 @@ def _proj_operands(n, terms, m, device, seed, *, with_u=False, sliced=False,
 
 
 def _proj_errors(blocks, C, U, live):
-    """The kernel's and the cuBLAS route's (ops/gram.py:_gemms_combined: a
-    GEMM a term and combine) largest error against the float64
-    projection, relative to its largest entry."""
+    """The kernel's and the cuBLAS route's (proj.library: a GEMM a term and
+    combine) largest error against the float64 projection, relative to
+    its largest entry."""
     from lobpcg_tpu_torch.ops.gram import precision_ctx
 
     m = C.shape[1]
@@ -2186,9 +2212,9 @@ def _proj_errors(blocks, C, U, live):
             want = U.double() - want
         want = want * _masking.as_mask(m, live, want.device).double() \
             if live is not None else want
-        lib = _gram._gemms_combined(blocks, C, U, live)
+        lib = kp.library(blocks, C, U, live)
         before = kp.project.launches
-        got = kp.project(blocks, C, U, live)
+        got = kp.launch(blocks, C, U, live)
         assert kp.project.launches == before + 1
     torch.cuda.synchronize()
     scale = float(want.abs().max())
@@ -2248,7 +2274,7 @@ def test_tall_proj_is_exact_on_integers_on_card(cuda_device, m, terms, layout):
         for u in (None, U):
             want = kp.project_reference(blocks, C, u, live)
             before = kp.project.launches
-            got = kp.project(blocks, C, u, live)
+            got = kp.launch(blocks, C, u, live)
             assert kp.project.launches == before + 1
             assert got.shape == (n, m) and torch.equal(got, want), (live, u is None)
 
@@ -2258,29 +2284,39 @@ def test_tall_proj_is_exact_on_integers_on_card(cuda_device, m, terms, layout):
                                        (1_000_018, 2, 129)])
 def test_tall_proj_repeats_bit_for_bit_on_card(cuda_device, n, terms, m):
     blocks, C, U = _proj_operands(n, terms, m, cuda_device, seed=5, with_u=True)
-    first = kp.project(blocks, C, U, m - 2)
+    first = kp.launch(blocks, C, U, m - 2)
     out = torch.empty_like(first)
-    assert kp.project(blocks, C, U, m - 2, out=out) is out
+    assert kp.launch(blocks, C, U, m - 2, out=out) is out
     assert torch.equal(out, first)
 
 
 @pytest.mark.gpu
 def test_tall_proj_rejects_what_it_does_not_take(cuda_device):
-    X = torch.zeros((4096, 64), device=cuda_device)
-    C = torch.zeros((64, 64), device=cuda_device)
-    for blocks, C_, U, live in (
-            ([X.double()], C.double(), None, None),       # f64
-            ([X.mT[:, :64]], C, None, None),              # column stride
-            ([X] * 5, torch.zeros((320, 64), device=cuda_device), None, None),
-            ([X], torch.zeros((64, 169), device=cuda_device), None, None),
-            ([X], C[:60], None, None),                    # C's rows
-            ([X], C, X[:100], None),                      # U's rows
-            ([X[None]], C, None, None),                   # batched
-            ([X], C, None, torch.tensor([3, 4], device=cuda_device))):
+    """The kernel alone (launch) refuses what it cannot run; project runs
+    the library chain there, with no launch, counted as a fallback, and
+    with the plain version's bits where the operands are a projection."""
+    X = torch.rand((4096, 64), device=cuda_device)
+    C = torch.rand((64, 64), device=cuda_device)
+    cases = (
+        ([X.double()], C.double(), None, None, True),       # f64
+        ([X.mT[:, :64]], C, None, None, True),              # column stride
+        ([X] * 5, torch.rand((320, 64), device=cuda_device), None, None, True),
+        ([X], torch.rand((64, 169), device=cuda_device), None, None, True),
+        ([X], C[:60], None, None, False),                   # C's rows
+        ([X], C, X[:100], None, False),                     # U's rows
+        ([X[None]], C, None, None, True),                   # batched
+        ([X], C, None, torch.tensor([3, 4], device=cuda_device), False))
+    for blocks, C_, U, live, product in cases:
         with pytest.raises(ValueError):
-            kp.project(blocks, C_, U, live)
+            kp.launch(blocks, C_, U, live)
+        if product:
+            before = (kp.project.launches, kp.project.fallbacks)
+            got = kp.project(blocks, C_, U, live)
+            assert (kp.project.launches, kp.project.fallbacks) == \
+                (before[0], before[1] + 1)
+            assert _same_bits(got, kp.project_reference(blocks, C_, U, live))
     with pytest.raises(ValueError):
-        kp.project([X], C, out=torch.empty((4096, 60), device=cuda_device))
+        kp.launch([X], C, out=torch.empty((4096, 60), device=cuda_device))
 
 
 def _cell_solve(cell, device):
@@ -2312,17 +2348,14 @@ def _cell_solve(cell, device):
                                   "lap3d_160.nd"])
 def test_solve_cells_take_every_projection_through_the_kernel(cuda_device, cell):
     """A short solve at each solve cell's shapes routes every tall
-    projection to csrc/proj.cu: the route counts read none to cuBLAS, one
-    kernel launch each, and no combine launch."""
+    projection to csrc/proj.cu: kernel launches, no fallback to cuBLAS,
+    and no combine launch."""
     solve = _cell_solve(cell, cuda_device)
-    before = (_gram._projected.kernel, _gram._projected.cublas,
-              kp.project.launches, tail.combine.launches)
+    before = (kp.project.launches, kp.project.fallbacks, tail.combine.launches)
     r = solve()
-    routed = _gram._projected.kernel - before[0]
-    assert r.iterations >= 1 and routed > 0
-    assert _gram._projected.cublas == before[1]
-    assert kp.project.launches - before[2] == routed
-    assert tail.combine.launches == before[3]
+    assert r.iterations >= 1 and kp.project.launches > before[0]
+    assert kp.project.fallbacks == before[1]
+    assert tail.combine.launches == before[2]
 
 
 @pytest.mark.gpu
@@ -2342,6 +2375,6 @@ def test_tall_proj_is_the_cublas_route_bit_for_bit_on_card(cuda_device, n, terms
     from lobpcg_tpu_torch.ops.gram import precision_ctx
 
     with precision_ctx("highest"):
-        want = _gram._gemms_combined(blocks, C, U, live)
-        got = kp.project(blocks, C, U, live)
+        want = kp.library(blocks, C, U, live)
+        got = kp.launch(blocks, C, U, live)
     assert _same_bits(got, want)

@@ -1,9 +1,10 @@
 """The tall Gram kernel (lobpcg_tpu_torch/ops/cuda/gram.py, csrc/gram.cu)
 on the CPU, where the wrapper runs its plain version.
 
-- Which product ``ops/gram.py:_tall_hmm`` runs for a pair: the kernel's
-  predicate over shape, dtype, strides, batch and n, each case with its
-  route; on CPU tensors every route is PyTorch's, with the bits it had.
+- Which product ``tall_gram`` runs for a pair: its predicate ``takes``
+  over shape, dtype, strides, batch and n, each case with its route; off
+  the card every route is PyTorch's (``ops/gram.py:_tall_hmm`` splitting
+  a batched pair over rows), on CPU tensors with the bits it had.
 - The plain version is ``torch.matmul(V.mH, U)``, bit for bit.
 - The launch plan (tiles, groups, rows a stage, slabs) over the widths
   the kernel takes, and the C entry points against ``SIGNATURES``.
@@ -31,7 +32,7 @@ from lobpcg_tpu_torch.ops.cuda import gram as kg
 torch.set_num_threads(2)
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "lobpcg_tpu_torch" / "csrc"
-TALL = gram._KERNEL_MIN_ROWS
+TALL = kg.MIN_ROWS
 F32 = torch.float32
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -54,7 +55,6 @@ def test_constants_match_the_source():
     text = (CSRC / "gram.cu").read_text()
     assert f"kMaxThreads = {kg.MAX_THREADS};" in text
     assert f"kStages = {kg.STAGES};" in text
-    assert kg.MAX_ROWS == gram._SPLIT_MAX
 
 
 # --- the route -----------------------------------------------------------------
@@ -107,22 +107,32 @@ ROUTE_CASES = [
 
 @pytest.mark.parametrize("case,V,U,on_card", ROUTE_CASES,
                          ids=[c[0] for c in ROUTE_CASES])
-def test_dispatch_predicate(case, V, U, on_card):
-    """``_kernel_takes`` is the kernel's route on the card; off the card
-    every 2-D pair is one torch.matmul and a batched pair is split over
-    rows where n has more than _SPLIT_MAX rows."""
-    assert gram._kernel_takes(V, U) is on_card, case
-    want = "matmul" if V.dim() == 2 or V.shape[-2] <= gram._SPLIT_MAX else "split"
-    assert gram._tall_route(V, U) == want, case
+def test_dispatch_predicate(monkeypatch, case, V, U, on_card):
+    """``takes`` is the kernel's route on the card; off the card (meta
+    tensors here) every 2-D pair is tall_gram's plain version, one
+    torch.matmul, and a batched pair is split over rows where n has more
+    than MAX_ROWS rows."""
+    assert kg.takes(V, U) is on_card, case
+    routes = []
+    monkeypatch.setattr(kg, "_launch", lambda *a: routes.append("kernel"))
+    monkeypatch.setattr(kg, "tall_gram_reference",
+                        lambda *a: routes.append("matmul"))
+    split = V.dim() == 3 and V.shape[-2] > kg.MAX_ROWS
+    if split:
+        assert gram._tall_hmm(V, U).shape == (2, V.shape[-1], U.shape[-1]), case
+    else:
+        gram._tall_hmm(V, U)
+    assert routes == ([] if split else ["matmul"]), case
 
 
 def test_cpu_tall_grams_keep_their_bits():
-    """On the CPU, _tall_hmm and the Grams built on it are the
+    """On the CPU, tall_gram, _tall_hmm and the Grams built on it are the
     torch.matmul they were, at a tall n and at a small one."""
     g = torch.Generator().manual_seed(3)
     for n, k in ((TALL + 5, 24), (300, 7)):
         V = torch.randn((n, k + 3), generator=g)[:, 1:1 + k]
         U = torch.randn((n, k), generator=g)
+        assert torch.equal(kg.tall_gram(V, U), torch.matmul(V.mH, U))
         assert torch.equal(gram._tall_hmm(V, U), torch.matmul(V.mH, U))
         assert torch.equal(gram.gram_cross(V, U), torch.matmul(V.mH, U))
 
@@ -140,9 +150,15 @@ def test_plain_version_is_matmul_bit_for_bit():
 
 
 def test_wrapper_refuses_other_devices():
+    """Off the card tall_gram is its plain version (meta in, meta out) and
+    launch refuses; operands on two devices raise."""
     V = torch.zeros((8, 4), device="meta")
+    G = kg.tall_gram(V, V)
+    assert G.device == V.device and G.shape == (4, 4)
     with pytest.raises(ValueError):
-        kg.tall_gram(V, V)
+        kg.launch(V, V)
+    with pytest.raises(ValueError):
+        kg.tall_gram(V, torch.zeros((8, 4)))
 
 
 # --- the plan ------------------------------------------------------------------

@@ -43,7 +43,6 @@ def test_import_pulls_in_no_jax():
         "import lobpcg_tpu_torch.benchmarks.solve_bdg\n"
         "import lobpcg_tpu_torch.bench\n"
         "import lobpcg_tpu_torch.tools.plan_anchors\n"
-        "import lobpcg_tpu_torch.tools.profile_well\n"
         "import lobpcg_tpu_torch.tools.convergence_trace\n"
         "import lobpcg_tpu_torch.tools.stencil_widths\n"
         "import lobpcg_tpu_torch.ops.rows\n"

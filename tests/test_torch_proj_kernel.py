@@ -3,13 +3,15 @@ csrc/proj.cu) on the CPU, where the wrapper runs its plain version.
 
 - The C entry point against ``SIGNATURES`` and the constants against
   the source.
-- Which product ``ops/gram.py:_projected`` runs: the kernel's predicate
-  over shape, dtype, layout, terms and the live mask, each case with its
-  route; on CPU tensors every route is the GEMMs and the tail's plain
-  versions, with the bits they had.
-- The plain version is ``torch.matmul`` a term and
-  ``tail.combine_reference``, bit for bit, and so are ``b_mm``,
-  ``b_mm_update`` and ``mm_masked`` on the CPU.
+- Which product ``project`` runs: its predicate ``takes`` over shape,
+  dtype, layout, terms and the live mask, each case with its route; off
+  the card every route is the library chain (the GEMMs and the tail's
+  wrappers), on CPU tensors with the bits it had.
+- The plain version is the eager chain (``torch.matmul`` a term added
+  left to right, U - sum, the mask; written out in ``eager_chains``),
+  bit for bit, and so are ``project``, ``library``, ``b_mm``,
+  ``b_mm_update`` and ``mm_masked`` on the CPU, routed and inside
+  ``chains.eager_chain()``.
 - The launch plan over every m the kernel takes.
 - A host emulation of csrc/proj.cu (its stage copies, the threads' 8 x 8
   register tiles read at the kernel's shared-memory offsets, each term's
@@ -31,13 +33,16 @@ import pytest
 import torch
 
 from lobpcg_tpu_torch.ops import gram, masking
+from lobpcg_tpu_torch.ops.cuda import chains
 from lobpcg_tpu_torch.ops.cuda import proj as kp
 from lobpcg_tpu_torch.ops.cuda import tail
+
+import eager_chains as ec
 
 torch.set_num_threads(2)
 
 CSRC = pathlib.Path(__file__).resolve().parents[1] / "lobpcg_tpu_torch" / "csrc"
-TALL = gram._KERNEL_MIN_ROWS
+TALL = kp.MIN_ROWS
 F32 = torch.float32
 
 _C_TYPES = {"const void*": ctypes.c_void_p, "void*": ctypes.c_void_p,
@@ -140,20 +145,25 @@ ROUTE_CASES = [
 
 @pytest.mark.parametrize("case,blocks,C,U,live,on_card", ROUTE_CASES,
                          ids=[c[0] for c in ROUTE_CASES])
-def test_dispatch_predicate(case, blocks, C, U, live, on_card):
-    """``_proj_takes`` is the kernel's route on the card; CPU (and meta)
-    tensors take the host route whatever their shape."""
-    assert gram._proj_takes(blocks, C, U, live) is on_card, case
-    assert gram._proj_route(blocks, C, U, live) == "host", case
+def test_dispatch_predicate(monkeypatch, case, blocks, C, U, live, on_card):
+    """``takes`` is the kernel's route on the card; tensors off the card
+    (meta here) take the library chain whatever their shape, uncounted."""
+    assert kp.takes(blocks, C, U, live) is on_card, case
+    routes = []
+    monkeypatch.setattr(kp, "_launch", lambda *a, **k: routes.append("kernel"))
+    monkeypatch.setattr(kp, "library", lambda *a, **k: routes.append("library"))
+    fallbacks = kp.project.fallbacks
+    kp.project(blocks, C, U, live)
+    assert routes == ["library"] and kp.project.fallbacks == fallbacks, case
 
 
 def test_u_of_another_shape_or_dtype_is_not_taken():
     blocks = _blocks(TALL, [64, 64])
     C = _meta((128, 64))
-    assert not gram._proj_takes(blocks, C, _meta((TALL, 60)), 10)
-    assert not gram._proj_takes(blocks, C, _meta((TALL, 64), torch.float64), 10)
-    assert not gram._proj_takes(blocks, C, None, torch.ones(60, dtype=torch.bool))
-    assert not gram._proj_takes(blocks, C, None, torch.tensor(1.5))
+    assert not kp.takes(blocks, C, _meta((TALL, 60)), 10)
+    assert not kp.takes(blocks, C, _meta((TALL, 64), torch.float64), 10)
+    assert not kp.takes(blocks, C, None, torch.ones(60, dtype=torch.bool))
+    assert not kp.takes(blocks, C, None, torch.tensor(1.5))
 
 
 # --- the plain version and the CPU routes --------------------------------------
@@ -175,13 +185,13 @@ def _cpu_operands(n, widths, m, seed, sliced=False):
 
 
 def _old_chain(blocks, C, U=None, live=None):
-    """The projection as the port computed it before the kernel: one
-    torch.matmul a term, then tail.combine_reference."""
-    terms, j = [], 0
-    for b in blocks:
-        terms.append(torch.matmul(b, C[j:j + b.shape[1]]))
-        j += b.shape[1]
-    return tail.combine_reference(terms, U, live)
+    """The projection as the port computed it before the kernel, written
+    out in ``eager_chains``: a torch.matmul a term added left to right,
+    U - sum, the mask."""
+    S = ec.b_mm(blocks, C)
+    if U is not None:
+        S = U - S
+    return S if live is None else ec.mask(S, live)
 
 
 LIVES = [None, 7, torch.tensor(5), torch.tensor([9]),
@@ -199,32 +209,44 @@ def test_plain_version_is_the_old_chain_bit_for_bit(live, with_u, widths):
     assert torch.equal(kp.project_reference(blocks, C, U, live), want)
     assert torch.equal(kp.project(blocks, C, U, live), want)
     assert kp.project.launches == before
-    counts = (gram._projected.kernel, gram._projected.cublas)
-    assert torch.equal(gram._projected(blocks, C, U, live), want)
-    assert (gram._projected.kernel, gram._projected.cublas) == counts
+    counts = (kp.project.launches, kp.project.fallbacks)
+    assert torch.equal(kp.library(blocks, C, U, live), want)
+    assert torch.equal(kp.library(blocks, C, U, live, in_place=False), want)
+    assert (kp.project.launches, kp.project.fallbacks) == counts
 
 
 def test_cpu_call_sites_keep_their_bits():
-    """On the CPU, b_mm, b_mm_update and mm_masked are the eager chains
-    they replace (tail.eager_chain()), at a tall n and at a small one."""
+    """On the CPU, b_mm, b_mm_update and mm_masked, routed and inside
+    chains.eager_chain(), are the eager chains they replace (written out
+    in ``eager_chains``), at a tall n and at a small one."""
     for n in (TALL + 3, 257):
         blocks, C, U = _cpu_operands(n, (24, 24, 24), 24, seed=n)
-        with tail.eager_chain():
-            chain = (gram.b_mm(blocks, C), gram.b_mm_update(U, blocks[:2], C[:48], 20),
-                     gram.mm_masked(U, C[:24], 11),
-                     gram.mm_masked(U, C[:24], 11, in_place=False))
-        got = (gram.b_mm(blocks, C), gram.b_mm_update(U, blocks[:2], C[:48], 20),
-               gram.mm_masked(U, C[:24], 11),
-               gram.mm_masked(U, C[:24], 11, in_place=False))
-        for a, b in zip(got, chain):
-            assert torch.equal(a, b)
+        chain = (ec.b_mm(blocks, C), ec.b_mm_update(U, blocks[:2], C[:48], 20),
+                 ec.mm_masked(U, C[:24], 11), ec.mm_masked(U, C[:24], 11))
+
+        def sites():
+            return (gram.b_mm(blocks, C), gram.b_mm_update(U, blocks[:2], C[:48], 20),
+                    gram.mm_masked(U, C[:24], 11),
+                    gram.mm_masked(U, C[:24], 11, in_place=False))
+
+        with chains.eager_chain():
+            eager = sites()
+        for a, b, c in zip(sites(), eager, chain):
+            assert torch.equal(a, c) and torch.equal(b, c)
+        got = sites()
         assert torch.equal(got[2], masking.mask_cols(torch.matmul(U, C[:24]), 11))
 
 
 def test_wrapper_refuses_other_devices_and_shapes():
+    """Off the card project is the library chain (meta in, meta out) and
+    launch refuses; operands on two devices, and no terms, raise."""
     V = torch.zeros((8, 4), device="meta")
+    Y = kp.project([V], torch.zeros((4, 4), device="meta"))
+    assert Y.device == V.device and Y.shape == (8, 4)
     with pytest.raises(ValueError):
-        kp.project([V], torch.zeros((4, 4), device="meta"))
+        kp.launch([V], torch.zeros((4, 4), device="meta"))
+    with pytest.raises(ValueError):
+        kp.project([V], torch.zeros((4, 4)))
     with pytest.raises(ValueError):
         kp.project([], torch.zeros((4, 4)))
 

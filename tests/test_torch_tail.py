@@ -11,7 +11,7 @@ their plain versions.
   a multiply and a subtraction into one FMA), or exactly where the chain
   only moves and masks.
 - The plain versions against the port's eager chain (the call sites
-  inside ``tail.eager_chain()``), bit for bit in f32 and f64 on inputs
+  inside ``chains.eager_chain()``), bit for bit in f32 and f64 on inputs
   holding NaN, +-Inf and -0 (NaN where NaN, every other bit equal).
 - Which call sites take the kernels' route: a plain B, B with copies 2,
   B None, per-problem d and lam, [b] shifts and counts, and the sharded
@@ -40,8 +40,10 @@ from lobpcg_tpu_torch import parallel
 from lobpcg_tpu_torch.benchmarks.solve_bdg import well_problem
 from lobpcg_tpu_torch.operators import linop
 from lobpcg_tpu_torch.ops import gram, masking, ortho, residual
-from lobpcg_tpu_torch.ops.cuda import tail
+from lobpcg_tpu_torch.ops.cuda import chains, tail
 from lobpcg_tpu_torch.parallel import mesh as pmesh
+
+import eager_chains as ec
 
 torch.set_num_threads(2)
 
@@ -263,24 +265,30 @@ def test_projection_update_matches_jax(batch):
 @pytest.mark.parametrize("form", ["plain", "copies2", "batched", "per_row"])
 def test_antidiag_plain_is_the_chain(dtype, form):
     """antidiag_reference (a flip of each copy's half axis, times d) is
-    the eager chain (two multiplies and a cat, each copy apart) bit for
-    bit, on inputs with NaN, +-Inf and -0; so are the operators' routes."""
+    the eager chain (two multiplies and a cat, each copy apart, written
+    out in ``eager_chains``) bit for bit, on inputs with NaN, +-Inf and
+    -0; so are the operators' routes, and the operators inside
+    ``chains.eager_chain()``."""
     lead = (3,) if form == "batched" else ()
     copies = 2 if form == "copies2" else 1
     X = _t(_rand(50, lead + (2 * copies * M, K), special=True), dtype)
     d = _t(_rand(51, lead + (M,), special=True), dtype)
     if form == "per_row":
         s = _t(_rand(52, (2 * M,), special=True), dtype)
-        chain = s[..., None] * torch.cat([X[M:], X[:M]])
+        chain = ec.scaled_swap(X, s)
+        assert same_bits(chain, s[..., None] * torch.cat([X[M:], X[:M]]))
         assert same_bits(tail.antidiag_reference(X, s), chain)
         assert same_bits(tail.antidiag(X, s), chain)
+        with chains.eager_chain():
+            assert same_bits(tail.antidiag(X, s), chain)
         return
     B = tl.BlockAntiDiagOperator(d=d)
     if copies == 2:
         B = tl.BlockDiagOperator(inner=B, copies=2)
-    with tail.eager_chain():
-        chain = B.matmat(X)
-    for got in (tail.antidiag_reference(X, d, copies), B.matmat(X)):
+    chain = ec.antidiag(X, d, copies)
+    with chains.eager_chain():
+        eager = B.matmat(X)
+    for got in (tail.antidiag_reference(X, d, copies), B.matmat(X), eager):
         assert same_bits(got, chain)
 
 
@@ -288,9 +296,10 @@ def test_antidiag_plain_is_the_chain(dtype, form):
 @pytest.mark.parametrize("b_kind", ["antidiag", "copies2", "none", "dense",
                                     "batched"])
 def test_residual_plain_is_the_chain(dtype, b_kind):
-    """residual_reference and get_residual's route are the eager chain
-    (B X, times lam cast to the block's dtype, subtracted) bit for bit,
-    with NaN, +-Inf and -0 in AX, X, lam and d; a B that is not
+    """residual_reference and get_residual, routed and inside
+    ``chains.eager_chain()``, are the eager chain (B X, times lam cast to
+    the block's dtype, subtracted; written out in ``eager_chains``) bit
+    for bit, with NaN, +-Inf and -0 in AX, X, lam and d; a B that is not
     anti-diagonal is applied first and enters as BX."""
     lead = (3,) if b_kind == "batched" else ()
     copies = 2 if b_kind == "copies2" else 1
@@ -304,10 +313,14 @@ def test_residual_plain_is_the_chain(dtype, b_kind):
          "copies2": tl.BlockDiagOperator(tl.BlockAntiDiagOperator(d=d), 2),
          "dense": tl.DenseOperator(_t(_rand(64, (n, n)), dtype)),
          "none": None}[b_kind]
-    with tail.eager_chain():
-        chain = residual.get_residual(X, AX, lam, None, B)
-    got = residual.get_residual(X, AX, lam, None, B)
-    assert same_bits(got, chain)
+    BX = {"antidiag": lambda: ec.antidiag(X, d), "batched": lambda: ec.antidiag(X, d),
+          "copies2": lambda: ec.antidiag(X, d, 2),
+          "dense": lambda: torch.matmul(B.A, X), "none": lambda: X}[b_kind]()
+    chain = ec.residual(AX, BX, lam)
+    with chains.eager_chain():
+        eager = residual.get_residual(X, AX, lam, None, B)
+    assert same_bits(eager, chain)
+    assert same_bits(residual.get_residual(X, AX, lam, None, B), chain)
     if b_kind in ("antidiag", "batched", "copies2"):
         plain = tail.residual_reference(AX, X, lam, d, None, copies)
     elif b_kind == "dense":
@@ -321,10 +334,11 @@ def test_residual_plain_is_the_chain(dtype, b_kind):
 @pytest.mark.parametrize("case", ["int", "int_big", "negative", "lanes",
                                   "mask", "mask_lanes", "zero_dim"])
 def test_compact_plain_is_the_chain(dtype, case):
-    """compact_reference and masking's route are the eager chain (the
-    gather, then the multiply by the live mask) bit for bit: a dead column
-    of NaN/Inf gives NaN, of a negative value -0; Python and [b] shifts
-    and counts, boolean masks."""
+    """compact_reference and masking's calls, routed and inside
+    ``chains.eager_chain()``, are the eager chain (the clamp-index gather,
+    then the multiply by the live mask; written out in ``eager_chains``)
+    bit for bit: a dead column of NaN/Inf gives NaN, of a negative value
+    -0; Python and [b] shifts and counts, boolean masks."""
     lanes = case in ("lanes", "mask_lanes")
     lead = (3,) if lanes else ()
     U = _t(_rand(70, lead + (2 * M, K), special=True), dtype)
@@ -337,9 +351,10 @@ def test_compact_plain_is_the_chain(dtype, case):
                            (3, K)) < 0.5)),
         "zero_dim": (torch.tensor(2), torch.tensor(K - 1)),
     }[case]
-    with tail.eager_chain():
-        chain_shift = masking.shift_cols(U, shift, live)
-        chain_mask = masking.mask_cols(U, live)
+    chain_shift, chain_mask = ec.shift(U, shift, live), ec.mask(U, live)
+    with chains.eager_chain():
+        assert same_bits(masking.shift_cols(U, shift, live), chain_shift)
+        assert same_bits(masking.mask_cols(U, live), chain_mask)
     assert same_bits(masking.shift_cols(U, shift, live), chain_shift)
     assert same_bits(tail.compact_reference(U, shift, live), chain_shift)
     assert same_bits(masking.mask_cols(U, live), chain_mask)
@@ -351,18 +366,21 @@ def test_compact_plain_is_the_chain(dtype, case):
 @pytest.mark.parametrize("lanes", [False, True])
 def test_combine_plain_is_the_chain(dtype, nblocks, lanes):
     """b_mm and b_mm_update (the GEMMs, then combine passes of up to three
-    terms, the last with U and the mask) are the eager chain (the GEMMs
-    and adds one at a time, the subtraction, mask_cols) bit for bit, with
-    NaN, +-Inf and -0 in the blocks; so is combine_reference."""
+    terms, the last with U and the mask), routed and inside
+    ``chains.eager_chain()``, are the eager chain (the GEMMs and adds one
+    at a time, the subtraction, the mask; written out in
+    ``eager_chains``) bit for bit, with NaN, +-Inf and -0 in the blocks;
+    so is combine_reference."""
     lead = (2,) if lanes else ()
     blocks = [_t(_rand(80 + i, lead + (2 * M, 3), special=True), dtype)
               for i in range(nblocks)]
     C = _t(_rand(90, lead + (3 * nblocks, K)), dtype)
     U = _t(_rand(91, lead + (2 * M, K), special=True), dtype)
     nu = torch.tensor([K - 2, 3]) if lanes else K - 2
-    with tail.eager_chain():
-        chain_sum = gram.b_mm(blocks, C)
-        chain_update = gram.b_mm_update(U, blocks, C, nu)
+    chain_sum, chain_update = ec.b_mm(blocks, C), ec.b_mm_update(U, blocks, C, nu)
+    with chains.eager_chain():
+        assert same_bits(gram.b_mm(blocks, C), chain_sum)
+        assert same_bits(gram.b_mm_update(U, blocks, C, nu), chain_update)
     assert same_bits(gram.b_mm(blocks, C), chain_sum)
     assert same_bits(gram.b_mm_update(U, blocks, C, nu), chain_update)
     terms = [gram.mm(b, C[..., 3 * i:3 * i + 3, :]) for i, b in enumerate(blocks)]
@@ -395,7 +413,7 @@ def _spy(monkeypatch):
     ("batched", ["antidiag"]),
     ("complex", ["antidiag"]),  # the wrapper's dtype route: the plain version
     ("per_problem_d_unbatched", []),  # the chain's broadcast
-    ("eager", []),
+    ("eager", ["antidiag"]),  # the wrapper runs its plain version
 ])
 def test_antidiag_dispatch(monkeypatch, case, want):
     calls = _spy(monkeypatch)
@@ -410,7 +428,7 @@ def test_antidiag_dispatch(monkeypatch, case, want):
         B = tl.BlockAntiDiagOperator(d=torch.ones((2, M)))
         assert B.matmat(X).shape == (2, 2 * M, K)
     elif case == "eager":
-        with tail.eager_chain():
+        with chains.eager_chain():
             B.matmat(X)
     else:
         B.matmat(X)
@@ -422,7 +440,8 @@ def test_antidiag_dispatch(monkeypatch, case, want):
 def test_residual_dispatch(monkeypatch, case):
     """get_residual: one tail.residual call whatever B is (an
     anti-diagonal B as its d, any other B applied first as BX), with no
-    antidiag launch of its own; the eager chain inside eager_chain()."""
+    antidiag launch of its own, inside eager_chain() too (where the
+    wrapper runs its plain version)."""
     seen = []
     real = tail.residual
 
@@ -445,9 +464,9 @@ def test_residual_dispatch(monkeypatch, case):
              d=torch.ones(M))}[case]
     BX = torch.ones(lead + (n, K)) if case == "bx_given" else None
     if case == "eager":
-        with tail.eager_chain():
+        with chains.eager_chain():
             residual.get_residual(X, AX, lam, None, B, BX)
-        assert seen == [] and calls == []
+        assert seen == [(True, False, 1)] and "antidiag" not in calls
         return
     residual.get_residual(X, AX, lam, None, B, BX)
     want = {"antidiag": (True, False, 1), "batched": (True, False, 1),
@@ -460,7 +479,9 @@ def test_residual_dispatch(monkeypatch, case):
 def test_masking_and_projection_dispatch(monkeypatch):
     """mask_cols and shift_cols are one compact call each (int or [b]
     shifts and counts), b_mm of three blocks and the projection update of
-    two one combine call each; none inside eager_chain()."""
+    two one combine call each; inside eager_chain() mask_cols is still
+    compact's (which runs its plain version) and b_mm calls no combine
+    (the projection's eager chain adds)."""
     calls = _spy(monkeypatch)
     U = torch.ones((2, 2 * M, K))
     masking.mask_cols(U, torch.tensor([1, 2]))
@@ -471,10 +492,10 @@ def test_masking_and_projection_dispatch(monkeypatch):
     gram.b_mm_update(U[0], blocks[:2], torch.ones((6, K)), 4)
     gram.b_mm(blocks[:1], torch.ones((3, K)))  # one term: no pass
     assert calls == ["compact"] * 3 + ["combine"] * 2
-    with tail.eager_chain():
+    with chains.eager_chain():
         masking.mask_cols(U, 3)
         gram.b_mm(blocks, torch.ones((9, K)))
-    assert len(calls) == 5
+    assert calls == ["compact"] * 3 + ["combine"] * 2 + ["compact"]
 
 
 def test_ortho_update_goes_through_combine(monkeypatch):
@@ -504,7 +525,7 @@ def test_ortho_update_goes_through_combine(monkeypatch):
 def _solve_pair(solve):
     """The solve through the tail's route and inside eager_chain()."""
     got = solve()
-    with tail.eager_chain():
+    with chains.eager_chain():
         chain = solve()
     return got, chain
 
@@ -572,8 +593,9 @@ def _sharded_rank(mesh):
     """On each rank: the sharded anti-diagonal B (one copy, and the
     split-real two copies) applied to this rank's rows, unbatched and a
     batch of 3 with per-problem d, against the unsharded product's rows
-    and the sharded chain; the route it took, its exchanges; and the
-    residual through it against the eager chain's."""
+    and the sharded chain (the exchange, then the scale), routed and
+    inside ``chains.eager_chain()``; the route it took, its exchanges; and
+    the residual through it against the chain's."""
     n_loc = 4 * M // mesh.size
     rows = slice(mesh.rank * n_loc, (mesh.rank + 1) * n_loc)
     out = {}
@@ -592,16 +614,19 @@ def _sharded_rank(mesh):
             e0, a0 = pmesh.permute_rows.launches, []
             got = Bs.matmat(Xl)
             exchanges = pmesh.permute_rows.launches - e0
-            with tail.eager_chain():
-                chain = Bs.matmat(Xl)
-                res_chain = residual.get_residual(Xl, Xl, lam, None, Bs)
+            chain = Bs.d[..., None] * pmesh.permute_rows(mesh, Xl, Bs.plan)
+            res_chain = ec.residual(Xl, chain, lam)
+            with chains.eager_chain():
+                eager = Bs.matmat(Xl)
+                res_eager = residual.get_residual(Xl, Xl, lam, None, Bs)
             res = residual.get_residual(Xl, Xl, lam, None, Bs)
             del a0
             out[(copies, batch)] = {
                 "local": Bs.half_swap() is not None,
                 "equal_whole": same_bits(got, B.matmat(X)[..., rows, :]),
-                "equal_chain": same_bits(got, chain),
-                "residual_equal_chain": same_bits(res, res_chain),
+                "equal_chain": same_bits(got, chain) and same_bits(eager, chain),
+                "residual_equal_chain": (same_bits(res, res_chain)
+                                         and same_bits(res_eager, res_chain)),
                 "exchanges": exchanges}
     return out
 
@@ -733,10 +758,10 @@ def test_out_is_left_alone_by_the_plain_versions():
 
 
 def test_eager_chain_restores_on_exit():
-    assert not tail.eager()
-    with tail.eager_chain():
-        assert tail.eager()
-        with tail.eager_chain():
-            assert tail.eager()
-        assert tail.eager()
-    assert not tail.eager()
+    assert not chains.eager()
+    with chains.eager_chain():
+        assert chains.eager()
+        with chains.eager_chain():
+            assert chains.eager()
+        assert chains.eager()
+    assert not chains.eager()
