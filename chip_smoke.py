@@ -7,8 +7,8 @@ non-zero; there is no CPU fallback):
 
 1. device     — requires CUDA; the card's name and power limit.
 2. build      — builds the kernels (csrc/stencil1d.cu, stencil3d.cu,
-                bsr.cu, copy.cu, tail.cu, gram.cu, proj.cu) with nvcc, one process
-                per source, all at once.
+                bsr.cu, copy.cu, tail.cu, gram.cu, proj.cu, rr.cu) with nvcc,
+                one process per source, all at once.
 3. kernel K1  — the 1-D stencil against its plain version and cuDNN's
                 depthwise conv1d (lobpcg_tpu_torch/tools/
                 stencil_widths.py) at the BdG solve's shapes, the
@@ -58,6 +58,15 @@ non-zero; there is no CPU fallback):
                 whether it equals them bit for bit); ms beside its bound,
                 the plain version and that cuBLAS route, and the route
                 project takes there.
+   kernel rr_stage — the standard Rayleigh-Ritz's k x k stage
+                (csrc/rr.cu) on f32 Grams at lap3d_160.nd's k 48 and at
+                MAX_K: against its plain version (flag, p_count, the Ritz
+                values, span(Cx) and span(Cp)), two launches bit for bit;
+                ms beside its float64 bound and the plain chain's, and the
+                host us of one stage on each route; then lap3d_160's
+                solve (160^3, nev 10, size_sub 16) capped at 64 iterations
+                must take every Cholesky-branch stage through the kernel,
+                with no fallback.
 4. kernel K7  — the streaming copy against its plain version (clone) at
                 [4M, 256], [4M, 64] and an odd shape, bit for bit; ms,
                 GB/s, bound, and Tensor.copy_ as the library time.
@@ -292,7 +301,7 @@ from lobpcg_tpu_torch.examples import (
     sharded_solve,
     sparse_3d_laplacian,
 )
-from lobpcg_tpu_torch.ops import gram, masking
+from lobpcg_tpu_torch.ops import gram, masking, rayleigh
 from lobpcg_tpu_torch.ops import residual as resid
 from lobpcg_tpu_torch.ops.cuda import bsr as kb
 from lobpcg_tpu_torch.ops.cuda import build as cuda_build
@@ -300,6 +309,7 @@ from lobpcg_tpu_torch.ops.cuda import copy as k7
 from lobpcg_tpu_torch.ops.cuda import gram as kg
 from lobpcg_tpu_torch.ops.cuda import chains
 from lobpcg_tpu_torch.ops.cuda import proj as kp
+from lobpcg_tpu_torch.ops.cuda import rr as krr
 from lobpcg_tpu_torch.ops.cuda import stencil as k1
 from lobpcg_tpu_torch.ops.cuda import stencil3d as k2
 from lobpcg_tpu_torch.ops.cuda import tail
@@ -417,6 +427,10 @@ KERNELS = {
     # fusion in the JAX package (no pallas_call; "replaces" names b_mm).
     "tall_proj": (kp.project, "lobpcg_tpu_torch/csrc/proj.cu",
                   "lobpcg_tpu/ops/gram.py:b_mm"),
+    # The standard Rayleigh-Ritz's k x k stage (its Cholesky branch): XLA's
+    # small ops and eigh in the JAX package (no pallas_call).
+    "rr_stage": (krr.cholesky_stage, "lobpcg_tpu_torch/csrc/rr.cu",
+                 "lobpcg_tpu/ops/rayleigh.py:rayleigh_ritz_modified"),
 }
 TAIL = ("tail_antidiag", "tail_residual", "tail_combine", "tail_compact")
 
@@ -485,7 +499,7 @@ def free() -> None:
 def build_phase() -> None:
     t0 = time.perf_counter()
     recs = cuda_build.build_all(["stencil1d", "stencil3d", "bsr", "copy",
-                                 "tail", "gram", "proj"])
+                                 "tail", "gram", "proj", "rr"])
     for rec in recs:
         emit({"phase": "build", "kernel": rec["name"], "nvcc_ran": rec["built"],
               "nvcc_s": rec["seconds"],
@@ -924,6 +938,146 @@ def proj_phase(dev) -> list[dict]:
     over 4M rows."""
     return ([proj_case(dev, *shape) for shape in PROJ_SHAPES]
             + [proj_case(dev, N_MAIN, 3, m) for m in PROJ_WIDTHS])
+
+
+# The Rayleigh-Ritz stage at lap3d_160.nd's k 48 (size_sub 16) and at the
+# widest k the kernel takes; one SM's float64 rate (34 TFLOP/s of vector
+# FP64 on the H100 SXM's 132 SMs: one block a problem runs on one SM).
+RR_SHAPES = ((48, 16), (krr.MAX_K, krr.MAX_K // 3))
+F64_SM_FLOPS = 34e12 / 132
+LAP3D_GRID, LAP3D_SCALE = (160, 160, 160), 25921.0  # bench_port/configs/lap3d_160.json
+
+
+def rr_flops(k: int, nx: int) -> float:
+    """The stage's least float64 work: H = DiR^T (GA DiR), the whitening's
+    products, Cx, Zp Q and DiR Zp Q (2 flops a multiply-add), and three
+    symmetric eigensolves with vectors at 9 n^3 flops each (Golub and Van
+    Loan's count for the symmetric QR algorithm)."""
+    nr = k - nx
+    fma = (2 * k ** 3 + 2 * nx * nx * nr + 2 * nx * nr * nr + k * k * nx
+           + k * nr * nx + k * k * nx)
+    return 2.0 * fma + 9.0 * (nx ** 3 + nr ** 3 + k ** 3)
+
+
+def rr_grams(dev, k: int, nx: int, seed: int):
+    """The Cholesky branch's f32 Grams (GA, GB) of a random SPD A over S =
+    [X | P | W] (X orthonormal, as in a solve) at k = 3 nx, on the card."""
+    g = np.random.default_rng(seed)
+    n = 12 * nx
+    M = g.standard_normal((n, n))
+    A = lt.DenseOperator(torch.from_numpy(M @ M.T / n + np.diag(
+        np.linspace(0.5, 4.0, n))).float().to(dev))
+    X = np.linalg.qr(g.standard_normal((n, nx)))[0]
+    S = [torch.from_numpy(B).float().to(dev)
+         for B in (X, g.standard_normal((n, nx)), g.standard_normal((n, k - 2 * nx)))]
+    return rayleigh._a_gram(S, None, A), gram.gram_blocks(S)
+
+
+def host_us(fn, reps: int = 200) -> float:
+    """Median host microseconds of one fn(), the queue emptied before each
+    call: what the host spends to issue it, its own waits included."""
+    fn()
+    out = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        out.append((time.perf_counter() - t0) * 1e6)
+    torch.cuda.synchronize()
+    return float(np.median(out))
+
+
+def rr_case(dev, k: int, nx: int) -> dict:
+    """csrc/rr.cu at one stage of f32 Grams: against its plain version
+    (flag, p_count, the Ritz values, span(Cx)), repeated bit for bit; ms
+    beside its bound and the plain chain's device ms, and each route's
+    host us a stage."""
+    GA, GB = rr_grams(dev, k, nx, seed=k)
+    kw = dict(nx=nx, tol_skip=5e-3, out_dtype=torch.float32)
+    got = krr.launch(GA, GB, nx, nx, **kw)
+    again = krr.launch(GA, GB, nx, nx, **kw)
+    want = krr.cholesky_stage_reference(GA, GB, nx, nx, **kw)
+    torch.cuda.synchronize()
+    lam, wlam = got[2].double(), want[2].double()
+    err = float((lam - wlam).abs().max()) / float(wlam.abs().max())
+    Gd = GB.double()
+
+    def proj(C):
+        C = C.double()
+        return C @ torch.linalg.solve(C.T @ Gd @ C, C.T @ Gd)
+
+    rec = {"phase": "kernel", "name": "rr_stage", "k": k, "nx": nx,
+           "dtype": "float32", "ok": [bool(got[3]), bool(want[3])],
+           "p_count": [got[4], want[4]],
+           "repeats": all(torch.equal(a, b) for a, b in zip(got[:4], again[:4])),
+           "max_abs_err": err, "lam_rel_err": err,
+           "cx_projector_err": float((proj(got[0]) - proj(want[0])).abs().max()),
+           "cp_projector_err": float((proj(got[1]) - proj(want[1])).abs().max())}
+    if not (rec["repeats"] and rec["ok"][0] == rec["ok"][1]
+            and rec["p_count"][0] == rec["p_count"][1] and err <= 1e-5
+            and rec["cx_projector_err"] <= 1e-4 and rec["cp_projector_err"] <= 1e-4):
+        emit(rec)
+        raise AssertionError(f"the Rayleigh-Ritz stage kernel at k {k}: {rec}")
+    bound_ms = rr_flops(k, nx) / F64_SM_FLOPS * 1e3
+    rec.update({
+        "ms": timed_untracked(lambda: krr.launch(GA, GB, nx, nx, **kw)),
+        "plain_ms": time_ms(lambda: krr.cholesky_stage_reference(GA, GB, nx, nx, **kw)),
+        "bound_ms": bound_ms, "bound_by": "f64 FMA of one SM",
+        "host_us_kernel": host_us(lambda: krr.launch(GA, GB, nx, nx, **kw)),
+        "host_us_plain": host_us(lambda: krr.cholesky_stage_reference(
+            GA, GB, nx, nx, **kw))})
+    rec["share_of_bound"] = bound_ms / rec["ms"]
+    emit(rec)
+    return rec
+
+
+def rr_solve_check(dev, it_cap: int = 64) -> dict:
+    """lobpcg on lap3d_160.nd's problem (the 160^3 LaplacianND, nev 10,
+    size_sub 16, the cell's settings) capped at ``it_cap`` iterations: every
+    Cholesky-branch Rayleigh-Ritz takes the kernel (one launch each, no
+    fallback)."""
+    from lobpcg_tpu_torch.solvers import lobpcg as lobpcg_mod
+
+    A = lt.LaplacianND(scale=LAP3D_SCALE, grid=LAP3D_GRID)
+    n = math.prod(LAP3D_GRID)
+    X0 = torch.rand((n, 16), device=dev,
+                    generator=torch.Generator(device=dev).manual_seed(5)) - 0.5
+    cfg = lt.SolverConfig(nev=10, size_sub=16, tol=1e-5, max_iter=4000,
+                          gram_precision="high", rr_method="cholesky")
+    calls = []
+    rr = lobpcg_mod.rayleigh_ritz_modified
+
+    def counting(*args, **kwargs):
+        calls.append(int(args[4]))
+        return rr(*args, **kwargs)
+
+    lobpcg_mod.rayleigh_ritz_modified = counting
+    zero_counts()
+    fallbacks = krr.cholesky_stage.fallbacks
+    try:
+        r = lt.lobpcg(A, X0, config=cfg, it_cap=it_cap,
+                      generator=torch.Generator(device=dev).manual_seed(6))
+        torch.cuda.synchronize()
+    finally:
+        lobpcg_mod.rayleigh_ritz_modified = rr
+    rec = {"phase": "rr_stage_solve", "grid": list(LAP3D_GRID),
+           "iterations": int(r.iterations), "rr_calls": len(calls),
+           "cholesky_calls": calls.count(0),
+           "launches": krr.cholesky_stage.launches,
+           "fallbacks": krr.cholesky_stage.fallbacks - fallbacks}
+    emit(rec)
+    if rec["launches"] != rec["cholesky_calls"] or rec["fallbacks"] or \
+            rec["iterations"] != it_cap:
+        raise AssertionError(f"the Rayleigh-Ritz stage on lap3d_160's solve: {rec}")
+    return rec
+
+
+def rr_phase(dev) -> tuple[list[dict], dict]:
+    """The Rayleigh-Ritz stage kernel at RR_SHAPES, then its route on a
+    capped lap3d_160 solve."""
+    recs = [rr_case(dev, k, nx) for k, nx in RR_SHAPES]
+    free()
+    return recs, rr_solve_check(dev)
 
 
 def quickstart_phase(dev) -> None:
@@ -3043,6 +3197,7 @@ def main() -> None:
     tail_recs = tail_phase(dev)
     gram_recs = gram_phase(dev)
     proj_recs = proj_phase(dev)
+    rr_recs, rr_solve = rr_phase(dev)
     k7_recs = copy_phase(dev)
     quickstart_phase(dev)
     main_rec, main_lam = main_phase(dev, "highest")
@@ -3166,6 +3321,10 @@ def main() -> None:
         # launched on the BdG solve (its [4M, 64] projections).
         kernel_entry("tall_proj", main_rec["launches"]["tall_proj"], proj_recs,
                      proj_recs[0]),
+        # The Rayleigh-Ritz stage at lap3d_160.nd's k 48, launched on its
+        # capped solve (the BdG solves run ilobpcg, whose stage is
+        # ops/indefinite.py's).
+        kernel_entry("rr_stage", rr_solve["launches"], rr_recs, rr_recs[0]),
     ]}
     emit(kernels)
     idle = [e["name"] for e in kernels["kernels"] if e["launches"] < 1]

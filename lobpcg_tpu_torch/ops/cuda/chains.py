@@ -15,8 +15,10 @@ operation), whatever the device: the four tail kernels
 above this layer asks it.  The tall Gram is not governed.  The solver
 never opens the switch.
 
-``read``, ``as_mask`` and ``mm`` are pieces of those chains that the
-layers above use too (``ops/lanes.py``, ``ops/masking.py`` and
+``read``, ``as_mask`` and ``mm``, the live counts' helpers (``is_lanes``,
+``count``, ``minimum``, ``maximum``, ``clip``) and the Gram masks
+(``blocks_mask``, ``diag``, ``inject_diag``) are pieces of those chains
+that the layers above use too (``ops/lanes.py``, ``ops/masking.py`` and
 ``ops/gram.py`` take them from here).
 """
 
@@ -57,6 +59,40 @@ def read(t):
     return t
 
 
+def is_lanes(x) -> bool:
+    """Is ``x`` a per-problem [b] (or [b, ...]) tensor of a batched solve?"""
+    return isinstance(x, torch.Tensor) and x.dim() >= 1
+
+
+def count(x):
+    """A live count: a Python int, or lanes of counts."""
+    return x if is_lanes(x) else int(read(x))
+
+
+def minimum(a, b):
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return torch.minimum(a, b)
+    if isinstance(a, torch.Tensor):
+        return torch.clamp(a, max=b)
+    if isinstance(b, torch.Tensor):
+        return torch.clamp(b, max=a)
+    return min(a, b)
+
+
+def maximum(a, b):
+    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
+        return torch.maximum(a, b)
+    if isinstance(a, torch.Tensor):
+        return torch.clamp(a, min=b)
+    if isinstance(b, torch.Tensor):
+        return torch.clamp(b, min=a)
+    return max(a, b)
+
+
+def clip(x, lo, hi):
+    return minimum(maximum(x, lo), hi)
+
+
 def as_mask(width: int, live, device=None) -> torch.Tensor:
     """Normalize `live` to a boolean [width] mask ([b, width] for lanes).
 
@@ -70,6 +106,32 @@ def as_mask(width: int, live, device=None) -> torch.Tensor:
             ar = torch.arange(width, device=live.device)
             return ar < live[..., None]
     return torch.arange(width, device=device) < int(read(live))
+
+
+def blocks_mask(widths: tuple[int, ...], counts, device=None) -> torch.Tensor:
+    """Live mask for concatenated blocks, each with its own prefix count."""
+    parts = [as_mask(w, c, device) for w, c in zip(widths, counts)]
+    lead = max((p.shape[:-1] for p in parts), key=len)
+    return torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], dim=-1)
+
+
+def diag(v: torch.Tensor) -> torch.Tensor:
+    """The diagonal matrix of v [k] (or of each row of v [..., k])."""
+    return torch.diag(v) if v.dim() == 1 else torch.diag_embed(v)
+
+
+def inject_diag(G: torch.Tensor, live, diag_val) -> torch.Tensor:
+    """Replace dead rows/cols of a Gram matrix with diag_val * e_j e_j^T
+    (``diag_val`` a number, or one per problem)."""
+    k = G.shape[-1]
+    lm = as_mask(k, live, G.device)
+    keep = (lm[..., :, None] & lm[..., None, :]).to(G.dtype)
+    dead_diag = (~lm).to(G.dtype)
+    if isinstance(diag_val, torch.Tensor):
+        diag_val = diag_val.to(G.dtype)
+        if diag_val.dim():
+            diag_val = diag_val[..., None, None]
+    return G * keep + diag_val * diag(dead_diag)
 
 
 def mm(A: torch.Tensor, B: torch.Tensor) -> torch.Tensor:

@@ -1,4 +1,5 @@
-"""k x k Hermitian eigensolve with the JAX package's failure contract.
+"""k x k Hermitian eigensolve with the JAX package's failure contract, and
+the guarded Jacobi scaling the whitenings apply before it.
 
 The JAX package relies on ``jnp.linalg.eigh`` returning NaN for a
 non-finite input, and its rr-fail and ladder logic reads ``isfinite`` on
@@ -20,6 +21,11 @@ widening costs nothing measurable next to the tall contractions.
 
 On CUDA torch reads cuSOLVER's status back to the host after the solve,
 so each call waits on the device: a ``lobpcg.sync.eigh`` span.
+
+Both are plain pieces of the k x k layer that the kernel layer's own
+plain versions use too (``ops/cuda/rr.py``); ``ops/pencil.py``,
+``ops/svqb.py``, ``ops/ortho.py`` and ``ops/rayleigh.py`` take them from
+here.
 """
 
 from __future__ import annotations
@@ -45,3 +51,13 @@ def eigh(M: torch.Tensor):
     w = torch.where(finite[..., None], w.to(rdt), float("nan"))
     V = torch.where(finite[..., None, None], V.to(M.dtype), float("nan"))
     return w, V
+
+
+def scale_diag(G: torch.Tensor):
+    """Guarded Jacobi scaling: D_ii = 1/sqrt(|G_ii|), Gs = D G D."""
+    rdt = G.real.dtype if G.is_complex() else G.dtype
+    gd = torch.abs(torch.diagonal(G, dim1=-2, dim2=-1)).to(rdt)
+    pos = gd > 0
+    D = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, gd, 1.0)), 1.0)
+    Gs = (D[..., :, None] * G) * D[..., None, :].to(G.dtype)
+    return D, Gs

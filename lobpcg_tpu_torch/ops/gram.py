@@ -319,16 +319,6 @@ def gram_blocks_pre(blocks, Bblocks, out_dtype=None) -> torch.Tensor:
     return herm_tile_gram(blocks, Bblocks, out_dtype)
 
 
-def scale_diag(G: torch.Tensor):
-    """Guarded Jacobi scaling: D_ii = 1/sqrt(|G_ii|), Gs = D G D."""
-    rdt = G.real.dtype if G.is_complex() else G.dtype
-    gd = torch.abs(torch.diagonal(G, dim1=-2, dim2=-1)).to(rdt)
-    pos = gd > 0
-    D = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, gd, 1.0)), 1.0)
-    Gs = (D[..., :, None] * G) * D[..., None, :].to(G.dtype)
-    return D, Gs
-
-
 def frob_norm(X: torch.Tensor) -> torch.Tensor:
     """Frobenius norm of a k x k (replicated) matrix, in the real dtype
     (one per problem of a batch)."""

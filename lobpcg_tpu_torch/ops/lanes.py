@@ -15,20 +15,23 @@ helpers here take either form, so the solvers and ops are written once:
 A host read of a lanes tensor is one read for the whole batch, so the
 reads an iteration makes do not grow with b.  Each read of a tensor is a
 ``lobpcg.sync.read`` span (``utils/profiling.py``); a Python value opens
-none.
+none.  ``is_lanes``, ``count``, ``minimum``, ``maximum`` and ``clip`` are
+``ops/cuda/chains.py``'s, shared with the kernel layer's plain versions.
 """
 
 from __future__ import annotations
 
 import torch
 
-from lobpcg_tpu_torch.ops.cuda.chains import read
+from lobpcg_tpu_torch.ops.cuda.chains import (
+    clip,
+    count,
+    is_lanes,
+    maximum,
+    minimum,
+    read,
+)
 from lobpcg_tpu_torch.utils.profiling import SYNC_READ, span
-
-
-def is_lanes(x) -> bool:
-    """Is ``x`` a per-problem [b] (or [b, ...]) tensor of a batched solve?"""
-    return isinstance(x, torch.Tensor) and x.dim() >= 1
 
 
 def read_pair(a, b):
@@ -37,11 +40,6 @@ def read_pair(a, b):
         return a, b
     with span(SYNC_READ):
         return torch.stack([a, b]).tolist()
-
-
-def count(x):
-    """A live count: a Python int, or lanes of counts."""
-    return x if is_lanes(x) else int(read(x))
 
 
 def any_(flag) -> bool:
@@ -67,30 +65,6 @@ def not_(flag):
 def as_int(flag):
     """A flag as a 0/1 count."""
     return flag.long() if isinstance(flag, torch.Tensor) else int(flag)
-
-
-def minimum(a, b):
-    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-        return torch.minimum(a, b)
-    if isinstance(a, torch.Tensor):
-        return torch.clamp(a, max=b)
-    if isinstance(b, torch.Tensor):
-        return torch.clamp(b, max=a)
-    return min(a, b)
-
-
-def maximum(a, b):
-    if isinstance(a, torch.Tensor) and isinstance(b, torch.Tensor):
-        return torch.maximum(a, b)
-    if isinstance(a, torch.Tensor):
-        return torch.clamp(a, min=b)
-    if isinstance(b, torch.Tensor):
-        return torch.clamp(b, min=a)
-    return max(a, b)
-
-
-def clip(x, lo, hi):
-    return minimum(maximum(x, lo), hi)
 
 
 def zeros(lanes: int | None, device):

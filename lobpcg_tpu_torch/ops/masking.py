@@ -9,7 +9,9 @@ eigensolves stay well-posed.
 Batched (``ops/lanes.py``): blocks and Grams may carry a leading batch
 dimension, counts may be [b] integer tensors and masks [b, w] boolean
 tensors, one per problem.  An unbatched count is a Python int; a count
-read from the device is read through ``lanes.read``.
+read from the device is read through ``lanes.read``.  ``as_mask``,
+``blocks_mask``, ``diag`` and ``inject_diag`` are ``ops/cuda/chains.py``'s,
+shared with the kernel layer's plain versions.
 """
 
 from __future__ import annotations
@@ -18,14 +20,12 @@ import torch
 
 from lobpcg_tpu_torch.ops import lanes
 from lobpcg_tpu_torch.ops.cuda import tail
-from lobpcg_tpu_torch.ops.cuda.chains import as_mask
-
-
-def blocks_mask(widths: tuple[int, ...], counts, device=None) -> torch.Tensor:
-    """Live mask for concatenated blocks, each with its own prefix count."""
-    parts = [as_mask(w, c, device) for w, c in zip(widths, counts)]
-    lead = max((p.shape[:-1] for p in parts), key=len)
-    return torch.cat([p.expand(lead + p.shape[-1:]) for p in parts], dim=-1)
+from lobpcg_tpu_torch.ops.cuda.chains import (
+    as_mask,
+    blocks_mask,
+    diag,
+    inject_diag,
+)
 
 
 def mask_cols(U: torch.Tensor, live, out=None) -> torch.Tensor:
@@ -47,25 +47,6 @@ def permute_cols(U: torch.Tensor, perm: torch.Tensor) -> torch.Tensor:
     if perm.dim() == 1:
         return U[..., perm]
     return torch.take_along_dim(U, perm[..., None, :], dim=-1)
-
-
-def diag(v: torch.Tensor) -> torch.Tensor:
-    """The diagonal matrix of v [k] (or of each row of v [..., k])."""
-    return torch.diag(v) if v.dim() == 1 else torch.diag_embed(v)
-
-
-def inject_diag(G: torch.Tensor, live, diag_val) -> torch.Tensor:
-    """Replace dead rows/cols of a Gram matrix with diag_val * e_j e_j^T
-    (``diag_val`` a number, or one per problem)."""
-    k = G.shape[-1]
-    lm = as_mask(k, live, G.device)
-    keep = (lm[..., :, None] & lm[..., None, :]).to(G.dtype)
-    dead_diag = (~lm).to(G.dtype)
-    if isinstance(diag_val, torch.Tensor):
-        diag_val = diag_val.to(G.dtype)
-        if diag_val.dim():
-            diag_val = diag_val[..., None, None]
-    return G * keep + diag_val * diag(dead_diag)
 
 
 def dead_mass(V: torch.Tensor, live) -> torch.Tensor:

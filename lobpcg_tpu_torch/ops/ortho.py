@@ -33,9 +33,9 @@ from lobpcg_tpu_torch.ops.gram import (
     mm,
     mm_masked,
     ortho_err,
-    scale_diag,
     tall_frob_norm,
 )
+from lobpcg_tpu_torch.ops.cuda.linalg import scale_diag
 from lobpcg_tpu_torch.ops.rows import row_sum
 from lobpcg_tpu_torch.ops.svqb import _svqb_transform, svqb_mat
 from lobpcg_tpu_torch.operators.linop import LinearOperator

@@ -27,7 +27,7 @@ import torch
 
 from lobpcg_tpu_torch.ops import lanes, masking
 from lobpcg_tpu_torch.ops.gram import mm
-from lobpcg_tpu_torch.ops.linalg import eigh
+from lobpcg_tpu_torch.ops.cuda.linalg import eigh
 from lobpcg_tpu_torch.utils.profiling import SYNC_COPY, span
 
 BIG = 1e30

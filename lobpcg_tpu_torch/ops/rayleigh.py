@@ -7,8 +7,10 @@ extraction reads X-content from the first nx rows; non-definiteness
 (s_min <= 0) raises the retry flag 2.  Dead subspace coordinates carry
 identity in the B-Gram and a sentinel above every live Ritz value.
 Batched (``ops/lanes.py``), the flag and counts are [b] lanes and the
-ortho / Cholesky branch is chosen per problem.  Each entry point is a
-``lobpcg.rr`` span (``utils/profiling.py``).
+ortho / Cholesky branch is chosen per problem.  The Cholesky branch's
+k x k stage, from the Grams to the Ritz coefficients and the flag, is
+``ops/cuda/rr.py:cholesky_stage`` (one launch of csrc/rr.cu on the card).
+Each entry point is a ``lobpcg.rr`` span (``utils/profiling.py``).
 """
 
 from __future__ import annotations
@@ -18,6 +20,9 @@ from typing import NamedTuple, Optional
 import torch
 
 from lobpcg_tpu_torch.ops import lanes, masking
+from lobpcg_tpu_torch.ops.cuda import rr as rr_kernel
+from lobpcg_tpu_torch.ops.cuda.linalg import eigh
+from lobpcg_tpu_torch.ops.cuda.rr import cp_extract, whiten_block
 from lobpcg_tpu_torch.ops.gram import (
     applied_blocks,
     as_blocks,
@@ -28,9 +33,7 @@ from lobpcg_tpu_torch.ops.gram import (
     gram_self,
     herm_tile_gram,
     mm,
-    scale_diag,
 )
-from lobpcg_tpu_torch.ops.linalg import eigh
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.utils.profiling import RR, spanned
 
@@ -43,68 +46,10 @@ class RRResult(NamedTuple):
     p_count: int  # number of valid Cp columns ([b] lanes)
 
 
-def _whiten_block(M):
-    """Spectral whitening of one Hermitian block: F = D U s^{-1/2} from
-    eigh(D M D) = U s U^H satisfies F^H M F = I when M is HPD.
-    Returns (F, ok, s_min, s_max) over the full scaled spectrum."""
-    D, Ms = scale_diag(M)
-    s, U = eigh(Ms)  # ascending
-    ok = torch.isfinite(s[..., 0]) & (s[..., 0] > 0) & (s[..., -1] > 0)
-    s_safe = torch.where(s > 0, s, 1.0)
-    F = (D[..., :, None].to(U.dtype) * U) \
-        * torch.rsqrt(s_safe)[..., None, :].to(U.dtype)
-    return F, ok, s_safe[..., 0], s_safe[..., -1]
-
-
-def _block_dinv_r(G, nx: int):
-    """Whitening transform for the B-Gram over [X | P W]: DiR with
-    DiR^H G DiR = I, block-upper-triangular with the block boundary at
-    nx (whiten X, B-orthogonalize [P W] against it through the Schur
-    complement, whiten that).  Returns (DiR [k,k], ok, rcond)."""
-    k = G.shape[-1]
-    Fx, ok1, s1_lo, s1_hi = _whiten_block(G[..., :nx, :nx])
-    E = mm(Fx.mH, G[..., :nx, nx:])
-    Sc = G[..., nx:, nx:] - mm(E.mH, E)
-    Sc = 0.5 * (Sc + Sc.mH)
-    Fs, ok2, s2_lo, s2_hi = _whiten_block(Sc)
-    top = torch.cat([Fx, -mm(Fx, mm(E, Fs))], dim=-1)
-    bot = torch.cat(
-        [Fs.new_zeros(Fs.shape[:-2] + (k - nx, nx)), Fs],
-        dim=-1,
-    )
-    DiR = torch.cat([top, bot], dim=-2)
-    ok = ok1 & ok2
-    rcond = torch.where(
-        ok,
-        torch.sqrt(torch.minimum(s1_lo, s2_lo) / torch.maximum(s1_hi, s2_hi)),
-        0.0,
-    )
-    return DiR, ok, rcond
-
-
 def _sentinel(H, live):
     """Inject big*I into dead coordinates; big > any live eigenvalue."""
     big = 2.0 * frob_norm(H) + 1.0
     return masking.inject_diag(H, live, big.to(H.dtype))
-
-
-def _cp_extract(Z, nx: int, DiR: Optional[torch.Tensor], n_live: int):
-    """Duersch Alg. 7: Cp = [D_inv_R] V_perp Q, Q = QR-basis of Z1_perp^T
-    (plain transpose).  Only the live unwanted eigenvectors (the first
-    n_live - nx columns of Z_perp) take part; the result has
-    p_count = clip(n_live - nx, 0, nx) columns.  Kept on QR, for the
-    reason the JAX package's docstring gives.  Returns (Cp, p_count)."""
-    k = Z.shape[-1]
-    Zp = Z[..., nx:]
-    zp_live = lanes.clip(n_live - nx, 0, k - nx)
-    p_count = lanes.clip(n_live - nx, 0, nx)
-    Zp = masking.mask_cols(Zp, zp_live)
-    Z1t = Zp[..., :nx, :].transpose(-2, -1)
-    Q, _ = torch.linalg.qr(Z1t)
-    Cp = mm(Zp, Q)
-    if DiR is not None:
-        Cp = mm(DiR, Cp)
-    return masking.mask_cols(Cp, p_count), p_count
 
 
 @spanned(RR)
@@ -117,7 +62,7 @@ def rayleigh_ritz(
     """Initial RR on a full-width block: returns (Cx [m,m], lam [m]).
     A non-definite start Gram poisons the outputs with NaN."""
     G = gram_self(X, B, out_dtype=rr_dtype)
-    DiR, def_ok, _, _ = _whiten_block(G)
+    DiR, def_ok, _, _ = whiten_block(G)
     DiR = torch.where(def_ok[..., None, None], DiR, float("nan"))
     Ap = gram_self(X, A, out_dtype=rr_dtype, role="A")
     T1 = mm(Ap, DiR)
@@ -161,19 +106,17 @@ def rayleigh_ritz_modified(
     k = sum(b.shape[-1] for b in blocks)
     m = nx
     dev = blocks[0].device
-    live = masking.blocks_mask((m, m, k - 2 * m), (m, np_act, nw_act), dev)
-    n_live = m + lanes.count(np_act) + lanes.count(nw_act)
-    GA = masking.inject_diag(
-        _a_gram(blocks, AX, A, out_dtype=rr_dtype, pack=pack), live, 0.0
-    )
+    GA = _a_gram(blocks, AX, A, out_dtype=rr_dtype, pack=pack)
     sdt = blocks_dtype(S)
 
     def ortho_branch():
-        H = _sentinel(GA, live)
+        live = masking.blocks_mask((m, m, k - 2 * m), (m, np_act, nw_act), dev)
+        n_live = m + lanes.count(np_act) + lanes.count(nw_act)
+        H = _sentinel(masking.inject_diag(GA, live, 0.0), live)
         w, Z = eigh(H)
         Cx = Z[..., :nx]
         lam = w[..., :nx]
-        Cp, p_cnt = _cp_extract(Z, nx, None, n_live)
+        Cp, p_cnt = cp_extract(Z, nx, None, n_live)
         return RRResult(Cx.to(sdt), Cp.to(sdt), lam, 1, p_cnt)
 
     def cholesky_branch():
@@ -181,28 +124,9 @@ def rayleigh_ritz_modified(
             gram_blocks(blocks, B, out_dtype=rr_dtype) if Bblocks is None
             else gram_blocks_pre(blocks, Bblocks, out_dtype=rr_dtype)
         )
-        GB = masking.inject_diag(GB, live, 1.0)
-        DiR, def_ok, rcond = _block_dinv_r(GB, nx)
-        ok = def_ok & (rcond >= tol_skip)
-        DiR = torch.where(
-            def_ok[..., None, None], DiR,
-            torch.eye(k, dtype=DiR.dtype, device=DiR.device)
-        )
-        T1 = mm(GA, DiR)
-        H = mm(DiR.mH, T1)
-        H = 0.5 * (H + H.mH)
-        # Dead-coordinate sentinels in pencil form: H + big * K^H K with
-        # K the dead rows of DiR; big a Gershgorin bound off the actual H.
-        gersh = torch.amax(torch.sum(torch.abs(H), dim=-1), dim=-1)
-        big = (2.0 * gersh + 1.0).to(H.dtype)
-        dead_rows = (~live).to(DiR.dtype)
-        K = DiR * dead_rows[..., :, None]
-        H = H + big[..., None, None] * mm(K.mH, K)
-        w, Z = eigh(H)
-        Cx = mm(DiR, Z[..., :nx])
-        lam = w[..., :nx]
-        Cp, p_cnt = _cp_extract(Z, nx, DiR, n_live)
+        Cx, Cp, lam, ok, p_cnt = rr_kernel.cholesky_stage(
+            GA, GB, np_act, nw_act, nx=nx, tol_skip=tol_skip, out_dtype=sdt)
         flag = lanes.select(lanes.read(ok), 0, 2)
-        return RRResult(Cx.to(sdt), Cp.to(sdt), lam, flag, p_cnt)
+        return RRResult(Cx, Cp, lam, flag, p_cnt)
 
     return lanes.cond(use_ortho >= 1, ortho_branch, cholesky_branch)

@@ -14,8 +14,8 @@ from typing import Optional
 import torch
 
 from lobpcg_tpu_torch.ops import lanes, masking
-from lobpcg_tpu_torch.ops.gram import gram_self, gram_self_mat, mm, mm_masked, scale_diag
-from lobpcg_tpu_torch.ops.linalg import eigh
+from lobpcg_tpu_torch.ops.cuda.linalg import eigh, scale_diag
+from lobpcg_tpu_torch.ops.gram import gram_self, gram_self_mat, mm, mm_masked
 from lobpcg_tpu_torch.operators.linop import LinearOperator
 from lobpcg_tpu_torch.utils.profiling import ORTHO, spanned
 

@@ -16,7 +16,14 @@ the call sites inside ``chains.eager_chain()`` are held to bit for bit
   its rows local: the swapped rows, then a multiply by the row scales;
 - ``residual``: ``get_residual``, AX - BX * lam cast to BX's dtype;
 - ``b_mm``: a ``torch.matmul`` a term, added left to right by ``+``;
-  ``b_mm_update``: ``mask(U - b_mm)``; ``mm_masked``: ``mask(U @ T)``.
+  ``b_mm_update``: ``mask(U - b_mm)``; ``mm_masked``: ``mask(U @ T)``;
+- ``rr_cholesky``: the standard Rayleigh-Ritz's Cholesky branch from its
+  Grams GA and GB to (Cx, Cp, lam, ok, p_count), as ``ops/rayleigh.py``
+  ran it before ``csrc/rr.cu``: the blocks' live mask, the dead diagonals
+  injected, the block whitening through two ``eigh`` of Jacobi-scaled
+  blocks, H = DiR^T GA DiR with dead-row sentinels, ``eigh``, and Cp from
+  a QR (``eigh``: ``ops/linalg.py``'s, the finite check, the symmetrized
+  matrix solved in float64 and rounded back, NaN where not finite).
 """
 
 import torch
@@ -93,3 +100,81 @@ def b_mm_update(U: torch.Tensor, blocks, C: torch.Tensor, live) -> torch.Tensor:
 
 def mm_masked(U: torch.Tensor, T: torch.Tensor, live) -> torch.Tensor:
     return mask(torch.matmul(U, T), live)
+
+
+def _clip(x, lo, hi):
+    if isinstance(x, torch.Tensor):
+        return torch.clamp(torch.clamp(x, min=lo), max=hi)
+    return min(max(x, lo), hi)
+
+
+def eigh(M: torch.Tensor):
+    finite = torch.isfinite(M).flatten(-2).all(-1)
+    eye = torch.eye(M.shape[-1], dtype=M.dtype, device=M.device)
+    Msafe = torch.where(finite[..., None, None], 0.5 * (M + M.mH), eye)
+    wide = {torch.float32: torch.float64,
+            torch.complex64: torch.complex128}.get(M.dtype, M.dtype)
+    w, V = torch.linalg.eigh(Msafe.to(wide))
+    rdt = M.dtype.to_real() if M.is_complex() else M.dtype
+    w = torch.where(finite[..., None], w.to(rdt), float("nan"))
+    V = torch.where(finite[..., None, None], V.to(M.dtype), float("nan"))
+    return w, V
+
+
+def _inject(G: torch.Tensor, lm: torch.Tensor, val: float) -> torch.Tensor:
+    keep = (lm[..., :, None] & lm[..., None, :]).to(G.dtype)
+    dead = (~lm).to(G.dtype)
+    return G * keep + val * (torch.diag(dead) if dead.dim() == 1
+                             else torch.diag_embed(dead))
+
+
+def _whiten(M: torch.Tensor):
+    gd = torch.abs(torch.diagonal(M, dim1=-2, dim2=-1))
+    pos = gd > 0
+    D = torch.where(pos, 1.0 / torch.sqrt(torch.where(pos, gd, 1.0)), 1.0)
+    s, U = eigh((D[..., :, None] * M) * D[..., None, :])
+    ok = torch.isfinite(s[..., 0]) & (s[..., 0] > 0) & (s[..., -1] > 0)
+    s_safe = torch.where(s > 0, s, 1.0)
+    F = (D[..., :, None] * U) * torch.rsqrt(s_safe)[..., None, :]
+    return F, ok, s_safe[..., 0], s_safe[..., -1]
+
+
+def rr_cholesky(GA, GB, np_act, nw_act, nx, tol_skip, out_dtype):
+    k, m = GA.shape[-1], nx
+    parts = [live_mask(m, m, GA.device), live_mask(m, np_act, GA.device),
+             live_mask(k - 2 * m, nw_act, GA.device)]
+    lead = max((q.shape[:-1] for q in parts), key=len)
+    lm = torch.cat([q.expand(lead + q.shape[-1:]) for q in parts], dim=-1)
+    n_live = m + (np_act if isinstance(np_act, torch.Tensor) and np_act.dim()
+                  else int(np_act)) \
+        + (nw_act if isinstance(nw_act, torch.Tensor) and nw_act.dim()
+           else int(nw_act))
+    GA = _inject(GA, lm, 0.0)
+    GB = _inject(GB, lm, 1.0)
+    Fx, ok1, lo1, hi1 = _whiten(GB[..., :nx, :nx])
+    E = torch.matmul(Fx.mH, GB[..., :nx, nx:])
+    Sc = GB[..., nx:, nx:] - torch.matmul(E.mH, E)
+    Sc = 0.5 * (Sc + Sc.mH)
+    Fs, ok2, lo2, hi2 = _whiten(Sc)
+    top = torch.cat([Fx, -torch.matmul(Fx, torch.matmul(E, Fs))], dim=-1)
+    bot = torch.cat([Fs.new_zeros(Fs.shape[:-2] + (k - nx, nx)), Fs], dim=-1)
+    DiR = torch.cat([top, bot], dim=-2)
+    def_ok = ok1 & ok2
+    rcond = torch.where(
+        def_ok, torch.sqrt(torch.minimum(lo1, lo2) / torch.maximum(hi1, hi2)),
+        0.0)
+    ok = def_ok & (rcond >= tol_skip)
+    DiR = torch.where(def_ok[..., None, None], DiR,
+                      torch.eye(k, dtype=DiR.dtype, device=DiR.device))
+    H = torch.matmul(DiR.mH, torch.matmul(GA, DiR))
+    H = 0.5 * (H + H.mH)
+    big = 2.0 * torch.amax(torch.sum(torch.abs(H), dim=-1), dim=-1) + 1.0
+    K = DiR * (~lm).to(DiR.dtype)[..., :, None]
+    H = H + big[..., None, None] * torch.matmul(K.mH, K)
+    w, Z = eigh(H)
+    Cx = torch.matmul(DiR, Z[..., :nx])
+    Zp = mask(Z[..., nx:], _clip(n_live - nx, 0, k - nx))
+    Q, _ = torch.linalg.qr(Zp[..., :nx, :].transpose(-2, -1))
+    p_count = _clip(n_live - nx, 0, nx)
+    Cp = mask(torch.matmul(DiR, torch.matmul(Zp, Q)), p_count)
+    return (Cx.to(out_dtype), Cp.to(out_dtype), w[..., :nx], ok, p_count)

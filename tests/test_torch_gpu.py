@@ -2378,3 +2378,203 @@ def test_tall_proj_is_the_cublas_route_bit_for_bit_on_card(cuda_device, n, terms
         want = kp.library(blocks, C, U, live)
         got = kp.launch(blocks, C, U, live)
     assert _same_bits(got, want)
+
+
+# --- the Rayleigh-Ritz stage kernel (csrc/rr.cu) --------------------------------
+
+from lobpcg_tpu_torch.ops import rayleigh as _rayleigh  # noqa: E402
+from lobpcg_tpu_torch.ops.cuda import rr as krr  # noqa: E402
+from lobpcg_tpu_torch.solvers import lobpcg as _lobpcg_mod  # noqa: E402
+
+
+def _rr_grams(seed, m, np_act, nw_act, lead, dtype, device, how=None):
+    """The Cholesky branch's Grams (GA, GB) of a random SPD A over S = [X |
+    P | W] (X orthonormal as in a solve, or random; P and W with their dead
+    columns zero), assembled as the solver does, on ``device``; ``how``:
+    "random_x", "nan_ga", "indefinite_gb" (a negative diagonal in W's
+    block), "ill_gb" (W's first column X's first plus 1e-4 P's)."""
+    g = np.random.default_rng(seed)
+    n = 12 * m
+    M = g.standard_normal((n, n))
+    A = torch.from_numpy(M @ M.T / n + np.diag(np.linspace(0.5, 4.0, n))).to(dtype)
+    b = int(np.prod(lead))
+    Xs, Ps, Ws = [], [], []
+    for t in range(b):
+        X = g.standard_normal((n, m))
+        if how != "random_x":
+            X = np.linalg.qr(X)[0]
+        P, W = g.standard_normal((n, m)), g.standard_normal((n, m))
+        if how == "ill_gb":
+            W[:, 0] = X[:, 0] + 1e-4 * P[:, 0]
+        P[:, int(np_act[t] if isinstance(np_act, torch.Tensor) else np_act):] = 0.0
+        W[:, int(nw_act[t] if isinstance(nw_act, torch.Tensor) else nw_act):] = 0.0
+        Xs.append(X), Ps.append(P), Ws.append(W)
+    S = [torch.from_numpy(np.stack(B).reshape(lead + (n, m))).to(dtype).to(device)
+         for B in (Xs, Ps, Ws)]
+    Aop = tl.DenseOperator(A.to(device))
+    GA = _rayleigh._a_gram(S, None, Aop)
+    from lobpcg_tpu_torch.ops.gram import gram_blocks
+
+    GB = gram_blocks(S)
+    if how == "nan_ga":
+        GA[..., 1, 2] = float("nan")
+    if how == "indefinite_gb":
+        GB[..., -1, -1] = -GB[..., -1, -1]
+    return GA, GB
+
+
+def _projector(C, G):
+    return C @ torch.linalg.solve(C.mT @ G @ C, C.mT @ G)
+
+
+_B4 = [4, 16, 0, 9]
+RR_CASES = [  # (name, m, np_act, nw_act, lead, how, ok)
+    ("k 12", 4, 4, 4, (), None, True),
+    ("k 30, dead P and W", 10, 3, 7, (), None, True),
+    ("k 30, p_count 0", 10, 0, 0, (), None, True),
+    ("k 48, the cell's", 16, 16, 16, (), None, True),
+    ("k 48, X random", 16, 16, 16, (), "random_x", True),
+    ("k 48, dead P and W", 16, 5, 9, (), None, True),
+    ("k 48, W dead", 16, 16, 0, (), None, True),
+    ("MAX_K", krr.MAX_K // 3, krr.MAX_K // 3, krr.MAX_K // 3, (), None, True),
+    ("MAX_K, dead P and W", krr.MAX_K // 3, 20, 7, (), None, True),
+    ("k 48, a non-finite GA", 16, 16, 16, (), "nan_ga", True),
+    ("k 30, a non-definite GB", 10, 10, 10, (), "indefinite_gb", False),
+    ("k 30, rcond below tol_skip", 10, 10, 10, (), "ill_gb", False),
+    ("[4, 48, 48], [4] counts", 16, "b4", "b4r", (4,), None, True),
+]
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("name,m,np_act,nw_act,lead,how,want_ok", RR_CASES,
+                         ids=[c[0] for c in RR_CASES])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_rr_stage_kernel_matches_plain_on_card(cuda_device, name, m, np_act,
+                                               nw_act, lead, how, want_ok, dtype):
+    """csrc/rr.cu against its plain version on the card (cuSOLVER's eigh,
+    the float32 or float64 chain): flags and p_count equal; the Ritz values
+    to 1e-5 (f32 Grams) or 1e-12 (f64) of the largest; span(Cx) and
+    span(Cp) by their GB-orthogonal projectors, except where rcond is below
+    tol_skip (the whitening's 1/rcond^2 amplifies each side's rounding, and
+    the solver retries such a stage); a non-finite GA gives NaN outputs on
+    both; one launch, repeated bit for bit."""
+    if np_act == "b4":
+        np_act = torch.tensor(_B4, device=cuda_device)
+        nw_act = torch.tensor(_B4[::-1], device=cuda_device)
+    GA, GB = _rr_grams(3 * m, m, np_act, nw_act, lead, dtype, cuda_device, how)
+    kw = dict(nx=m, tol_skip=5e-3, out_dtype=dtype)
+    assert krr.takes(GA, GB, np_act, nw_act, m, dtype)
+    before = krr.cholesky_stage.launches
+    got = krr.launch(GA, GB, np_act, nw_act, **kw)
+    again = krr.launch(GA, GB, np_act, nw_act, **kw)
+    want = krr.cholesky_stage_reference(GA, GB, np_act, nw_act, **kw)
+    torch.cuda.synchronize()
+    assert krr.cholesky_stage.launches == before + 2
+    for x, y in zip(got[:4], again[:4]):
+        assert torch.equal(torch.nan_to_num(x, nan=7.0), torch.nan_to_num(y, nan=7.0))
+    Cx, Cp, lam, ok, p_count = got
+    wCx, wCp, wlam, wok, wp = want
+    assert Cx.dtype == wCx.dtype and lam.dtype == wlam.dtype and Cx.shape == wCx.shape
+    assert torch.equal(ok, wok) and bool(ok.all()) == want_ok
+    assert (torch.equal(p_count, wp) if lead else p_count == wp)
+    if how == "nan_ga":
+        for a, c in ((Cx, wCx), (Cp, wCp), (lam, wlam)):
+            assert bool(torch.isnan(a).all()) and bool(torch.isnan(c).all())
+        return
+    tol = 1e-5 if dtype == torch.float32 else 1e-12
+    assert float((lam - wlam).abs().max()) <= tol * float(wlam.abs().max())
+    k = GA.shape[-1]
+    live = torch.cat([torch.ones(lead + (m,), dtype=torch.bool, device=cuda_device),
+                      torch.arange(m, device=cuda_device) < torch.as_tensor(
+                          np_act, device=cuda_device)[..., None],
+                      torch.arange(k - 2 * m, device=cuda_device) < torch.as_tensor(
+                          nw_act, device=cuda_device)[..., None]], dim=-1)
+    live = live.expand(lead + (k,))
+    keep = (live[..., :, None] & live[..., None, :]).double()
+    G = GB.double() * keep + torch.diag_embed((~live).double())
+    if how == "indefinite_gb":
+        G = torch.eye(k, dtype=torch.float64, device=cuda_device).expand(lead + (k, k))
+    if how == "ill_gb":
+        return  # rcond ~1e-4, flag 2: the solver discards this stage's outputs
+    ptol = 1e-4 if dtype == torch.float32 else 1e-9
+    for b in range(int(np.prod(lead))):
+        sel = np.unravel_index(b, lead) if lead else ()
+        Gb = G[sel]
+        assert float((_projector(Cx[sel].double(), Gb)
+                      - _projector(wCx[sel].double(), Gb)).abs().max()) <= ptol
+        pc = int(p_count[sel]) if lead else p_count
+        assert torch.equal(Cp[sel][:, pc:], torch.zeros_like(Cp[sel][:, pc:]))
+        if pc:
+            assert float((_projector(Cp[sel][:, :pc].double(), Gb)
+                          - _projector(wCp[sel][:, :pc].double(), Gb)).abs().max()) <= ptol
+
+
+@pytest.mark.gpu
+def test_rr_stage_kernel_rejects_what_it_does_not_take(cuda_device):
+    G = torch.eye(99, device=cuda_device)
+    with pytest.raises(ValueError):
+        krr.launch(G, G, 33, 33, nx=33, tol_skip=5e-3, out_dtype=torch.float32)
+    G = torch.eye(48, device=cuda_device, dtype=torch.complex64)
+    with pytest.raises(ValueError):
+        krr.launch(G, G, 16, 16, nx=16, tol_skip=5e-3, out_dtype=torch.complex64)
+    G = torch.eye(48)
+    with pytest.raises(ValueError):
+        krr.launch(G, G, 16, 16, nx=16, tol_skip=5e-3, out_dtype=torch.float32)
+
+
+def _lap3d_24(device, monkeypatch, seed, plain=False):
+    """lobpcg on the 24^3 Dirichlet Laplacian at lap3d_160.nd's shapes
+    (nev 10, size_sub 16, f32, the cell's solver settings) from the start
+    ``seed``, counting the Cholesky-branch Rayleigh-Ritz calls; ``plain``:
+    ``takes`` refuses every stage, so each runs the plain version."""
+    h = 1.0 / 25
+    A = tl.LaplacianND(scale=1.0 / (h * h), grid=(24, 24, 24))
+    X0 = torch.rand((24 ** 3, 16), device=device,
+                    generator=torch.Generator(device=device).manual_seed(seed)) - 0.5
+    cfg = tl.SolverConfig(nev=10, size_sub=16, tol=1e-5, max_iter=1000,
+                          gram_precision="high", rr_method="cholesky")
+    calls = []
+    rr = _lobpcg_mod.rayleigh_ritz_modified
+
+    def counting(*args, **kwargs):
+        calls.append(int(args[4]))
+        return rr(*args, **kwargs)
+
+    monkeypatch.setattr(_lobpcg_mod, "rayleigh_ritz_modified", counting)
+    if plain:
+        monkeypatch.setattr(krr, "takes", lambda *a, **k: False)
+    counts = (krr.cholesky_stage.launches, krr.cholesky_stage.fallbacks)
+    r = tl.lobpcg(A, X0, config=cfg,
+                  generator=torch.Generator(device=device).manual_seed(seed + 1))
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    return r, calls, (krr.cholesky_stage.launches - counts[0],
+                      krr.cholesky_stage.fallbacks - counts[1])
+
+
+@pytest.mark.gpu
+def test_lap3d_solve_through_both_rr_routes_on_card(cuda_device, monkeypatch):
+    """A 24^3 LaplacianND lobpcg from twelve starts through the kernel and
+    through the plain version: equal converged counts, eigenvalues within
+    the solve's tolerance of each other and of the grid's own, the starts'
+    iterations within 3% in sum (a start alone moves by up to 12%: the f64
+    stage rounds otherwise than the f32 chain, and the grid's triple
+    eigenvalues let a trajectory turn on rounding; measured -1.8% in sum);
+    the kernel takes every Cholesky-branch Rayleigh-Ritz (one launch each,
+    no fallback), the plain route none."""
+    exact = torch.as_tensor(tl.laplacian_nd_eigs((24, 24, 24), 625.0, 10),
+                            dtype=torch.float64, device=cuda_device)
+    its = []
+    for seed in range(3, 15):
+        r, calls, (launches, fallbacks) = _lap3d_24(cuda_device, monkeypatch, seed)
+        rp, calls_p, (launches_p, fallbacks_p) = _lap3d_24(
+            cuda_device, monkeypatch, seed, plain=True)
+        assert r.converged == rp.converged == 10
+        lam, lam_p = r.eigenvalues.double(), rp.eigenvalues.double()
+        assert float(((lam - lam_p).abs() / lam_p).max()) <= 1e-4
+        assert float(((lam - exact).abs() / exact).max()) <= 2e-3
+        assert launches == calls.count(0) and fallbacks == 0
+        assert launches_p == 0 and fallbacks_p == calls_p.count(0)
+        its.append((int(r.iterations), int(rp.iterations)))
+    kernel, plain = sum(a for a, _ in its), sum(b for _, b in its)
+    assert abs(kernel - plain) <= 0.03 * plain, its

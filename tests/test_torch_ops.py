@@ -32,6 +32,8 @@ from lobpcg_tpu_torch.ops import pencil as tp
 from lobpcg_tpu_torch.ops import rayleigh as tr
 from lobpcg_tpu_torch.ops import residual as tres
 from lobpcg_tpu_torch.ops import svqb as tsv
+from lobpcg_tpu_torch.ops.cuda import linalg as tlin
+from lobpcg_tpu_torch.ops.cuda import rr as trr
 
 torch.set_num_threads(2)
 
@@ -168,7 +170,7 @@ def test_scale_diag_frob_and_ortho_err_match():
     G = rand(10, 6, 6)
     G = G + G.T
     G[2, 2] = 0.0  # guarded zero diagonal
-    Dt, Gst = tg.scale_diag(T(G))
+    Dt, Gst = tlin.scale_diag(T(G))
     Dj, Gsj = jg.scale_diag(J(G))
     close(Dt, Dj)
     close(Gst, Gsj)
@@ -408,7 +410,7 @@ def test_rayleigh_ritz_modified_matches(use_ortho, counts):
 
 def test_block_dinv_r_matches():
     G = spd(32, 9)
-    Dt, okt, rct = tr._block_dinv_r(T(G), 3)
+    Dt, okt, rct = trr.block_dinv_r(T(G), 3)
     Dj, okj, rcj = jr._block_dinv_r(J(G), 3)
     assert bool(okt) == bool(okj)
     close(rct, rcj, 1e-10)
