@@ -2578,3 +2578,63 @@ def test_lap3d_solve_through_both_rr_routes_on_card(cuda_device, monkeypatch):
         its.append((int(r.iterations), int(rp.iterations)))
     kernel, plain = sum(a for a, _ in its), sum(b for _, b in its)
     assert abs(kernel - plain) <= 0.03 * plain, its
+
+
+def _fem3d():
+    """(problem, reference, configuration, mix) of the benchmark's Q1
+    cell, loaded from bench_port/ by file."""
+    import pathlib
+    import sys
+
+    repo = pathlib.Path(__file__).resolve().parents[1]
+    if str(repo) not in sys.path:
+        sys.path.insert(0, str(repo))
+    from bench_port import spec
+
+    return (spec.load_module(repo / "bench_port/problems/fem3d.py"),
+            spec.load_module(repo / "bench_port/reference/fem3d.py"),
+            json.loads((repo / "bench_port/configs/fem3d_q1.json").read_text()),
+            json.loads((repo / "bench_port/mixes/solve_long_fem.json").read_text()))
+
+
+@pytest.mark.gpu
+def test_generalized_solve_through_two_bsr_operators_on_card(cuda_device,
+                                                             monkeypatch):
+    """The Q1 pencil K x = lambda M x at 32^3 interior nodes with
+    fem3d_q1.nev10's shapes and solver settings, K and M BSROperators:
+    every apply of either goes through K3, every pair converges, the
+    eigenvalues are within the cell's eig_rel_err of the closed form and
+    the backward errors within tol by the float64 reference; the stage
+    kernel takes every Cholesky-branch Rayleigh-Ritz with the true B-Gram
+    (one launch each, no fallback)."""
+    problem, ref, cfg, mix = _fem3d()
+    cfg = {**cfg, "grid": [32, 32, 32]}
+    nev, size_sub = int(mix["nev"]), int(mix["size_sub"])
+    p = problem.build(cfg, cuda_device)
+    config = problem.solver_config(cfg, nev, size_sub)
+    X0 = problem.well_draws(p, size_sub, torch.Generator(
+        device=cuda_device).manual_seed(7))
+    calls = []
+    rr = _lobpcg_mod.rayleigh_ritz_modified
+
+    def counting(*args, **kwargs):
+        calls.append(int(args[4]))
+        return rr(*args, **kwargs)
+
+    monkeypatch.setattr(_lobpcg_mod, "rayleigh_ritz_modified", counting)
+    stage = (krr.cholesky_stage.launches, krr.cholesky_stage.fallbacks)
+    k3 = kb.bsr_matmat.launches
+    r = problem.solve(p, X0, config,
+                      torch.Generator(device=cuda_device).manual_seed(8))
+    torch.cuda.synchronize()
+    monkeypatch.undo()
+    assert int(r.converged) == nev
+    lam = r.eigenvalues.double().cpu().numpy()
+    exact = ref.eigenvalues(cfg, nev)
+    assert float(np.max(np.abs(lam - exact) / exact)) <= \
+        mix["limits"]["eig_rel_err"]
+    assert float(ref.residuals(cfg, lam, r.eigenvectors).max()) <= \
+        cfg["solver"]["tol"]
+    assert kb.bsr_matmat.launches - k3 > 4 * int(r.iterations)
+    assert krr.cholesky_stage.launches - stage[0] == calls.count(0) > 0
+    assert krr.cholesky_stage.fallbacks == stage[1]
